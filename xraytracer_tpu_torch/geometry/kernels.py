@@ -1,0 +1,272 @@
+"""The triangle sweeps of the main path: CUDA kernels, their wrappers and
+their plain PyTorch versions.
+
+Counterpart of ``xraytracer_tpu/geometry/pallas_kernels.py``. Three kernels,
+one templated device function in ``csrc/sweep.cu``:
+
+* ``sweep_nearest`` replaces ``pallas_kernels.py::_sweep_kernel`` (through
+  ``sweep_pallas`` / ``intersect_triangles_pallas``): nearest triangle hit
+  per ray, ``(t, idx, u, v)``.
+* ``sweep_nearest_rec`` replaces ``pallas_kernels.py::_sweep_kernel_rec``
+  (through ``sweep_pallas_rec`` / ``intersect_triangles_pallas_rec``): the
+  same plus the winner's 32-float surface record.
+* ``occluded_anyhit`` replaces ``pallas_kernels.py::_anyhit_kernel``
+  (through ``occluded_triangles_pallas``): boolean any-hit closer than
+  ``t_max`` over a blocking mask.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current stream without
+synchronising, raises if the launch was refused, and counts the launch in
+``LAUNCHES``. A wrapper runs the plain version only for tensors that lie on
+the CPU (counted in ``PLAIN_CALLS``); for a CUDA tensor it launches the
+kernel or raises.
+
+The plain versions are the port of the JAX package's off-TPU sweep
+(``intersect_triangles_mm`` + ``tri_rec[idx]``, and ``t < t_max`` for the
+shadow sweep), so the port's CPU path is the same computation as the JAX
+package's CPU path. What bounds each kernel on the card and what the design
+does about it is noted at the top of ``csrc/sweep.cu``.
+"""
+
+import ctypes
+import weakref
+
+import torch
+
+from .types import Rays
+
+KERNEL_NAMES = ("sweep_nearest", "sweep_nearest_rec", "occluded_anyhit")
+
+# launches of each kernel, and calls of each plain version, since the last
+# ``reset_counts()``: plain ints, bumped exactly where a wrapper launches
+# its kernel (resp. where a plain version runs) and nowhere else
+LAUNCHES = {name: 0 for name in KERNEL_NAMES}
+PLAIN_CALLS = {name: 0 for name in KERNEL_NAMES}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    # o, d, n, v0, e1, e2, valid, t_total, center, [extra in], outs, stream
+    "sweep_nearest": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "sweep_nearest_rec": [
+        _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+    ],
+    "occluded_anyhit": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+}
+
+
+def _bind(lib):
+    """Declare the launchers' C signatures on a loaded sweep library."""
+    if not getattr(lib, "_xrt_bound", False):
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib._xrt_bound = True
+    return lib
+
+
+def _lib():
+    from .._build import load
+
+    return _bind(load("sweep"))
+
+
+def _check(name, x, dtype, shape, device):
+    if not torch.is_tensor(x):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_sweep_inputs(o, d, v0, e1, e2, mask):
+    """Validate the common inputs; returns (n, t_total, mask as uint8)."""
+    dev = o.device
+    f32 = torch.float32
+    if o.dim() != 2 or v0.dim() != 2:
+        raise ValueError("o must be (N, 3) and v0 (T, 3)")
+    n, t_total = o.shape[0], v0.shape[0]
+    _check("o", o, f32, (n, 3), dev)
+    _check("d", d, f32, (n, 3), dev)
+    _check("v0", v0, f32, (t_total, 3), dev)
+    _check("e1", e1, f32, (t_total, 3), dev)
+    _check("e2", e2, f32, (t_total, 3), dev)
+    if mask.dtype == torch.bool:
+        _check("mask", mask, torch.bool, (t_total,), dev)
+        mask = mask.view(torch.uint8)
+    else:
+        _check("mask", mask, torch.uint8, (t_total,), dev)
+    if n >= 2 ** 31 // 32 or t_total >= 2 ** 31 // 32:
+        raise ValueError("ray or triangle count exceeds the kernels' int32 indexing")
+    return n, t_total, mask
+
+
+def _launch(name, args):
+    rc = getattr(_lib(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error code {rc}")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+# the last table's centroid: (weak reference to v0, v0._version, centroid)
+_center_cache = (None, None, None)
+
+
+def _center(v0):
+    """Triangle-table centroid (3,), the origin of the centred coordinates
+    both the kernels and the plain sweep evaluate the bilinear forms in.
+    A render sweeps one constant table thousands of times, so the centroid
+    of the last table is kept and reduced again only when another tensor,
+    or the same one after an in-place write, comes in."""
+    global _center_cache
+    ref, version, center = _center_cache
+    if ref is not None and ref() is v0 and version == v0._version:
+        return center
+    if v0.shape[0] == 0:
+        center = torch.zeros((3,), dtype=v0.dtype, device=v0.device)
+    else:
+        center = torch.mean(v0, dim=0).contiguous()
+    _center_cache = (weakref.ref(v0), v0._version, center)
+    return center
+
+
+# --------------------------------------------------------------------------
+# K2: nearest hit
+# --------------------------------------------------------------------------
+def sweep_nearest_plain(o, d, v0, e1, e2, valid):
+    """Plain PyTorch version of ``sweep_nearest``: the matmul-form sweep
+    with the stable winner epilogue. Returns (t, idx, u, v)."""
+    from .intersect import intersect_triangles_mm
+
+    PLAIN_CALLS["sweep_nearest"] += 1
+    return intersect_triangles_mm(Rays(o=o, d=d), v0, e1, e2, valid)
+
+
+def sweep_nearest(o, d, v0, e1, e2, valid):
+    """Nearest triangle hit per ray. ``o, d`` (N, 3) f32; ``v0, e1, e2``
+    (T, 3) f32; ``valid`` (T,) bool. Returns ``t`` (N,) f32 (INF on miss),
+    ``idx`` (N,) int32 (-1 on miss), ``u``, ``v`` (N,) f32 (0 on miss)."""
+    if not o.is_cuda:
+        return sweep_nearest_plain(o, d, v0, e1, e2, valid)
+    n, t_total, valid8 = _check_sweep_inputs(o, d, v0, e1, e2, valid)
+    dev = o.device
+    center = _center(v0)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("sweep_nearest", (
+            o.data_ptr(), d.data_ptr(), n,
+            v0.data_ptr(), e1.data_ptr(), e2.data_ptr(), valid8.data_ptr(),
+            t_total, center.data_ptr(),
+            t.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+            _stream(),
+        ))
+    LAUNCHES["sweep_nearest"] += 1
+    return t, idx, u, v
+
+
+def sweep_nearest_tri_fn(rays, v0, e1, e2, valid):
+    """``sweep_nearest`` in the ``tri_fn`` form that ``intersect_scene`` and
+    ``occluded`` accept (counterpart of ``intersect_triangles_pallas``)."""
+    return sweep_nearest(rays.o, rays.d, v0, e1, e2, valid)
+
+
+# --------------------------------------------------------------------------
+# K3: nearest hit + winner record
+# --------------------------------------------------------------------------
+def sweep_nearest_rec_plain(o, d, v0, e1, e2, valid, tri_rec):
+    """Plain PyTorch version of ``sweep_nearest_rec``: the matmul-form sweep
+    plus ``tri_rec[idx]``, zeroed on miss. Returns (t, idx, u, v, rec)."""
+    from .intersect import intersect_triangles_mm
+
+    PLAIN_CALLS["sweep_nearest_rec"] += 1
+    t, idx, u, v = intersect_triangles_mm(Rays(o=o, d=d), v0, e1, e2, valid)
+    rec = tri_rec[torch.clamp(idx, min=0).to(torch.int64)]
+    rec = torch.where((idx >= 0)[:, None], rec, torch.zeros_like(rec))
+    return t, idx, u, v, rec
+
+
+def sweep_nearest_rec(o, d, v0, e1, e2, valid, tri_rec):
+    """``sweep_nearest`` plus the winner's packed surface record:
+    ``tri_rec`` (T, 32) f32 -> ``rec`` (N, 32) f32, zero on miss."""
+    if not o.is_cuda:
+        return sweep_nearest_rec_plain(o, d, v0, e1, e2, valid, tri_rec)
+    n, t_total, valid8 = _check_sweep_inputs(o, d, v0, e1, e2, valid)
+    dev = o.device
+    _check("tri_rec", tri_rec, torch.float32, (t_total, 32), dev)
+    center = _center(v0)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    rec = torch.empty((n, 32), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("sweep_nearest_rec", (
+            o.data_ptr(), d.data_ptr(), n,
+            v0.data_ptr(), e1.data_ptr(), e2.data_ptr(), valid8.data_ptr(),
+            t_total, center.data_ptr(), tri_rec.data_ptr(),
+            t.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+            rec.data_ptr(), _stream(),
+        ))
+    LAUNCHES["sweep_nearest_rec"] += 1
+    return t, idx, u, v, rec
+
+
+# --------------------------------------------------------------------------
+# K4: boolean any-hit
+# --------------------------------------------------------------------------
+def occluded_anyhit_plain(o, d, v0, e1, e2, blocks, t_max):
+    """Plain PyTorch version of ``occluded_anyhit``: nearest hit over the
+    ``blocks`` mask, then ``t < t_max``. Returns (N,) bool."""
+    from .intersect import occluded_triangles_mm
+
+    PLAIN_CALLS["occluded_anyhit"] += 1
+    return occluded_triangles_mm(Rays(o=o, d=d), v0, e1, e2, blocks, t_max)
+
+
+def occluded_anyhit(o, d, v0, e1, e2, blocks, t_max):
+    """``blocked[i]`` = some triangle with ``blocks`` set is hit by ray i at
+    a distance in (K_EPS, t_max[i]). ``t_max`` (N,) f32; a lane with
+    ``t_max = 0`` is never blocked. Returns (N,) bool."""
+    if not o.is_cuda:
+        return occluded_anyhit_plain(o, d, v0, e1, e2, blocks, t_max)
+    n, t_total, blocks8 = _check_sweep_inputs(o, d, v0, e1, e2, blocks)
+    dev = o.device
+    _check("t_max", t_max, torch.float32, (n,), dev)
+    center = _center(v0)
+    blocked = torch.empty((n,), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _launch("occluded_anyhit", (
+            o.data_ptr(), d.data_ptr(), n,
+            v0.data_ptr(), e1.data_ptr(), e2.data_ptr(), blocks8.data_ptr(),
+            t_total, center.data_ptr(), t_max.data_ptr(),
+            blocked.data_ptr(), _stream(),
+        ))
+    LAUNCHES["occluded_anyhit"] += 1
+    return blocked.view(torch.bool)
+
+
+def reset_counts():
+    """Set every kernel's launch count and plain-version count to 0."""
+    for name in KERNEL_NAMES:
+        LAUNCHES[name] = 0
+        PLAIN_CALLS[name] = 0
+
+
+def counts():
+    """``{kernel: {"launches": n, "plain_calls": m}}`` since the last reset."""
+    return {
+        name: {"launches": LAUNCHES[name], "plain_calls": PLAIN_CALLS[name]}
+        for name in KERNEL_NAMES
+    }

@@ -1,0 +1,105 @@
+"""Built-in scenes reproducing the reference's example workloads.
+
+PyTorch counterpart of ``xraytracer_tpu/scene/presets.py``; the Cornell box
+is ported, the example/vpt/volume/nee presets follow with their
+integrators (see ROADMAP.md).
+
+Each preset mirrors one of the reference's hard-coded example mains
+(reference: Src/examples/*.cpp, see SURVEY.md §2.3). Geometry is generated
+programmatically from the canonical coordinates (the Cornell box data is the
+public Embree/original Cornell data also embedded in the reference's
+testdata/cornell_box.obj) rather than parsed from bundled files.
+
+Each ``preset_*`` function returns (tables, camera_kwargs, render_kwargs).
+"""
+
+import numpy as np
+
+from ..math import from_rows
+from .builder import SceneBuilder
+
+# --- Cornell box quads (canonical data; quad = 4 CCW corners) -------------
+# material key -> list of quads
+_CORNELL_QUADS = {
+    "white": [
+        # floor (3 quads: floor slab + two block footprints, original data)
+        [(552.8, 0, 0), (0, 0, 0), (0, 0, 559.2), (549.6, 0, 559.2)],
+        [(290, 0, 114), (240, 0, 272), (82, 0, 225), (130, 0, 65)],
+        [(472, 0, 406), (314, 0, 456), (265, 0, 296), (423, 0, 247)],
+        # ceiling
+        [(556, 548.8, 0), (556, 548.8, 559.2), (0, 548.8, 559.2), (0, 548.8, 0)],
+        # back wall
+        [(549.6, 0, 559.2), (0, 0, 559.2), (0, 548.8, 559.2), (556, 548.8, 559.2)],
+        # short block (5 quads)
+        [(130, 165, 65), (82, 165, 225), (240, 165, 272), (290, 165, 114)],
+        [(290, 0, 114), (290, 165, 114), (240, 165, 272), (240, 0, 272)],
+        [(130, 0, 65), (130, 165, 65), (290, 165, 114), (290, 0, 114)],
+        [(82, 0, 225), (82, 165, 225), (130, 165, 65), (130, 0, 65)],
+        [(240, 0, 272), (240, 165, 272), (82, 165, 225), (82, 0, 225)],
+        # tall block (5 quads)
+        [(423, 330, 247), (265, 330, 296), (314, 330, 456), (472, 330, 406)],
+        [(423, 0, 247), (423, 330, 247), (472, 330, 406), (472, 0, 406)],
+        [(472, 0, 406), (472, 330, 406), (314, 330, 456), (314, 0, 456)],
+        [(314, 0, 456), (314, 330, 456), (265, 330, 296), (265, 0, 296)],
+        [(265, 0, 296), (265, 330, 296), (423, 330, 247), (423, 0, 247)],
+    ],
+    "green": [
+        # left wall at x=0
+        [(0, 0, 559.2), (0, 0, 0), (0, 548.8, 0), (0, 548.8, 559.2)],
+    ],
+    "red": [
+        # right wall at x~552
+        [(552.8, 0, 0), (549.6, 0, 559.2), (556, 548.8, 559.2), (556, 548.8, 0)],
+    ],
+}
+
+_CORNELL_KD = {
+    "white": (1.0, 1.0, 1.0),
+    "green": (0.0, 1.0, 0.0),
+    "red": (1.0, 0.0, 0.0),
+}
+
+
+def _quads_to_tris(quads):
+    """Fan-triangulate quads (tinyobj-equivalent: (0,1,2) + (0,2,3))."""
+    tris = []
+    for q in quads:
+        q = [np.asarray(v, np.float32) for v in q]
+        tris.append([q[0], q[1], q[2]])
+        tris.append([q[0], q[2], q[3]])
+    return np.asarray(tris, np.float32)
+
+
+def build_cornell_box(builder=None):
+    """Cornell box walls + blocks + the overhead quad light
+    (reference: Src/examples/cornellbox.cpp:36-47)."""
+    b = builder or SceneBuilder()
+    for key, quads in _CORNELL_QUADS.items():
+        b.add_mesh(_quads_to_tris(quads), material=b.add_lambert(_CORNELL_KD[key]))
+    b.add_quad_light(
+        (343.0, 548.0, 227.0),
+        (343.0, 548.0, 332.0),
+        (213.0, 548.0, 227.0),
+        25.0 * np.ones(3, np.float32),
+    )
+    return b
+
+
+def cornell_camera():
+    """(reference: Src/examples/cornellbox.cpp:27-35)"""
+    c2w = from_rows(
+        -1.0, 0, 0, 0,
+        0, 1.0, 0, 0,
+        0, 0, -1.0, 0,
+        278, 274.4, -750.0, 1,
+    )
+    return dict(c2w=c2w, fov_deg=60.0)
+
+
+def preset_cornellbox(device=None):
+    tables = build_cornell_box().build(device)
+    return (
+        tables,
+        cornell_camera(),
+        dict(width=780, height=585, spp=16, max_depth=3, gamma=1.2),
+    )
