@@ -3,38 +3,54 @@
 
     python3 chip_smoke.py            # needs one card, nvcc and the checkout
     python3 chip_smoke.py --fmad-ab  # also compiles csrc/sweep.cu with
-                                     # -fmad=false itself and runs the kernel
+                                     # -fmad=false itself and runs the sweep
                                      # checks on that library as well
-    python3 chip_smoke.py --profile  # also traces 2 samples of the main path
-                                     # with torch.profiler (device time by kernel)
+    python3 chip_smoke.py --profile  # also traces the main path and 2 samples
+                                     # of the wavefront path with
+                                     # torch.profiler (device time by kernel)
 
-Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source, holds
-each kernel against its plain PyTorch version on the card at the shapes the
-main path gives it, reproduces the CPU golden image through the kernels,
-then drives the main path (the ``cornellbox_gi`` preset, 780x585, depth 3)
-(once by its default route, record sweep + any-hit sweep, and once by its
-``tri_fn`` route, which sends both sweeps through ``sweep_nearest``) and the
-13k-triangle mesh GI scene through the port's public entry points. Every
-launch count is set to 0 just before each of these three runs and read just
-after it; the script checks that every sweep of the run went through its
-kernel and none through a plain version. In the ``kernels`` line
-``launches_by_path`` holds these three readings and ``launches`` is their
-sum. There is no fallback: without a card, or when any phase fails, the
-script exits non-zero and prints no result line.
+Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (two
+libraries: the sweeps and the whole-path kernels), holds each of the six
+kernels against its plain PyTorch version on the card at the shapes the
+main path gives it, reproduces the CPU golden image through both routes,
+and then drives, through the port's public entry points at 780x585, depth 3:
 
-Output: one JSON object per line (``device``, ``build``, ``kernel_checks``,
-``golden``, ``main_path``, ``mesh_path``), then ``{"kernels": [...]}`` with
-one entry per kernel, and as the last line
+* ``main_path``: the ``cornellbox_gi`` preset by its default route, the
+  whole-render kernel ``mega_spp_persistent`` (one launch per spp chunk);
+* ``fused_entry_points``: the same scene through ``mega_path`` (one launch
+  per sample) and ``mega_spp`` (one launch per chunk);
+* ``wavefront_path``: the same preset with ``fused="never"`` (record sweep +
+  any-hit sweep per bounce), and ``tri_fn_path``: its ``tri_fn`` route, which
+  sends both sweeps through ``sweep_nearest``;
+* ``mesh_path``: the 13k-triangle mesh GI scene, which is over the
+  whole-path kernels' row gate and so shows the routing to the wavefront
+  route.
+
+Every launch count is set to 0 just before each of these runs and read just
+after it; the script checks that the run went through exactly the kernels
+of its route and through no plain version. In the ``kernels`` line
+``launches_by_path`` holds these readings and ``launches`` is their sum.
+There is no fallback: without a card, or when any phase fails, the script
+exits non-zero and prints no result line.
+
+Output: one JSON object per line (``device``, ``build``, ``kernel_checks``
+twice (sweeps, whole-path kernels), ``golden``, ``main_path``,
+``fused_entry_points``, ``wavefront_path``, ``mesh_path``), then
+``{"kernels": [...]}`` with one entry per kernel, the card's name and power
+limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Bounds. ``bound_ms`` is the least time the card could take for a sweep: the
-larger of (bytes that must move: every input read once, every output
-written once) / 3.35 TB/s and (pair tests needed x flops per test) /
-67 TFLOP/s float32 outside the tensor cores — the H100 SXM data-sheet
-peaks. The nearest-hit sweeps need all N*T pair tests; the any-hit sweep
-needs, per ray with t_max > 0, the tests up to and including its first
-blocking triangle in table order (all T when nothing blocks), counted from
-this run's rays.
+Bounds. ``bound_ms`` is the least time the card could take: the larger of
+(bytes that must move: every input read once, every output written once) /
+3.35 TB/s and (pair tests needed x flops per test) / 67 TFLOP/s float32
+outside the tensor cores, the H100 SXM data-sheet peaks. The nearest-hit
+sweeps need all N*T pair tests; the any-hit sweep needs, per ray with
+t_max > 0, the tests up to and including its first blocking triangle in
+table order (all T when nothing blocks), counted from this run's rays. A
+whole-path kernel needs T pair tests for every camera, bounce and shadow
+ray of its paths; the rays are counted by the plain version's per-bounce
+counters on the same inputs (every lane that reaches next-event estimation
+counts one shadow ray per light sampled).
 """
 
 import argparse
@@ -45,8 +61,13 @@ import sys
 import time
 
 WIDTH, HEIGHT, DEPTH = 780, 585, 3
-MAIN_SPP = 16          # cornellbox_gi is 512 spp; cut to fit the smoke
+MAIN_SPP = 512         # cornellbox_gi's own spp, one chunk
+WAVEFRONT_SPP = 16     # the wavefront route of the same preset, cut from 512
+ENTRY_SPP = 4          # mega_path / mega_spp through their entry points
+REF_SPP = 16           # reference-size renders beside the main path
 STATS_SPP = 4
+K1_SPP = 4             # whole-path kernel checks beside the main-path shape
+K1_MESH_SIZE = (40, 38)  # 3,044 triangles in 3,072 rows = 24 tiles of 128
 MESH_SPP = 4
 MESH_SIZE = (82, 80)   # the "13k" lat-long sphere mesh
 REF_W, REF_H = 128, 96
@@ -81,6 +102,17 @@ MEAN_BAND_KERNEL_VS_PLAIN = 1e-3  # same seeds, same size: only edge flips diffe
 # may differ, about one ray in 2e5 on the mesh
 REF_PIXEL_DIFF_SHARE = 2e-4
 MEAN_BAND_FULL_VS_REF = 0.05      # other resolution: Monte-Carlo noise
+# whole-path kernels vs their plain versions, per pixel, on radiance sums of
+# the same samples: both run the same float32 formulas on the same draws, so
+# pixels agree to rounding (FMA contraction, CUDA sinf / cosf) unless a
+# discrete decision flipped (an edge-grazing hit, a roulette kill within an
+# ulp of its threshold); the share of such pixels is gated, and the mean
+K1_RTOL, K1_ATOL = 1e-4, 1e-5
+K1_PIXEL_DIFF_SHARE = 2e-4
+K1_LOOSE_RTOL, K1_LOOSE_ATOL = 2e-3, 2e-3   # the JAX package's fused gate
+# per-sample loop vs merged loop: same draws, same order of additions; only
+# contraction in two separately compiled loops may differ (JAX A/B gate)
+K1_AB_RTOL, K1_AB_ATOL = 1e-6, 1e-7
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -120,7 +152,7 @@ def median_ms(fn, reps, flush):
     return times[len(times) // 2]
 
 
-def mesh_scene(device):
+def mesh_scene(device, size=MESH_SIZE):
     """The mesh GI scene of bench_mesh.py: lat-long sphere mesh + floor +
     quad light, built with the port's SceneBuilder."""
     import numpy as np
@@ -130,7 +162,7 @@ def mesh_scene(device):
 
     b = SceneBuilder()
     white = b.add_lambert((0.8, 0.8, 0.8))
-    b.add_sphere_mesh((0.0, 0.0, 0.0), 1.0, *MESH_SIZE, material=white)
+    b.add_sphere_mesh((0.0, 0.0, 0.0), 1.0, *size, material=white)
     floor = np.asarray(
         [
             [[-4, -1, -4], [4, -1, -4], [4, -1, 4]],
@@ -150,6 +182,59 @@ def mesh_scene(device):
         0, 0.6, 4.0, 1,
     )
     return b.build(device), dict(c2w=c2w, fov_deg=45.0)
+
+
+def many_light_scene(device, n_side=8, face_in=False):
+    """Cornell-like room (floor, back wall, ceiling slab) under an
+    n_side x n_side grid of small ceiling quad lights of skewed powers: the
+    many-light workload of tests/test_megakernel.py. As wound there, the
+    floor and the back wall face out of the room, so next-event estimation
+    adds nothing and only directly seen lights show; ``face_in`` winds both
+    to face the lights, which puts every light pick and shadow test to
+    work."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.add_lambert((0.7, 0.7, 0.7))
+    quads = []
+    for k, (v0, v1, v2, v3) in enumerate((
+        ((0, 0, 0), (556, 0, 0), (556, 0, 559), (0, 0, 559)),
+        ((0, 0, 559), (556, 0, 559), (556, 548, 559), (0, 548, 559)),
+        ((0, 548, 0), (556, 548, 0), (556, 548, 559), (0, 548, 559)),
+    )):
+        if face_in and k < 2:
+            v1, v3 = v3, v1
+        quads.append(np.asarray([[v0, v1, v2], [v0, v2, v3]], np.float32))
+    b.add_mesh(np.concatenate(quads, axis=0), material=white)
+    rng = np.random.default_rng(11)
+    for i in range(n_side):
+        for j in range(n_side):
+            x0 = 40.0 + i * 60.0
+            z0 = 40.0 + j * 60.0
+            power = float(rng.uniform(0.5, 40.0))
+            b.add_quad_light(
+                (x0, 547.0, z0), (x0 + 30.0, 547.0, z0),
+                (x0, 547.0, z0 + 30.0), (power,) * 3,
+            )
+    return b.build(device)
+
+
+def all_counts():
+    """Launch and plain-call counts of all six kernels."""
+    from xraytracer_tpu_torch.geometry import kernels
+    from xraytracer_tpu_torch.integrators import megakernel
+
+    return {**kernels.counts(), **megakernel.counts()}
+
+
+def reset_all_counts():
+    from xraytracer_tpu_torch.geometry import kernels
+    from xraytracer_tpu_torch.integrators import megakernel
+
+    kernels.reset_counts()
+    megakernel.reset_counts()
 
 
 def capture_sweep_inputs(renderer):
@@ -505,19 +590,19 @@ def summarize(cases_by_kernel, headline):
     return entries
 
 
-def render_checks(label, result, n_lights, spp, counts, ref_kernel, ref_plain):
-    """The checks every driven path must pass; returns the line's fields."""
+def render_checks(label, result, spp, counts, expected, ref_kernel, ref_plain):
+    """The checks every driven path must pass; returns the line's fields.
+    ``expected`` maps the kernels of the path's route to their launch
+    counts; every other kernel must show 0."""
     import numpy as np
 
     check(result.image.shape == (HEIGHT, WIDTH, 3), f"{label}: image shape")
     check(bool(np.isfinite(result.image).all()), f"{label}: non-finite pixels")
     check(result.n_rejected == 0, f"{label}: {result.n_rejected} rejected samples")
-    k3 = counts["sweep_nearest_rec"]
-    k4 = counts["occluded_anyhit"]
-    check(k3["launches"] == spp * DEPTH,
-          f"{label}: sweep_nearest_rec launched {k3['launches']}x, expected {spp * DEPTH}")
-    check(k4["launches"] == spp * DEPTH * n_lights,
-          f"{label}: occluded_anyhit launched {k4['launches']}x, expected {spp * DEPTH * n_lights}")
+    for name, c in counts.items():
+        want = expected.get(name, 0)
+        check(c["launches"] == want,
+              f"{label}: {name} launched {c['launches']}x, expected {want}")
     plain = sum(c["plain_calls"] for c in counts.values())
     check(plain == 0, f"{label}: {plain} plain-version calls on the card")
     m_full = float(result.image.mean())
@@ -548,20 +633,40 @@ def render_checks(label, result, n_lights, spp, counts, ref_kernel, ref_plain):
     )
 
 
-def reference_renders(tables, cam_kwargs, statics, spp, cosine, device):
+def reference_renders(tables, cam_kwargs, statics, spp, cosine, device,
+                      fused="never"):
     """The same scene at the reference size, same seed and spp: once through
-    the kernels, once through the plain path (``tri_fn`` = the plain
-    matmul-form sweep, so no kernel runs)."""
+    the kernels (of the route ``fused`` selects), once through the plain
+    path (``tri_fn`` = the plain matmul-form sweep, so no kernel runs)."""
     from xraytracer_tpu_torch.camera import PinholeCamera
     from xraytracer_tpu_torch.geometry.intersect import intersect_triangles_mm
     from xraytracer_tpu_torch.integrators import make_path_integrator
     from xraytracer_tpu_torch.renderer import render
 
     cam = PinholeCamera.make(REF_W / REF_H, device=device, **cam_kwargs)
+    if fused == "auto":
+        # the whole-render kernel against its own plain version (which takes
+        # the kernel's camera-ray formulas), assembled like the renderer does
+        from types import SimpleNamespace
+
+        from xraytracer_tpu_torch.integrators import megakernel as mk
+
+        integ = make_path_integrator(tables, statics, DEPTH, nee=True,
+                                     cosine_sampling=cosine)
+        by_kernel = render(tables, cam, integ, REF_W, REF_H, spp, seed=0)
+        fs = mk._bake(tables, statics, DEPTH, True, True, cosine)
+        view = mk.try_make_fused_spp_render(
+            tables, statics, cam, REF_W, REF_H, 0, DEPTH,
+            cosine_sampling=cosine).view
+        rad, _ = mk.mega_spp_persistent_plain(fs, view, 0, spp)
+        by_plain = SimpleNamespace(
+            image=rad.cpu().numpy().reshape(REF_H, REF_W, 3) / spp)
+        return by_kernel, by_plain
     out = []
     for tri_fn in (None, intersect_triangles_mm):
         integ = make_path_integrator(tables, statics, DEPTH, nee=True,
-                                     cosine_sampling=cosine, tri_fn=tri_fn)
+                                     cosine_sampling=cosine, tri_fn=tri_fn,
+                                     fused=fused)
         out.append(render(tables, cam, integ, REF_W, REF_H, spp, seed=0))
     return out
 
@@ -603,7 +708,7 @@ def phase_kernels(device, scenes_in, reps, fmad_ab):
         st = scene_statics(tables)
         cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
         integ = make_path_integrator(tables, st, DEPTH, nee=True,
-                                     cosine_sampling=cosine)
+                                     cosine_sampling=cosine, fused="never")
         r = WavefrontRenderer(tables, cam, integ, WIDTH, HEIGHT, seed=0)
         got = capture_sweep_inputs(r)
         check(len(got["nearest"]) == DEPTH and len(got["shadow"]) == DEPTH,
@@ -624,7 +729,7 @@ def phase_kernels(device, scenes_in, reps, fmad_ab):
 
     cases = run_all_cases()
     edges = edge_cases(device)
-    emit("kernel_checks", flags=[], cases=cases,
+    emit("kernel_checks", kernels="sweeps", flags=[], cases=cases,
          edge_cases=edges, reps=reps, tolerances=dict(
              idx_mismatch_share_outside_tie_band=IDX_MISMATCH_SHARE,
              tie_band_rel_t=TIE_BAND, t=[T_RTOL, T_ATOL],
@@ -635,7 +740,7 @@ def phase_kernels(device, scenes_in, reps, fmad_ab):
         package_lib = kernels._lib
         kernels._lib = lambda: lib
         try:
-            emit("kernel_checks", flags=["-fmad=false"],
+            emit("kernel_checks", kernels="sweeps", flags=["-fmad=false"],
                  build_seconds=ab_build_s, cases=run_all_cases(), reps=reps)
         finally:
             kernels._lib = package_lib
@@ -646,12 +751,248 @@ def phase_kernels(device, scenes_in, reps, fmad_ab):
     })
 
 
+MEGA_REPLACES = {
+    "mega_path": "xraytracer_tpu/integrators/megakernel.py:781",
+    "mega_spp": "xraytracer_tpu/integrators/megakernel.py:1468",
+    "mega_spp_persistent": "xraytracer_tpu/integrators/megakernel.py:1519",
+}
+
+
+def timed_once(fn):
+    """(result, ms) of one call between two CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compare_radiance(what, got, ref, rej_got=None, rej_ref=None):
+    """Whole-path kernel vs plain version, per pixel -> dict of counts and
+    errors; fails when the share of pixels beyond K1_RTOL / K1_ATOL, the
+    mean or the reject counts are off."""
+    import torch
+
+    n = ref.shape[0]
+    check(tuple(got.shape) == (n, 3) and bool(torch.isfinite(got).all()),
+          f"{what}: shape or non-finite values")
+    diff = torch.abs(got - ref)
+    beyond = (diff > K1_ATOL + K1_RTOL * torch.abs(ref)).any(dim=-1)
+    loose = (diff > K1_LOOSE_ATOL + K1_LOOSE_RTOL * torch.abs(ref)).any(dim=-1)
+    out = dict(
+        n=n, max_abs_err=float(diff.max()),
+        pixels_differing_at_all=int((diff > 0).any(dim=-1).sum()),
+        pixels_beyond_gate=int(beyond.sum()),
+        pixels_beyond_loose_gate=int(loose.sum()),
+        mean_kernel=float(got.mean()), mean_plain=float(ref.mean()),
+    )
+    check(out["pixels_beyond_gate"] <= max(1, K1_PIXEL_DIFF_SHARE * n),
+          f"{what}: {out['pixels_beyond_gate']} of {n} pixels beyond rtol "
+          f"{K1_RTOL} / atol {K1_ATOL}")
+    check(abs(out["mean_kernel"] - out["mean_plain"])
+          <= MEAN_BAND_KERNEL_VS_PLAIN * abs(out["mean_plain"]),
+          f"{what}: mean {out['mean_kernel']} vs plain {out['mean_plain']}")
+    if rej_ref is not None:
+        out["rejected_kernel"] = int(rej_got.sum())
+        out["rejected_plain"] = int(rej_ref.sum())
+        check(out["rejected_kernel"] == out["rejected_plain"],
+              f"{what}: reject counts {out['rejected_kernel']} vs "
+              f"{out['rejected_plain']}")
+    return out
+
+
+def mega_bound(n, t_total, n_lights, stats, bytes_in, bytes_out):
+    """bound_ms of a whole-path launch from the plain version's per-bounce
+    counters on the same inputs."""
+    rays = int(stats["rays"].sum())
+    shadow = int(stats["shadow_rays"].sum())
+    n_bytes = n * (bytes_in + bytes_out) + t_total * (36 + 2 + 128) + n_lights * 80
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = (rays * t_total * FLOPS_PER_TEST
+              + shadow * t_total * FLOPS_PER_ANYHIT_TEST) / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                rays=rays, shadow_rays=shadow)
+
+
+def phase_mega_kernels(device, cornell, cornell_cam, reps):
+    """Hold the three whole-path kernels against their plain versions on the
+    card: Cornell at the main path's shape and at a few samples (uniform and
+    cosine), a multi-tile mesh table, and the 64-light room with ``one`` and
+    ``power``; the per-sample loop against the merged loop, and raster
+    against morton lane order. Returns the ``kernels`` entries."""
+    import numpy as np
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.scene.presets import cornell_camera
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    mesh_small, mesh_cam = mesh_scene(device, K1_MESH_SIZE)
+    room = many_light_scene(device)
+    room_in = many_light_scene(device, face_in=True)
+    scenes = [
+        # label, tables, camera, options, sample counts of the spp kernels
+        ("cornell uniform", cornell, cornell_cam,
+         dict(max_depth=DEPTH, cosine_sampling=False), (MAIN_SPP, K1_SPP)),
+        ("cornell cosine", cornell, cornell_cam,
+         dict(max_depth=DEPTH, cosine_sampling=True), (K1_SPP,)),
+        ("mesh %dx%d, multi-tile table" % K1_MESH_SIZE, mesh_small, mesh_cam,
+         dict(max_depth=DEPTH, cosine_sampling=True), (K1_SPP,)),
+        ("64 lights, one", room, cornell_camera(),
+         dict(max_depth=2, cosine_sampling=True, nee_mode="one"), (K1_SPP,)),
+        ("64 lights, power", room, cornell_camera(),
+         dict(max_depth=2, cosine_sampling=True, nee_mode="power"), (K1_SPP,)),
+        ("64 lights facing in, one", room_in, cornell_camera(),
+         dict(max_depth=3, cosine_sampling=True, nee_mode="one"), (K1_SPP,)),
+        ("64 lights facing in, power", room_in, cornell_camera(),
+         dict(max_depth=3, cosine_sampling=False, nee_mode="power"), (K1_SPP,)),
+    ]
+    cases = {k: [] for k in mk.KERNEL_NAMES}
+    for label, tables, camk, opts, spp_list in scenes:
+        st = scene_statics(tables)
+        cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
+        t_total = int(tables.tri_v0.shape[0])
+        n_lights = st["n_area_lights"]
+        fs = mk._bake(tables, st, opts["max_depth"], True, True,
+                      opts["cosine_sampling"],
+                      nee_mode=opts.get("nee_mode", "all"))
+        check(fs is not None, f"{label}: scene not eligible for the fused route")
+        render = {order: mk.try_make_fused_spp_render(
+            tables, st, cam, WIDTH, HEIGHT, 0, nee=True, pixel_order=order, **opts)
+            for order in ("raster", "morton")}
+        view = render["raster"].view
+        n = view.n
+        common = dict(t_total=t_total, n_lights=n_lights, **{
+            k: v for k, v in opts.items()})
+
+        # K1a on the camera rays of sample 0
+        keys, o, d = mk._camera_rays_plain(view, 0)
+        stats = {}
+        ref, plain_ms = timed_once(
+            lambda: mk.mega_path_plain(fs, o, d, keys, stats))
+        got = mk.mega_path(fs, o, d, keys)
+        torch.cuda.synchronize()
+        case = compare_radiance(f"mega_path, {label}", got, ref)
+        case.update(case=label, n_spp=1, plain_ms=plain_ms,
+                    ms=median_ms(lambda: mk.mega_path(fs, o, d, keys), reps, flush),
+                    **mega_bound(n, t_total, n_lights, stats, 28, 12), **common)
+        cases["mega_path"].append(case)
+        del got, ref
+
+        for n_spp in spp_list:
+            tag = f"{label}, {n_spp} spp"
+            stats = {}
+            (ref, ref_rej), plain_ms = timed_once(
+                lambda: mk.mega_spp_persistent_plain(fs, view, 0, n_spp, stats))
+            got_c, rej_c = mk.mega_spp_persistent(fs, view, 0, n_spp)
+            got_b, rej_b = mk.mega_spp(fs, view, 0, n_spp)
+            torch.cuda.synchronize()
+            bound = mega_bound(n, t_total, n_lights, stats, 12, 16)
+            for name, got, rej in (("mega_spp_persistent", got_c, rej_c),
+                                   ("mega_spp", got_b, rej_b)):
+                if name == "mega_spp" and n_spp == MAIN_SPP:
+                    continue  # the main path gives this shape to the merged loop only
+                if name == "mega_spp":
+                    (ref_b, ref_rej_b), plain_b = timed_once(
+                        lambda: mk.mega_spp_plain(fs, view, 0, n_spp))
+                else:
+                    ref_b, ref_rej_b, plain_b = ref, ref_rej, plain_ms
+                case = compare_radiance(f"{name}, {tag}", got, ref_b, rej, ref_rej_b)
+                fn = getattr(mk, name)
+                case.update(case=tag, n_spp=n_spp, plain_ms=plain_b,
+                            ms=median_ms(lambda: fn(fs, view, 0, n_spp), reps, flush),
+                            **bound, **common)
+                cases[name].append(case)
+            # per-sample loop vs merged loop (A/B), raster vs morton (bitwise)
+            ab = torch.abs(got_b - got_c)
+            check(bool((ab <= K1_AB_ATOL + K1_AB_RTOL * torch.abs(got_c)).all())
+                  and bool((rej_b == rej_c).all()),
+                  f"{tag}: mega_spp vs mega_spp_persistent differ by {float(ab.max())}")
+            cases["mega_spp_persistent"][-1].update(
+                vs_mega_spp_max_abs_diff=float(ab.max()),
+                vs_mega_spp_pixels_differing=int((ab > 0).any(dim=-1).sum()))
+            if n_spp == K1_SPP:
+                rad_m, rej_m = render["morton"](0, n_spp)
+                rad_r, rej_r = render["raster"](0, n_spp)
+                back = torch.empty_like(rad_m)
+                back[torch.as_tensor(render["morton"].pixel_ids.astype(np.int64),
+                                     device=device)] = rad_m
+                check(bool(torch.equal(back, rad_r)) and int(rej_m) == int(rej_r),
+                      f"{tag}: morton lane order is not bitwise raster's image")
+                cases["mega_spp_persistent"][-1].update(morton_bitwise_equal=True)
+            del got_c, got_b, ref, ab
+
+    # a resumed chunk continues the stream: (0, 3) + (3, 1) == (0, 4)
+    st = scene_statics(cornell)
+    cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **cornell_cam)
+    rc = mk.try_make_fused_spp_render(cornell, st, cam, WIDTH, HEIGHT, 0, DEPTH)
+    whole, _ = rc(0, 4)
+    first, _ = rc(0, 3)
+    last, _ = rc(3, 1)
+    resumed_diff = float(torch.abs(first + last - whole).max())
+    check(resumed_diff <= 1e-4, f"resumed chunk differs by {resumed_diff}")
+    # eligibility routing on the card
+    routed_none = mk.try_make_fused_spp_render(
+        cornell, st, cam, WIDTH, HEIGHT, 0, 9) is None
+    check(routed_none, "depth 9 must route to the wavefront integrator")
+
+    emit("kernel_checks", kernels="whole-path", cases=cases, reps=reps,
+         resumed_chunk_max_abs_diff=resumed_diff,
+         tolerances=dict(pixel=[K1_RTOL, K1_ATOL],
+                         pixel_share=K1_PIXEL_DIFF_SHARE,
+                         loose=[K1_LOOSE_RTOL, K1_LOOSE_ATOL],
+                         mean=MEAN_BAND_KERNEL_VS_PLAIN,
+                         loop_ab=[K1_AB_RTOL, K1_AB_ATOL]))
+    headline = {"mega_path": "cornell uniform",
+                "mega_spp": f"cornell uniform, {K1_SPP} spp",
+                "mega_spp_persistent": f"cornell uniform, {MAIN_SPP} spp"}
+    entries = []
+    for name in mk.KERNEL_NAMES:
+        head = next(c for c in cases[name] if c["case"] == headline[name])
+        entries.append(dict(
+            name=name, route="cuda",
+            source="xraytracer_tpu_torch/csrc/megakernel.cu",
+            replaces=MEGA_REPLACES[name],
+            launches=None, launches_by_path=None,
+            max_abs_err=max(c["max_abs_err"] for c in cases[name]),
+            err_of="radiance (sum over the launch's samples) per pixel and "
+                   "channel against the plain version, worst case",
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=None,
+            shape=f"{head['case']}: N={head['n']} T={head['t_total']} "
+                  f"n_spp={head['n_spp']}",
+            cases=[{k: c[k] for k in ("case", "n", "t_total", "n_spp", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "pixels_beyond_gate")} for c in cases[name]],
+        ))
+    return entries
+
+
+# the golden image through the whole-path kernel: its camera ray multiplies
+# by a float32 1 / width where the wavefront route divides by the width, so
+# a sample's ray may differ in the last bit and a pixel by a few ulps of its
+# radiance (the JAX package allows its fused route ~1e-4 against the
+# wavefront one for the same reason). The gate is the kernels' own pixel
+# gate; how many values miss the golden's own gate is printed
+GOLDEN_GATE = (1e-5, 1e-6)
+GOLDEN_FUSED_GATE = (K1_RTOL, K1_ATOL)
+
+
 def phase_golden(device):
-    """The CPU golden image, reproduced through the kernels."""
+    """The CPU golden image, reproduced on the card by the wavefront route
+    (record sweep + any-hit sweep) and by the whole-render kernel."""
     import numpy as np
 
     from xraytracer_tpu_torch.camera import PinholeCamera
-    from xraytracer_tpu_torch.geometry import kernels
     from xraytracer_tpu_torch.integrators import make_path_integrator
     from xraytracer_tpu_torch.renderer import render
     from xraytracer_tpu_torch.scene.builder import scene_statics
@@ -661,26 +1002,152 @@ def phase_golden(device):
                                   "cornell_gi_32x24_8spp_seed0.npy"))
     gt = build_cornell_box().build(device)
     gcam = PinholeCamera.make(32 / 24, device=device, **cornell_camera())
-    kernels.reset_counts()
-    gr = render(gt, gcam, make_path_integrator(gt, scene_statics(gt), 3, nee=True),
-                32, 24, 8, seed=0)
-    gdiff = np.abs(gr.image - golden)
-    gover = int((gdiff > 1e-6 + 1e-5 * np.abs(golden)).sum())
-    emit("golden", max_abs_diff=float(gdiff.max()), values_over_gate=gover,
-         values=int(golden.size), gate="rtol 1e-5 atol 1e-6",
-         n_rejected=gr.n_rejected, launches=kernels.counts())
-    check(gover == 0 and gr.n_rejected == 0,
-          f"golden: {gover} values beyond rtol 1e-5 / atol 1e-6")
+    out = {}
+    for route, fused, (rtol, atol) in (("wavefront", "never", GOLDEN_GATE),
+                                       ("fused", "auto", GOLDEN_FUSED_GATE)):
+        reset_all_counts()
+        gr = render(gt, gcam,
+                    make_path_integrator(gt, scene_statics(gt), 3, nee=True,
+                                         fused=fused),
+                    32, 24, 8, seed=0)
+        counts = all_counts()
+        gdiff = np.abs(gr.image - golden)
+        over_own = int((gdiff > GOLDEN_GATE[1] + GOLDEN_GATE[0] * np.abs(golden)).sum())
+        over = int((gdiff > atol + rtol * np.abs(golden)).sum())
+        out[route] = dict(
+            max_abs_diff=float(gdiff.max()), values_over_gate=over,
+            values_over_golden_own_gate=over_own,
+            gate=f"rtol {rtol} atol {atol}", n_rejected=gr.n_rejected,
+            launches={k: v["launches"] for k, v in counts.items()})
+        check(over == 0 and gr.n_rejected == 0,
+              f"golden, {route} route: {over} values beyond rtol {rtol} / atol {atol}")
+        check(sum(v["plain_calls"] for v in counts.values()) == 0,
+              f"golden, {route} route: plain-version calls on the card")
+    check(out["fused"]["launches"]["mega_spp_persistent"] == 1,
+          "golden: the fused route did not go through mega_spp_persistent")
+    check(out["wavefront"]["launches"]["sweep_nearest_rec"] == 24,
+          "golden: the wavefront route did not go through sweep_nearest_rec")
+    emit("golden", values=int(golden.size),
+         golden_own_gate=f"rtol {GOLDEN_GATE[0]} atol {GOLDEN_GATE[1]}", **out)
 
 
 def phase_main(device, cfg, cornell, cornell_cam):
-    """cornellbox_gi at full width through the entry points a user calls:
-    its default route, then its ``tri_fn`` route. Returns the launch counts
-    of each run, ``{"main_path": ..., "tri_fn_path": ...}``, each counted
-    from 0 set just before the run and read just after it."""
+    """cornellbox_gi at full width through the entry points a user calls, by
+    its default route: the whole-render kernel, one launch per spp chunk.
+    Returns the run's launch counts, counted from 0 set just before the run
+    and read just after it."""
+    from xraytracer_tpu_torch import cli
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    statics = scene_statics(cornell)
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **cornell_cam)
+    integ = cli.make_integrator(cfg, cornell, statics)
+    check(getattr(integ, "fused_spec", None) is not None,
+          "main_path: cornellbox_gi did not take the fused route")
+    renderer = WavefrontRenderer(cornell, cam, integ, cfg.width, cfg.height,
+                                 seed=cfg.seed)
+    renderer.render(1)  # warm-up: the first launch loads the library
+    ref_k, ref_p = reference_renders(cornell, cornell_cam, statics, REF_SPP,
+                                     cfg.cosine_sampling, device, fused="auto")
+    n_chunks = -(-cfg.spp // (cfg.spp_chunk or cfg.spp))
+    reset_all_counts()
+    result = renderer.render(cfg.spp, spp_chunk=cfg.spp_chunk or None)
+    counts = all_counts()
+    line = render_checks("main_path", result, cfg.spp, counts,
+                         {"mega_spp_persistent": n_chunks}, ref_k, ref_p)
+    line.update(preset="cornellbox_gi", route="fused (mega_spp_persistent)",
+                spp_chunks=n_chunks, preset_spp=get_preset_spp(),
+                spp_cut=None if cfg.spp == get_preset_spp() else
+                f"cut from {get_preset_spp()} to {cfg.spp}", ref_spp=REF_SPP)
+    emit("main_path", **line)
+    return counts, result
+
+
+def get_preset_spp():
+    from xraytracer_tpu_torch.config import PRESETS
+
+    return PRESETS["cornellbox_gi"].spp
+
+
+def phase_fused_entry_points(device, cfg, cornell, cornell_cam, main_image_mean):
+    """mega_path and mega_spp through their entry points at full width:
+    ``try_make_fused_path_integrator`` under the per-sample renderer (one
+    launch per sample), and ``try_make_fused_spp_render(persistent=False)``
+    under the renderer's chunk runner (one launch per chunk). Returns the
+    run's launch counts."""
     import numpy as np
 
-    from xraytracer_tpu_torch import cli
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.integrators import make_path_integrator
+    from xraytracer_tpu_torch.integrators.megakernel import (
+        try_make_fused_path_integrator,
+    )
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    statics = scene_statics(cornell)
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **cornell_cam)
+    kw = dict(nee=True, cosine_sampling=cfg.cosine_sampling, nee_mode=cfg.nee_mode)
+    per_sample = try_make_fused_path_integrator(cornell, statics, cfg.max_depth, **kw)
+    check(per_sample is not None, "fused_entry_points: scene not eligible")
+    chunked = make_path_integrator(cornell, statics, cfg.max_depth, **kw)
+    chunked.fused_spec = dict(chunked.fused_spec, persistent=False)
+    merged = make_path_integrator(cornell, statics, cfg.max_depth, **kw)
+    renderers = [WavefrontRenderer(cornell, cam, integ, cfg.width, cfg.height,
+                                   seed=cfg.seed)
+                 for integ in (per_sample, chunked, merged)]
+    reset_all_counts()
+    res_a = renderers[0].render(ENTRY_SPP)
+    res_b = renderers[1].render(ENTRY_SPP)
+    counts = all_counts()
+    res_c = renderers[2].render(ENTRY_SPP)  # mega_spp_persistent, to compare
+    for name, want in (("mega_path", ENTRY_SPP), ("mega_spp", 1)):
+        check(counts[name]["launches"] == want,
+              f"fused_entry_points: {name} launched {counts[name]['launches']}x, "
+              f"expected {want}")
+    check(sum(c["launches"] for c in counts.values()) == ENTRY_SPP + 1,
+          "fused_entry_points: another kernel was launched")
+    check(sum(c["plain_calls"] for c in counts.values()) == 0,
+          "fused_entry_points: plain-version calls on the card")
+    check(res_a.n_rejected == 0 and res_b.n_rejected == 0,
+          "fused_entry_points: rejected samples")
+    # per-sample loop and merged loop: the A/B gate; the per-sample route
+    # takes the wavefront renderer's camera ray (division by the width)
+    ab = np.abs(res_b.image - res_c.image)
+    check(bool((ab <= K1_AB_ATOL + K1_AB_RTOL * np.abs(res_c.image)).all()),
+          f"fused_entry_points: mega_spp vs mega_spp_persistent differ by {ab.max()}")
+    diff = np.abs(res_a.image - res_c.image)
+    n_diff = int((diff > K1_ATOL + K1_RTOL * np.abs(res_c.image)).any(axis=-1).sum())
+    check(n_diff <= K1_PIXEL_DIFF_SHARE * WIDTH * HEIGHT,
+          f"fused_entry_points: mega_path route differs from the whole-render "
+          f"kernel on {n_diff} pixels")
+    m = float(res_a.image.mean())
+    check(abs(m - main_image_mean) <= MEAN_BAND_FULL_VS_REF * main_image_mean,
+          f"fused_entry_points: mean {m} vs main path {main_image_mean}")
+    emit("fused_entry_points", spp=ENTRY_SPP,
+         mega_path=dict(seconds=res_a.seconds,
+                        msamples_per_s=res_a.samples_per_sec / 1e6,
+                        launches=counts["mega_path"]["launches"]),
+         mega_spp=dict(seconds=res_b.seconds,
+                       msamples_per_s=res_b.samples_per_sec / 1e6,
+                       launches=counts["mega_spp"]["launches"]),
+         mega_spp_vs_persistent_max_abs_diff=float(ab.max()),
+         mega_spp_vs_persistent_pixels_differing=int((ab > 0).any(axis=-1).sum()),
+         mega_path_vs_persistent_pixels_beyond_gate=n_diff,
+         mega_path_vs_persistent_max_abs_diff=float(diff.max()),
+         mean_radiance=m)
+    return counts
+
+
+def phase_wavefront(device, cfg, cornell, cornell_cam, main_image_mean):
+    """cornellbox_gi by its wavefront route (``fused="never"``: record sweep
+    + any-hit sweep per bounce), then by the ``tri_fn`` route of the same
+    path. Returns the launch counts of each run, ``{"wavefront_path": ...,
+    "tri_fn_path": ...}``."""
+    import numpy as np
+
     from xraytracer_tpu_torch.camera import PinholeCamera
     from xraytracer_tpu_torch.geometry import kernels
     from xraytracer_tpu_torch.integrators import make_path_integrator
@@ -690,19 +1157,24 @@ def phase_main(device, cfg, cornell, cornell_cam):
     statics = scene_statics(cornell)
     n_lights = statics["n_area_lights"]
     cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **cornell_cam)
-    integ = cli.make_integrator(cfg, cornell, statics)
+    integ = make_path_integrator(
+        cornell, statics, cfg.max_depth, nee=True,
+        cosine_sampling=cfg.cosine_sampling, nee_mode=cfg.nee_mode, fused="never")
     renderer = WavefrontRenderer(cornell, cam, integ, cfg.width, cfg.height,
                                  seed=cfg.seed)
-    renderer.render(1)  # warm-up: the first launches load the library
-    ref_k, ref_p = reference_renders(cornell, cornell_cam, statics, cfg.spp,
+    renderer.render(1)  # warm-up
+    ref_k, ref_p = reference_renders(cornell, cornell_cam, statics, WAVEFRONT_SPP,
                                      cfg.cosine_sampling, device)
-    kernels.reset_counts()
-    result = renderer.render(cfg.spp)
-    counts_main = kernels.counts()
-    line = render_checks("main_path", result, n_lights, cfg.spp,
-                         counts_main, ref_k, ref_p)
-    check(counts_main["sweep_nearest"]["launches"] == 0,
-          "main_path: sweep_nearest launched on the default route")
+    reset_all_counts()
+    result = renderer.render(WAVEFRONT_SPP)
+    counts_wave = all_counts()
+    line = render_checks(
+        "wavefront_path", result, WAVEFRONT_SPP, counts_wave,
+        {"sweep_nearest_rec": WAVEFRONT_SPP * DEPTH,
+         "occluded_anyhit": WAVEFRONT_SPP * DEPTH * n_lights}, ref_k, ref_p)
+    m_wave = float(result.image.mean())
+    check(abs(m_wave - main_image_mean) <= MEAN_BAND_FULL_VS_REF * main_image_mean,
+          f"wavefront_path: mean {m_wave} vs main path {main_image_mean}")
     # the tri_fn route of the same path, with per-bounce counters: both
     # sweeps go through sweep_nearest, none through the other two kernels
     integ_s = make_path_integrator(
@@ -711,25 +1183,23 @@ def phase_main(device, cfg, cornell, cornell_cam):
     )
     renderer_s = WavefrontRenderer(cornell, cam, integ_s, cfg.width, cfg.height,
                                    seed=cfg.seed)
-    kernels.reset_counts()
+    reset_all_counts()
     res_s = renderer_s.render(STATS_SPP)
-    counts_tri = kernels.counts()
+    counts_tri = all_counts()
     check(res_s.n_rejected == 0, "tri_fn_path: rejected samples")
     check(bool(np.isfinite(res_s.image).all()), "tri_fn_path: non-finite pixels")
     k2_expected = STATS_SPP * DEPTH * (1 + n_lights)
-    check(counts_tri["sweep_nearest"]["launches"] == k2_expected,
-          f"tri_fn_path: sweep_nearest launched "
-          f"{counts_tri['sweep_nearest']['launches']}x, expected {k2_expected}")
-    check(counts_tri["sweep_nearest_rec"]["launches"] == 0
-          and counts_tri["occluded_anyhit"]["launches"] == 0,
-          "tri_fn_path: a sweep went through another kernel than sweep_nearest")
+    for name, c in counts_tri.items():
+        want = k2_expected if name == "sweep_nearest" else 0
+        check(c["launches"] == want,
+              f"tri_fn_path: {name} launched {c['launches']}x, expected {want}")
     check(sum(c["plain_calls"] for c in counts_tri.values()) == 0,
           "tri_fn_path: plain-version calls on the card")
-    m_tri, m_main = float(res_s.image.mean()), float(result.image.mean())
-    check(abs(m_tri - m_main) <= MEAN_BAND_FULL_VS_REF * m_main,
-          f"tri_fn_path: mean {m_tri} vs main path {m_main}")
+    m_tri = float(res_s.image.mean())
+    check(abs(m_tri - m_wave) <= MEAN_BAND_FULL_VS_REF * m_wave,
+          f"tri_fn_path: mean {m_tri} vs wavefront path {m_wave}")
     line.update(
-        preset="cornellbox_gi",
+        preset="cornellbox_gi", route='wavefront (fused="never")',
         stats_run=dict(
             spp=STATS_SPP, tri_fn="sweep_nearest", seconds=res_s.seconds,
             total_rays=res_s.total_rays,
@@ -740,72 +1210,84 @@ def phase_main(device, cfg, cornell, cornell_cam):
             launches={k: v["launches"] for k, v in counts_tri.items()},
         ),
     )
-    emit("main_path", **line)
-    return {"main_path": counts_main, "tri_fn_path": counts_tri}
+    emit("wavefront_path", **line)
+    return {"wavefront_path": counts_wave, "tri_fn_path": counts_tri}
 
 
-def phase_profile(device, cfg, cornell, cornell_cam, n_spp=2, top=12):
-    """Trace ``n_spp`` samples of the main path: device busy share and the
-    kernels that take most of the device time."""
-    import torch
+def phase_profile(device, cfg, cornell, cornell_cam, top=12):
+    """Trace the main path (the whole preset, one launch per chunk) and 2
+    samples of the wavefront route: device busy share and the kernels that
+    take most of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from xraytracer_tpu_torch import cli
     from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.integrators import make_path_integrator
     from xraytracer_tpu_torch.renderer import WavefrontRenderer
     from xraytracer_tpu_torch.scene.builder import scene_statics
 
     statics = scene_statics(cornell)
     cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **cornell_cam)
-    renderer = WavefrontRenderer(cornell, cam, cli.make_integrator(cfg, cornell, statics),
-                                 cfg.width, cfg.height, seed=cfg.seed)
-    renderer.render(1)
-    plain = renderer.render(n_spp).seconds
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced = renderer.render(n_spp).seconds
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us and getattr(e, "device_type", None) is not None and \
-                "cuda" in str(e.device_type).lower():
-            rows.append((e.key, float(dev_us), int(e.count)))
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 1e3
-    emit("profile", spp=n_spp, seconds_untraced=plain, seconds_traced=traced,
-         device_kernels=sum(r[2] for r in rows),
-         device_busy_ms=busy_ms if rows else "not measured",
-         device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
-         top=[dict(kernel=k[:90], ms=us / 1e3, launches=c) for k, us, c in rows[:top]])
+    for route, fused, n_spp in (("fused", "auto", cfg.spp), ("wavefront", "never", 2)):
+        integ = make_path_integrator(
+            cornell, statics, cfg.max_depth, nee=True,
+            cosine_sampling=cfg.cosine_sampling, nee_mode=cfg.nee_mode, fused=fused)
+        renderer = WavefrontRenderer(cornell, cam, integ, cfg.width, cfg.height,
+                                     seed=cfg.seed)
+        renderer.render(1)
+        plain = renderer.render(n_spp).seconds
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = renderer.render(n_spp).seconds
+        rows = []
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if dev_us and getattr(e, "device_type", None) is not None and \
+                    "cuda" in str(e.device_type).lower():
+                rows.append((e.key, float(dev_us), int(e.count)))
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows) / 1e3
+        emit("profile", route=route, spp=n_spp, seconds_untraced=plain,
+             seconds_traced=traced, device_kernels=sum(r[2] for r in rows),
+             device_busy_ms=busy_ms if rows else "not measured",
+             device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
+             top=[dict(kernel=k[:90], ms=us / 1e3, launches=c)
+                  for k, us, c in rows[:top]])
 
 
 def phase_mesh(device, mesh, mesh_cam):
     """The 13k-triangle mesh GI scene at full width. Returns the run's
     launch counts."""
     from xraytracer_tpu_torch.camera import PinholeCamera
-    from xraytracer_tpu_torch.geometry import kernels
     from xraytracer_tpu_torch.integrators import make_path_integrator
     from xraytracer_tpu_torch.renderer import WavefrontRenderer
     from xraytracer_tpu_torch.scene.builder import scene_statics
 
     statics = scene_statics(mesh)
     cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **mesh_cam)
+    # the default route: 13,184 rows are over the whole-path kernels' gate,
+    # so the factory routes this scene to the wavefront integrator
     integ = make_path_integrator(mesh, statics, DEPTH, nee=True,
                                  cosine_sampling=True)
+    check(getattr(integ, "fused_spec", None) is None,
+          "mesh_path: a table over the row gate took the fused route")
     renderer = WavefrontRenderer(mesh, cam, integ, WIDTH, HEIGHT, seed=0)
     renderer.render(1)  # warm-up
     ref_k, ref_p = reference_renders(mesh, mesh_cam, statics, MESH_SPP, True,
                                      device)
-    kernels.reset_counts()
+    reset_all_counts()
     result = renderer.render(MESH_SPP)
-    counts = kernels.counts()
-    line = render_checks("mesh_path", result, statics["n_area_lights"],
-                         MESH_SPP, counts, ref_k, ref_p)
+    counts = all_counts()
+    line = render_checks(
+        "mesh_path", result, MESH_SPP, counts,
+        {"sweep_nearest_rec": MESH_SPP * DEPTH,
+         "occluded_anyhit": MESH_SPP * DEPTH * statics["n_area_lights"]},
+        ref_k, ref_p)
     line.update(scene="lat-long sphere mesh %dx%d + floor + quad light" % MESH_SIZE,
                 triangles=int((mesh.tri_obj >= 0).sum()),
                 table_rows=int(mesh.tri_v0.shape[0]), cosine_sampling=True,
-                pixel_order=renderer.pixel_order)
+                pixel_order=renderer.pixel_order,
+                route="wavefront (table over the fused route's row gate)")
     emit("mesh_path", **line)
     return counts
 
@@ -815,7 +1297,8 @@ def main():
     ap.add_argument("--fmad-ab", action="store_true",
                     help="also build and check the sweeps with -fmad=false")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 2 samples of the main path with torch.profiler")
+                    help="also trace the main path and 2 samples of the "
+                         "wavefront route with torch.profiler")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per kernel and case (median)")
     args = ap.parse_args()
@@ -859,12 +1342,21 @@ def main():
         "cornell": (cornell, cornell_cam, False),
         "mesh13k": (mesh, mesh_cam, True),
     }, args.reps, args.fmad_ab)
+    entries += phase_mega_kernels(device, cornell, cornell_cam, args.reps)
     phase_golden(device)
-    by_path = phase_main(device, cfg, cornell, cornell_cam)
+    by_path = {}
+    by_path["main_path"], main_result = phase_main(device, cfg, cornell, cornell_cam)
+    main_mean = float(main_result.image.mean())
+    by_path["fused_entry_points"] = phase_fused_entry_points(
+        device, cfg, cornell, cornell_cam, main_mean)
+    by_path.update(phase_wavefront(device, cfg, cornell, cornell_cam, main_mean))
     by_path["mesh_path"] = phase_mesh(device, mesh, mesh_cam)
     # the path on which each kernel must have run, by that path's own count
-    runs_on = {"sweep_nearest": "tri_fn_path", "sweep_nearest_rec": "main_path",
-               "occluded_anyhit": "main_path"}
+    runs_on = {"mega_spp_persistent": "main_path",
+               "mega_path": "fused_entry_points", "mega_spp": "fused_entry_points",
+               "sweep_nearest": "tri_fn_path", "sweep_nearest_rec": "wavefront_path",
+               "occluded_anyhit": "wavefront_path"}
+    check(len(entries) == 6, "the kernels line must list six kernels")
     for e in entries:
         e["launches_by_path"] = {
             path: counts[e["name"]]["launches"] for path, counts in by_path.items()}

@@ -8,7 +8,11 @@ knob be overridden:
 
     python -m xraytracer_tpu_torch.cli --preset cornellbox_gi --spp 64 -o out.png
 
-It renders on the card unless ``--device cpu`` is given. Presets and
+It renders on the card unless ``--device cpu`` is given. On the card a path
+integrator over an eligible scene (``integrators/megakernel.py``; the
+Cornell presets are) takes the fused whole-render route, one kernel launch
+per spp chunk; ``--stats``, ``gi_mis`` and ``--device cpu`` keep the
+composable wavefront route. Presets and
 integrators that are not ported yet raise ``NotImplementedError`` naming
 the ROADMAP.md item they wait for.
 """

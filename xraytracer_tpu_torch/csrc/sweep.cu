@@ -5,7 +5,9 @@
 //   sweep_nearest      <- _sweep_kernel      (via _sweep_kernel_impl)
 //   sweep_nearest_rec  <- _sweep_kernel_rec  (via _sweep_kernel_impl)
 //   occluded_anyhit    <- _anyhit_kernel
-// One templated device function, three extern "C" launchers.
+// One templated device function, three extern "C" launchers. The per-pair
+// test, the coefficients and the winner epilogue live in tri_test.cuh, which
+// the whole-path kernels (megakernel.cu) include as well.
 //
 // What is computed. Per (ray, triangle) pair the four Moller-Trumbore
 // triple products in their EXPANDED BILINEAR form, in coordinates centred
@@ -57,7 +59,7 @@
 // another order. A ray grazing an edge can therefore hit in one and miss in
 // the other, or pick the neighbouring triangle; chip_smoke.py counts these.
 
-#include "common.cuh"
+#include "tri_test.cuh"
 
 namespace xrt {
 
@@ -88,24 +90,21 @@ struct SweepArgs {
 
 template <int MODE>
 __global__ void __launch_bounds__(BLOCK) sweep_kernel(SweepArgs a) {
-  // tile coefficients, 4 float4 per triangle:
-  //   f0 = (ng.x, ng.y, ng.z, p.ng)
-  //   f1 = (e2.x, e2.y, e2.z, pe2.x)        pe2 = p x e2
-  //   f2 = (pe2.y, pe2.z, e1.x, e1.y)
-  //   f3 = (e1.z, e1p.x, e1p.y, e1p.z)      e1p = e1 x p
+  // tile coefficients, 4 float4 per triangle (tri_test.cuh, TriCoeffs)
   __shared__ float4 feat[TILE * 4];
 
   const int tid = threadIdx.x;
   const int ray = blockIdx.x * BLOCK + tid;
   const bool live = ray < a.n;
-  const float3 c = make_float3(a.center[0], a.center[1], a.center[2]);
+  const float3 center =
+      make_float3(a.center[0], a.center[1], a.center[2]);
 
   float3 o = make_float3(0.f, 0.f, 0.f), d = o;
   if (live) {
     o = load3(a.o, ray);
     d = load3(a.d, ray);
   }
-  const float3 oc = sub3(o, c);
+  const float3 oc = sub3(o, center);
   const float3 m = cross3(oc, d);
 
   float best_t = BIG_T;
@@ -123,24 +122,16 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(SweepArgs a) {
     // ---- stage one tile ----
     {
       const int j = base + tid;
-      float4 f0 = make_float4(0.f, 0.f, 0.f, 0.f), f1 = f0, f2 = f0, f3 = f0;
+      TriCoeffs c = zero_coeffs();
       if (j < a.t_total && a.mask[j]) {
-        const float3 p = sub3(load3(a.v0, j), c);
-        const float3 E1 = load3(a.e1, j);
-        const float3 E2 = load3(a.e2, j);
-        const float3 ng = cross3(E1, E2);
-        const float3 pe2 = cross3(p, E2);
-        const float3 e1p = cross3(E1, p);
-        f0 = make_float4(ng.x, ng.y, ng.z, dot3(p, ng));
-        f1 = make_float4(E2.x, E2.y, E2.z, pe2.x);
-        f2 = make_float4(pe2.y, pe2.z, E1.x, E1.y);
-        f3 = make_float4(E1.z, e1p.x, e1p.y, e1p.z);
+        c = tri_coeffs(sub3(load3(a.v0, j), center), load3(a.e1, j),
+                       load3(a.e2, j));
       }
       // masked-out rows keep all-zero coefficients: det = 0, never a hit
-      feat[tid * 4 + 0] = f0;
-      feat[tid * 4 + 1] = f1;
-      feat[tid * 4 + 2] = f2;
-      feat[tid * 4 + 3] = f3;
+      feat[tid * 4 + 0] = c.f0;
+      feat[tid * 4 + 1] = c.f1;
+      feat[tid * 4 + 2] = c.f2;
+      feat[tid * 4 + 3] = c.f3;
     }
     __syncthreads();
 
@@ -148,32 +139,18 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(SweepArgs a) {
     if (!done) {
       const int count = min(TILE, a.t_total - base);
       for (int k = 0; k < count; ++k) {
-        const float4 f0 = feat[k * 4 + 0];
-        const float4 f1 = feat[k * 4 + 1];
-        const float4 f2 = feat[k * 4 + 2];
-        const float4 f3 = feat[k * 4 + 3];
-        const float det = -(d.x * f0.x + d.y * f0.y + d.z * f0.z);
-        const float u_num = (m.x * f1.x + m.y * f1.y + m.z * f1.z) +
-                            (d.x * f1.w + d.y * f2.x + d.z * f2.y);
-        const float v_num = (d.x * f3.y + d.y * f3.z + d.z * f3.w) -
-                            (m.x * f2.z + m.y * f2.w + m.z * f3.x);
-        const float t_num = (oc.x * f0.x + oc.y * f0.y + oc.z * f0.z) - f0.w;
-        const bool neg = det < 0.f;
-        const float absd = fabsf(det);
-        const float u_s = neg ? -u_num : u_num;
-        const float v_s = neg ? -v_num : v_num;
-        const float t_s = neg ? -t_num : t_num;
-        const bool ok = (absd >= K_EPS) & (u_s >= 0.f) & (v_s >= 0.f) &
-                        (u_s + v_s <= absd) & (t_s > K_EPS * absd);
+        const PairTest r =
+            pair_test(feat[k * 4 + 0], feat[k * 4 + 1], feat[k * 4 + 2],
+                      feat[k * 4 + 3], oc, d, m);
         if (MODE == ANYHIT) {
-          if (ok && t_s < tm * absd) {
+          if (r.ok && r.t_s < tm * r.absd) {
             blocked = true;
             done = true;
             break;
           }
         } else {
-          if (ok) {
-            const float t = t_num / det;
+          if (r.ok) {
+            const float t = r.t_num / r.det;
             if (t < best_t) {
               best_t = t;
               best_i = base + k;
@@ -199,17 +176,8 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(SweepArgs a) {
   // ---- winner epilogue: factored classic form on the original inputs ----
   float t_out = INF_T, u_out = 0.f, v_out = 0.f;
   if (best_i >= 0) {
-    const float3 w_v0 = load3(a.v0, best_i);
-    const float3 w_e1 = load3(a.e1, best_i);
-    const float3 w_e2 = load3(a.e2, best_i);
-    const float3 pvec = cross3(d, w_e2);
-    const float det = dot3(w_e1, pvec);
-    const float inv_det = 1.0f / (det == 0.f ? 1.0f : det);
-    const float3 tvec = sub3(o, w_v0);
-    u_out = dot3(tvec, pvec) * inv_det;
-    const float3 qvec = cross3(tvec, w_e1);
-    v_out = dot3(d, qvec) * inv_det;
-    t_out = dot3(w_e2, qvec) * inv_det;
+    winner_tuv(o, d, load3(a.v0, best_i), load3(a.e1, best_i),
+               load3(a.e2, best_i), t_out, u_out, v_out);
   }
   if (live) {
     a.out_t[ray] = t_out;

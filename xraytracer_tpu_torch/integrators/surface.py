@@ -129,7 +129,7 @@ def _nee_area_lights(
 def make_path_integrator(
     scene, statics, max_depth, nee=True, le_depth0_only=None,
     cosine_sampling=False, tri_fn=None, mis=False, with_stats=False,
-    nee_mode="all", pick_weights=None,
+    nee_mode="all", fused="auto", pick_weights=None,
 ):
     """Indirect (``nee=False``) and GI (``nee=True``) path tracing
     (reference: Src/integrator.h:122-190 and 198-291).
@@ -153,17 +153,40 @@ def make_path_integrator(
     to a ``(max_depth,)`` int32 tensor summed over the wavefront — the
     renderer accumulates these across spp into ``RenderResult.stats``.
 
-    This is the composable wavefront route of the JAX integrator (its
-    ``integrate`` with ``fused=False``). The JAX package's ``fused=`` route
-    into the whole-path kernel and its ``sort_rays`` re-sort (row scheduling
-    that leaves the image bitwise unchanged) are not part of this port yet;
-    ROADMAP.md lists both.
+    ``fused="auto"`` (the default) hands an eligible scene on the card
+    (triangles, Lambert, flat area lights; ``megakernel._eligible``) to the
+    whole-path kernel: the returned ``integrate`` then runs every bounce in
+    one launch, and carries ``fused_spec`` so that ``WavefrontRenderer`` can
+    go one step further and run whole chunks of samples in one launch. Any
+    other value (``"never"``, ``"off"``, ``False``) keeps the composable
+    wavefront route below, as do ``tri_fn``, ``with_stats``, ``mis`` and
+    tables on the CPU. The JAX package's ``sort_rays`` re-sort (row
+    scheduling that leaves the image bitwise unchanged) is not part of this
+    port yet; ROADMAP.md lists it.
     """
     if mis:
         nee = True
         le_depth0_only = False
     if le_depth0_only is None:
         le_depth0_only = nee
+
+    if (
+        fused == "auto" and tri_fn is None and not with_stats and not mis
+        and nee_mode in ("all", "one", "power")
+    ):
+        from .megakernel import try_make_fused_path_integrator
+
+        spec = dict(
+            scene=scene, statics=statics, max_depth=max_depth, nee=nee,
+            le_depth0_only=le_depth0_only, cosine_sampling=cosine_sampling,
+            nee_mode=nee_mode, pick_weights=pick_weights,
+        )
+        fi = try_make_fused_path_integrator(**spec)
+        if fi is not None:
+            # advertise the whole-render kernel to WavefrontRenderer, which
+            # owns the camera and the seed
+            fi.fused_spec = spec
+            return fi
 
     n_lights = statics["n_area_lights"]
     present = tables_present(scene)

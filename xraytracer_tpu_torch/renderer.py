@@ -21,8 +21,11 @@ Checkpoint/resume (absent in the reference, SURVEY.md §5): spp is
 accumulated in chunks; the accumulator (sum buffer + rejected count +
 samples done) round-trips through an .npz file between chunks.
 
-Not ported yet (ROADMAP.md): the ``sharding`` arguments (multi-GPU) and
-``make_fused_chunk_fn`` (the whole-render kernel).
+An integrator that carries ``fused_spec`` (``make_path_integrator`` with
+``fused="auto"`` on an eligible scene) is upgraded to the whole-render
+kernel: one launch per spp chunk (``make_fused_chunk_fn``).
+
+Not ported yet (ROADMAP.md): the ``sharding`` arguments (multi-GPU).
 """
 
 import time
@@ -120,6 +123,24 @@ def make_chunk_fn(sample_once):
                     stats if stats_acc is None
                     else {k: stats_acc[k] + v for k, v in stats.items()}
                 )
+        return acc, nrej, stats_acc
+
+    return run_chunk
+
+
+def make_fused_chunk_fn(fused_render):
+    """Chunk runner over a whole-render kernel
+    (``megakernel.try_make_fused_spp_render``): camera rays, paths,
+    rejection and the sum over the chunk's samples all happen in ONE launch
+    per chunk; ``s0`` and the sample count are launch arguments. Same
+    signature as ``make_chunk_fn``'s runner, and like it the accumulator is
+    updated in place. (The JAX package caps the pixel-samples of one call
+    for its runtime's watchdog; nothing here needs that.)"""
+
+    def run_chunk(acc, nrej, pixel_ids, pixel_xy, s0, n, stats_acc=None):
+        rad, rej = fused_render(int(s0), int(n))
+        acc += rad
+        nrej += rej.to(nrej.dtype)
         return acc, nrej, stats_acc
 
     return run_chunk
@@ -239,7 +260,22 @@ class WavefrontRenderer:
         self.sample_once = make_sample_fn(
             scene, camera, integrate, width, height, seed
         )
-        self.run_chunk = make_chunk_fn(self.sample_once)
+        self.run_chunk = None
+        spec = getattr(integrate, "fused_spec", None)
+        if spec is not None:
+            from .integrators.megakernel import try_make_fused_spp_render
+
+            fused = try_make_fused_spp_render(
+                camera=camera, width=width, height=height, seed=seed,
+                pixel_order=self.pixel_order, **spec,
+            )
+            if fused is not None:
+                self.run_chunk = make_fused_chunk_fn(fused)
+                # adopt the kernel's own lane -> pixel map for assembly
+                # (identical to pixel_grid's order)
+                self._ids_np = np.asarray(fused.pixel_ids, np.int32)
+        if self.run_chunk is None:
+            self.run_chunk = make_chunk_fn(self.sample_once)
 
     def _sync(self):
         if self.device.type == "cuda":
