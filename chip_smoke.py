@@ -5,18 +5,21 @@
     python3 chip_smoke.py --fmad-ab  # also compiles csrc/sweep.cu with
                                      # -fmad=false itself and runs the sweep
                                      # checks on that library as well
-    python3 chip_smoke.py --profile  # also traces the main path and 2 samples
-                                     # of the wavefront path with
+    python3 chip_smoke.py --profile  # also traces the main path, 2 samples of
+                                     # the Cornell wavefront path and 1 sample
+                                     # of the nee wavefront path with
                                      # torch.profiler (device time by kernel)
 
-Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (two
-libraries: the sweeps and the whole-path kernels), holds each of the six
-kernels against its plain PyTorch version on the card at the shapes the
-main path gives it, reproduces the CPU golden image through both routes,
-and then drives, through the port's public entry points at 780x585, depth 3:
+Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (four
+libraries: the sweeps, the whole-path surface kernels, the whole-path
+homogeneous volume kernels, the heterogeneous tracking kernels), holds each
+of the eleven kernels against its plain PyTorch version on the card at the
+shapes its path gives it, reproduces the two CPU golden images through the
+kernels, and then drives, through the port's public entry points:
 
-* ``main_path``: the ``cornellbox_gi`` preset by its default route, the
-  whole-render kernel ``mega_spp_persistent`` (one launch per spp chunk);
+* ``main_path``: the ``cornellbox_gi`` preset (780x585, depth 3) by its
+  default route, the whole-render kernel ``mega_spp_persistent`` (one launch
+  per spp chunk);
 * ``fused_entry_points``: the same scene through ``mega_path`` (one launch
   per sample) and ``mega_spp`` (one launch per chunk);
 * ``wavefront_path``: the same preset with ``fused="never"`` (record sweep +
@@ -24,7 +27,16 @@ and then drives, through the port's public entry points at 780x585, depth 3:
   sends both sweeps through ``sweep_nearest``;
 * ``mesh_path``: the 13k-triangle mesh GI scene, which is over the
   whole-path kernels' row gate and so shows the routing to the wavefront
-  route.
+  route;
+* ``vpt_path``: the ``vpt`` preset (512x512, depth 10, its own 1024 spp; one
+  homogeneous box) by its default route, the whole-render volume kernel
+  ``vol_spp_persistent``; ``vpt_nee_path``: the same with next-event
+  estimation; ``vol_entry_points``: the same scene through ``vol_path`` and
+  ``vol_spp``;
+* ``nee_path``: the ``nee`` preset (780x585, depth 32; a 64^3 cloud under a
+  sphere light) and ``volume_path``: the ``volume`` preset (512x512, depth
+  100), both by the wavefront volume route, whose tracking loops are the
+  kernels ``track_sample`` and ``track_transmittance``.
 
 Every launch count is set to 0 just before each of these runs and read just
 after it; the script checks that the run went through exactly the kernels
@@ -34,23 +46,47 @@ There is no fallback: without a card, or when any phase fails, the script
 exits non-zero and prints no result line.
 
 Output: one JSON object per line (``device``, ``build``, ``kernel_checks``
-twice (sweeps, whole-path kernels), ``golden``, ``main_path``,
-``fused_entry_points``, ``wavefront_path``, ``mesh_path``), then
-``{"kernels": [...]}`` with one entry per kernel, the card's name and power
-limit, and as the last line
+four times (sweeps, whole-path, volume whole-path, tracking), ``golden``
+twice, then one line per driven path), then ``{"kernels": [...]}`` with one
+entry per kernel, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Bounds. ``bound_ms`` is the least time the card could take: the larger of
 (bytes that must move: every input read once, every output written once) /
-3.35 TB/s and (pair tests needed x flops per test) / 67 TFLOP/s float32
-outside the tensor cores, the H100 SXM data-sheet peaks. The nearest-hit
-sweeps need all N*T pair tests; the any-hit sweep needs, per ray with
-t_max > 0, the tests up to and including its first blocking triangle in
-table order (all T when nothing blocks), counted from this run's rays. A
-whole-path kernel needs T pair tests for every camera, bounce and shadow
-ray of its paths; the rays are counted by the plain version's per-bounce
-counters on the same inputs (every lane that reaches next-event estimation
-counts one shadow ray per light sampled).
+3.35 TB/s and (operations needed) / 67 TFLOP/s float32 outside the tensor
+cores, the H100 SXM data-sheet peaks. Operations are counted from this
+run's data:
+
+* the nearest-hit sweeps need all N*T pair tests (38 flop each); the any-hit
+  sweep needs, per ray with t_max > 0, the tests up to and including its
+  first blocking triangle in table order (all T when nothing blocks);
+* a whole-path surface kernel needs T pair tests for every camera, bounce
+  and shadow ray of its paths, counted by the plain version's per-bounce
+  counters on the same inputs;
+* a whole-path volume kernel needs, per iteration, for every lane that
+  enters it (counter ``rays``) the classic triangle tests (45 flop each: two
+  cross products, four dot products, a division, the compares) and the box
+  slab (30), and the roulette (8); for every lane that samples the medium
+  (``active_out``) the closed-form sample (110: channel pick 15, free flight
+  and its two weights with six exponentials 45, the scattered direction
+  50); with next-event estimation, for every lane that scatters
+  (``scattered``) the light sample (40), a second nearest-hit test and the
+  transmittance, phase value and sum (50). An exponential, logarithm, sine,
+  cosine, square root or division counts as one operation, which makes the
+  bound a low one;
+* a tracking kernel needs, per lane that tracks, the supergrid walk (800:
+  24 segments of three exit times, a minimum and a majorant, plus the
+  running optical depth) and per collision candidate (the plain version's
+  count of active lanes at every step of its loop) 170 flop for
+  ``track_sample`` (three draws' conversions, logarithm, two exponentials,
+  the 25-way segment search, the trilinear value 45, channel pick 15, three
+  channels of cross sections, probabilities and weights 60) resp. 90 for
+  ``track_transmittance`` (draw, logarithm, search, trilinear value, three
+  ratios). Bytes: a lane that tracks reads its inputs, every lane reads
+  its mask byte and writes its outputs; the 64^3 density grid (1 MB) counts
+  once when any candidate was drawn, the supergrid once when any lane
+  tracks. The 8 MB corner table the kernels read instead of the grid is the
+  port's own copy and is not counted.
 """
 
 import argparse
@@ -62,7 +98,7 @@ import time
 
 WIDTH, HEIGHT, DEPTH = 780, 585, 3
 MAIN_SPP = 512         # cornellbox_gi's own spp, one chunk
-WAVEFRONT_SPP = 16     # the wavefront route of the same preset, cut from 512
+WAVEFRONT_SPP = 8      # the wavefront route of the same preset, cut from 512
 ENTRY_SPP = 4          # mega_path / mega_spp through their entry points
 REF_SPP = 16           # reference-size renders beside the main path
 STATS_SPP = 4
@@ -71,11 +107,42 @@ K1_MESH_SIZE = (40, 38)  # 3,044 triangles in 3,072 rows = 24 tiles of 128
 MESH_SPP = 4
 MESH_SIZE = (82, 80)   # the "13k" lat-long sphere mesh
 REF_W, REF_H = 128, 96
+VOL_CHECK_SPP = 4      # volume whole-path kernel checks at the vpt preset's size
+# the case the kernels line reports is the main path's own launch (the
+# preset's 1024 spp), whose plain version traces this many samples of every
+# pixel as one wavefront (same arithmetic per lane, sums in sample order)
+VOL_PLAIN_BATCH = 32
+VPT_NEE_SPP = 64       # vpt with next-event estimation, cut from 1024
+VOL_ENTRY_SPP = 4      # vol_path / vol_spp through their entry points
+NEE_SPP = 2            # the nee preset by the wavefront route, cut from 1024
+VOLUME_SPP = 1         # the volume preset by the wavefront route, cut from 10240
+# reference-size renders beside the volume paths: samples per pixel of the
+# full-depth kernel render and of the kernels-vs-plain pair (same seeds, so
+# that pair agrees pixel by pixel whatever the count)
+VOL_REF_SPP = {"vpt_path": (16, 16), "vpt_nee_path": (16, 16),
+               "nee_path": (8, 4), "volume_path": (4, 2)}
+# the plain reference of a heterogeneous path runs its tracking loops on the
+# host, one tensor operation at a time: it is rendered at this depth, beside
+# a kernel render of the same depth; the full-size image is then held
+# against a reference-size kernel render at the full depth
+HET_REF_PLAIN_DEPTH = 4
+CAPTURE_ITERATIONS = (0, 4)  # tracking calls of one nee sample kept for the checks
+# ... and of one volume sample (no next-event estimation: track_sample only;
+# sigma_t 1.0, so a step bound above 1000 and candidate chains a hundred
+# long). Its paths end early: the roulette leaves about one lane in six per
+# iteration, and past the twelfth none tracks, so the late call kept is the
+# fourth
+VOLUME_CAPTURE_ITERATIONS = (0, 3)
+EXHAUST_MAX_STEPS = 8  # a step bound the volume lanes run into: weight 0
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 FLOPS_PER_TEST = 38     # det 5, u 11, v 11, t 6, sign/compare arithmetic 5
 FLOPS_PER_ANYHIT_TEST = 39
+# volume whole-path and tracking kernels; derived in the docstring above
+FLOPS_VOL_TRI_TEST, FLOPS_VOL_BOX, FLOPS_VOL_RR = 45, 30, 8
+FLOPS_VOL_MEDIUM, FLOPS_VOL_LIGHT, FLOPS_VOL_NEE_REST = 110, 40, 50
+FLOPS_DDA, FLOPS_TRACK_CANDIDATE, FLOPS_TRANSMITTANCE_CANDIDATE = 800, 170, 90
 
 # tolerances, kernel vs plain version on the same inputs
 IDX_MISMATCH_SHARE = 1e-4   # idx mismatches outside the tie band / rays
@@ -113,6 +180,24 @@ K1_LOOSE_RTOL, K1_LOOSE_ATOL = 2e-3, 2e-3   # the JAX package's fused gate
 # per-sample loop vs merged loop: same draws, same order of additions; only
 # contraction in two separately compiled loops may differ (JAX A/B gate)
 K1_AB_RTOL, K1_AB_ATOL = 1e-6, 1e-7
+# tracking kernels vs their plain versions, per lane: the kernels follow the
+# plain versions' arithmetic term by term on every value a decision hangs on
+# (csrc/media.cuh), so ``scattered`` and ``scat_step`` are expected to agree
+# on every lane; the gates of tests/test_het_kernel.py apply to lanes that
+# agree (t in scene units of a 330-unit box, weights of order 1), and the
+# share of lanes that disagree or miss those gates is bounded
+TRACK_T_RTOL, TRACK_T_ATOL = 1e-5, 1e-4
+TRACK_W_RTOL, TRACK_W_ATOL = 1e-4, 1e-6
+TRACK_LANE_SHARE = 1e-4
+# the cloud golden through the tracking kernels: start from ten times the
+# golden's own gate; values outside its own gate are counted and printed
+CLOUD_GOLDEN_GATE = (1e-5, 1e-7)
+CLOUD_GOLDEN_CARD_GATE = (1e-4, 1e-6)
+# full-size mean vs reference-size mean of the volume paths: Monte-Carlo
+# noise at a few samples per pixel; the volume preset has no next-event
+# estimation, so a path finds the light only by chance
+VOLUME_MEAN_BAND = {"vpt_path": 0.05, "vpt_nee_path": 0.05, "nee_path": 0.05,
+                    "volume_path": 0.25}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -221,20 +306,26 @@ def many_light_scene(device, n_side=8, face_in=False):
     return b.build(device)
 
 
-def all_counts():
-    """Launch and plain-call counts of all six kernels."""
+def kernel_modules():
+    """The four modules that hold kernels, each with its own counts."""
+    from xraytracer_tpu_torch import media_kernels
     from xraytracer_tpu_torch.geometry import kernels
-    from xraytracer_tpu_torch.integrators import megakernel
+    from xraytracer_tpu_torch.integrators import megakernel, vol_megakernel
 
-    return {**kernels.counts(), **megakernel.counts()}
+    return kernels, megakernel, vol_megakernel, media_kernels
+
+
+def all_counts():
+    """Launch and plain-call counts of all eleven kernels."""
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.counts())
+    return out
 
 
 def reset_all_counts():
-    from xraytracer_tpu_torch.geometry import kernels
-    from xraytracer_tpu_torch.integrators import megakernel
-
-    kernels.reset_counts()
-    megakernel.reset_counts()
+    for mod in kernel_modules():
+        mod.reset_counts()
 
 
 def capture_sweep_inputs(renderer):
@@ -1292,13 +1383,689 @@ def phase_mesh(device, mesh, mesh_cam):
     return counts
 
 
+# --------------------------------------------------------------------------
+# the volume slice: whole-path homogeneous kernels, tracking kernels, paths
+# --------------------------------------------------------------------------
+VOL_REPLACES = {
+    "vol_path": "xraytracer_tpu/integrators/vol_megakernel.py:550",
+    "vol_spp": "xraytracer_tpu/integrators/megakernel.py:1468",
+    "vol_spp_persistent": "xraytracer_tpu/integrators/megakernel.py:1519",
+}
+TRACK_REPLACES = {
+    "track_sample": "xraytracer_tpu/media_pallas.py:802",
+    "track_transmittance": "xraytracer_tpu/media_pallas.py:1199",
+}
+
+
+def vol_bound(n, n_tris, nee, stats, bytes_in, bytes_out):
+    """bound_ms of a whole-path volume launch from the plain version's
+    per-iteration counters on the same inputs (see the docstring)."""
+    rays = int(stats["rays"].sum())
+    medium = int(stats["active_out"].sum())
+    scattered = int(stats["scattered"].sum())
+    hit_test = n_tris * FLOPS_VOL_TRI_TEST + FLOPS_VOL_BOX
+    ops = rays * (hit_test + FLOPS_VOL_RR) + medium * FLOPS_VOL_MEDIUM
+    if nee:
+        ops += scattered * (FLOPS_VOL_LIGHT + hit_test + FLOPS_VOL_NEE_REST)
+    by_bytes = n * (bytes_in + bytes_out) / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                rays=rays, medium_samples=medium, scattered=scattered)
+
+
+def phase_vol_kernels(device, reps):
+    """Hold the three whole-path volume kernels against their plain versions
+    on the card: the vpt scene at the preset's 512x512 and depth 10, plain and
+    with next-event estimation, all three medium variants; the per-sample
+    loop against the merged loop, raster against morton lane order, and a
+    resumed chunk. Returns the ``kernels`` entries."""
+    import numpy as np
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.integrators import vol_megakernel as vm
+    from xraytracer_tpu_torch.scene import presets
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cfg = get_preset("vpt")
+    w, h, depth = cfg.width, cfg.height, cfg.max_depth
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    camk = presets.preset_vpt(device=device)[1]
+    cam = PinholeCamera.make(w / h, device=device, **camk)
+    cases = {k: [] for k in vm.KERNEL_NAMES}
+    scenes = [("mis", False, (cfg.spp, VOL_CHECK_SPP)), ("mis", True, (VOL_CHECK_SPP,)),
+              ("achromatic", True, (VOL_CHECK_SPP,)), ("nomis", True, (VOL_CHECK_SPP,)),
+              ("nomis", False, (VOL_CHECK_SPP,))]
+    for variant, nee, spp_list in scenes:
+        label = f"vpt {variant}" + (" nee" if nee else "")
+        tables = presets.build_vpt_scene(variant).build(device)
+        st = scene_statics(tables)
+        vc = vm._vol_consts(tables, st, depth, nee, None, None)
+        check(vc is not None, f"{label}: scene not eligible for the fused volume route")
+        n_tris = int(vc.ic[0])
+        render = {order: vm.try_make_fused_volume_spp_render(
+            tables, st, cam, w, h, 0, depth, nee=nee, pixel_order=order)
+            for order in ("raster", "morton")}
+        view = render["raster"].view
+        n = view.n
+        common = dict(t_total=n_tris, n_lights=int(vc.ic[1]), variant=variant,
+                      nee=nee, max_depth=depth, n_iterations=vc.n_iterations)
+
+        keys, o, d = mk._camera_rays_plain(view, 0)
+        stats = {}
+        ref, plain_ms = timed_once(lambda: vm.vol_path_plain(vc, o, d, keys, stats))
+        got = vm.vol_path(vc, o, d, keys)
+        torch.cuda.synchronize()
+        case = compare_radiance(f"vol_path, {label}", got, ref)
+        case.update(case=label, n_spp=1, plain_ms=plain_ms,
+                    ms=median_ms(lambda: vm.vol_path(vc, o, d, keys), reps, flush),
+                    **vol_bound(n, n_tris, nee, stats, 28, 12), **common)
+        cases["vol_path"].append(case)
+        del got, ref
+
+        for n_spp in spp_list:
+            tag = f"{label}, {n_spp} spp"
+            stats = {}
+            batch = min(n_spp, VOL_PLAIN_BATCH)
+            (ref, ref_rej), plain_ms = timed_once(
+                lambda: vm.vol_spp_persistent_plain(vc, view, 0, n_spp, stats, batch))
+            got_c, rej_c = vm.vol_spp_persistent(vc, view, 0, n_spp)
+            got_b, rej_b = vm.vol_spp(vc, view, 0, n_spp)
+            torch.cuda.synchronize()
+            bound = vol_bound(n, n_tris, nee, stats, 12, 16)
+            for name, got, rej in (("vol_spp_persistent", got_c, rej_c),
+                                   ("vol_spp", got_b, rej_b)):
+                case = compare_radiance(f"{name}, {tag}", got, ref, rej, ref_rej)
+                fn = getattr(vm, name)
+                case.update(case=tag, n_spp=n_spp, plain_ms=plain_ms, plain_batch=batch,
+                            ms=median_ms(lambda: fn(vc, view, 0, n_spp), reps, flush),
+                            **bound, **common)
+                cases[name].append(case)
+            ab = torch.abs(got_b - got_c)
+            check(bool((ab <= K1_AB_ATOL + K1_AB_RTOL * torch.abs(got_c)).all())
+                  and bool((rej_b == rej_c).all()),
+                  f"{tag}: vol_spp vs vol_spp_persistent differ by {float(ab.max())}")
+            cases["vol_spp_persistent"][-1].update(
+                vs_vol_spp_max_abs_diff=float(ab.max()),
+                vs_vol_spp_pixels_differing=int((ab > 0).any(dim=-1).sum()))
+            if n_spp == VOL_CHECK_SPP:
+                rad_m, rej_m = render["morton"](0, n_spp)
+                rad_r, rej_r = render["raster"](0, n_spp)
+                back = torch.empty_like(rad_m)
+                back[torch.as_tensor(render["morton"].pixel_ids.astype(np.int64),
+                                     device=device)] = rad_m
+                check(bool(torch.equal(back, rad_r)) and int(rej_m) == int(rej_r),
+                      f"{tag}: morton lane order is not bitwise raster's image")
+                cases["vol_spp_persistent"][-1].update(morton_bitwise_equal=True)
+            del got_c, got_b, ref, ab
+
+    tables = presets.build_vpt_scene().build(device)
+    st = scene_statics(tables)
+    rc = vm.try_make_fused_volume_spp_render(tables, st, cam, w, h, 0, depth)
+    # a resumed chunk continues the stream: (0, 3) + (3, 1) == (0, 4)
+    whole, _ = rc(0, 4)
+    first, _ = rc(0, 3)
+    last, _ = rc(3, 1)
+    resumed_diff = float(torch.abs(first + last - whole).max())
+    check(resumed_diff <= 1e-4, f"volume: resumed chunk differs by {resumed_diff}")
+    check(vm.try_make_fused_volume_spp_render(tables, st, cam, w, h, 0, 65) is None,
+          "depth 65 must route to the wavefront volume integrator")
+
+    emit("kernel_checks", kernels="volume whole-path", cases=cases, reps=reps,
+         resumed_chunk_max_abs_diff=resumed_diff,
+         tolerances=dict(pixel=[K1_RTOL, K1_ATOL], pixel_share=K1_PIXEL_DIFF_SHARE,
+                         loose=[K1_LOOSE_RTOL, K1_LOOSE_ATOL],
+                         mean=MEAN_BAND_KERNEL_VS_PLAIN,
+                         loop_ab=[K1_AB_RTOL, K1_AB_ATOL]))
+    headline = {"vol_path": "vpt mis", "vol_spp": f"vpt mis, {cfg.spp} spp",
+                "vol_spp_persistent": f"vpt mis, {cfg.spp} spp"}
+    entries = []
+    for name in vm.KERNEL_NAMES:
+        head = next(c for c in cases[name] if c["case"] == headline[name])
+        entries.append(dict(
+            name=name, route="cuda",
+            source="xraytracer_tpu_torch/csrc/vol_megakernel.cu",
+            replaces=VOL_REPLACES[name],
+            launches=None, launches_by_path=None,
+            max_abs_err=max(c["max_abs_err"] for c in cases[name]),
+            err_of="radiance (sum over the launch's samples) per pixel and "
+                   "channel against the plain version, worst case",
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=None,
+            shape=f"{head['case']}: N={head['n']} triangles={head['t_total']} "
+                  f"depth={depth} n_spp={head['n_spp']}",
+            cases=[{k: c.get(k) for k in ("case", "n", "n_spp", "ms", "plain_ms",
+                                          "plain_batch", "bound_ms", "bound_by",
+                                          "pixels_beyond_gate")}
+                   for c in cases[name]],
+        ))
+    return entries
+
+
+def capture_tracking_inputs(renderer, which):
+    """Render one sample and keep the arguments of the ``which``-th calls of
+    both tracking kernels (clones), as the wavefront loop gave them."""
+    from xraytracer_tpu_torch import media_kernels as mkk
+
+    got = {"track_sample": [], "track_transmittance": []}
+    seen = {"track_sample": 0, "track_transmittance": 0}
+    orig = {k: getattr(mkk, k) for k in got}
+
+    def wrap(name):
+        def fn(hm, *args):
+            if seen[name] in which:
+                got[name].append((hm,) + tuple(
+                    a.clone() if hasattr(a, "clone") else a for a in args))
+            seen[name] += 1
+            return orig[name](hm, *args)
+        return fn
+
+    for k in got:
+        setattr(mkk, k, wrap(k))
+    try:
+        renderer.render(1)
+    finally:
+        for k in got:
+            setattr(mkk, k, orig[k])
+    return got
+
+
+def compare_track_sample(what, got, ref, mask):
+    """track_sample vs its plain version, per lane -> dict of counts and
+    errors; fails when the share of lanes that disagree on ``scattered`` /
+    ``scat_step`` or miss the t / weight gates is beyond TRACK_LANE_SHARE."""
+    import torch
+
+    t, w, sc, st = got
+    pt, pw, psc, pst = ref
+    n = t.shape[0]
+    check(bool(torch.isfinite(t).all()) and bool(torch.isfinite(w).all()),
+          f"{what}: non-finite outputs")
+    mism_sc = sc != psc
+    mism_st = st != pst
+    agree = ~(mism_sc | mism_st)
+    t_over = (torch.abs(t - pt) > TRACK_T_ATOL + TRACK_T_RTOL * torch.abs(pt)) & agree
+    w_over = (torch.abs(w - pw) > TRACK_W_ATOL + TRACK_W_RTOL * torch.abs(pw)
+              ).any(dim=-1) & agree
+    off = int((~agree | t_over | w_over).sum())
+    out = dict(
+        n=n, tracking_lanes=int(mask.sum()), scattered=int(psc.sum()),
+        exhausted=int(((pw == 0).all(dim=-1) & mask).sum()),
+        scattered_mismatch=int(mism_sc.sum()), scat_step_mismatch=int(mism_st.sum()),
+        t_beyond_gate=int(t_over.sum()), w_beyond_gate=int(w_over.sum()),
+        lanes_off=off, lanes_off_limit=max(1, int(TRACK_LANE_SHARE * n)),
+        t_bitwise_equal_lanes=int((t == pt).sum()),
+        w_bitwise_equal_lanes=int((w == pw).all(dim=-1).sum()),
+        t_max_abs_err=float(torch.abs(t - pt)[agree].max()) if bool(agree.any()) else 0.0,
+        max_abs_err=float(torch.abs(w - pw)[agree].max()) if bool(agree.any()) else 0.0,
+    )
+    check(off <= out["lanes_off_limit"],
+          f"{what}: {off} of {n} lanes disagree or miss the gates "
+          f"(scattered {out['scattered_mismatch']}, step {out['scat_step_mismatch']}, "
+          f"t {out['t_beyond_gate']}, w {out['w_beyond_gate']})")
+    off_lanes = ~mask
+    check(bool((w[off_lanes] == 1).all()) and not bool(sc[off_lanes].any()),
+          f"{what}: a masked lane did not pass through")
+    return out
+
+
+def track_bound(tables, n, in_bytes, out_bytes, lanes, candidates,
+                flops_per_candidate):
+    """bound_ms of a tracking launch over ``n`` lanes of which ``lanes``
+    track and draw ``candidates`` collision candidates in all (see the
+    docstring for what counts as bytes and operations)."""
+    n_bytes = n * (1 + out_bytes) + lanes * (in_bytes - 1)
+    if lanes:
+        n_bytes += tables.grid_super.numel() * 4
+    if candidates:
+        n_bytes += tables.grid_density.numel() * 4
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = (lanes * FLOPS_DDA + candidates * flops_per_candidate) / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                candidates=candidates)
+
+
+def phase_track_kernels(device, nee_scene, volume_scene, reps):
+    """Hold the two tracking kernels against their plain versions on lanes
+    captured from real renders: of the nee preset at 780x585 (the first
+    iteration: camera rays entering the box; a later one: scattered rays
+    inside it; the transmittance kernel on the NEE segments of the same
+    iterations) and of the volume preset at 512x512 (sigma_t 1.0: long
+    candidate chains; the first and a late iteration, and the same lanes
+    under a step bound they exhaust), plus rays that miss the grid and an
+    all-masked wavefront. Returns the ``kernels`` entries."""
+    import ctypes
+    import dataclasses
+
+    import torch
+
+    from xraytracer_tpu_torch import media_kernels as mkk
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cfg = get_preset("nee")
+    tables, camk = nee_scene
+    st = scene_statics(tables)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+    integ = make_volume_integrator(tables, st, cfg.max_depth, nee=True)
+    r = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height, seed=0)
+    got = capture_tracking_inputs(r, CAPTURE_ITERATIONS)
+    check(all(len(v) == len(CAPTURE_ITERATIONS) for v in got.values()),
+          "nee: the wavefront loop did not call both tracking kernels")
+    cases = {k: [] for k in mkk.KERNEL_NAMES}
+
+    def sample_case(label, hm, o, d, t0, t1, tp, keys, site, mask):
+        cand = []
+        ref, plain_ms = timed_once(lambda: mkk.track_sample_plain(
+            hm, o, d, t0, t1, tp, keys, site, mask, candidates=cand))
+        run = lambda: mkk.track_sample(hm, o, d, t0, t1, tp, keys, site, mask)
+        out = run()
+        torch.cuda.synchronize()
+        case = compare_track_sample(f"track_sample, {label}", out, ref, mask)
+        n = o.shape[0]
+        case.update(case=label, site=site, max_steps=hm.max_steps, plain_ms=plain_ms,
+                    plain_loop_steps=len(cand), ms=median_ms(run, reps, flush),
+                    **track_bound(hm.scene, n, 49, 21, int(mask.sum()), sum(cand),
+                                  FLOPS_TRACK_CANDIDATE))
+        cases["track_sample"].append(case)
+
+    def transmittance_case(label, hm, p1, p2, keys, site, mask):
+        cand = []
+        ref, plain_ms = timed_once(lambda: mkk.track_transmittance_plain(
+            hm, p1, p2, keys, site, mask, candidates=cand))
+        run = lambda: mkk.track_transmittance(hm, p1, p2, keys, site, mask)
+        out = run()
+        torch.cuda.synchronize()
+        n = p1.shape[0]
+        check(bool(torch.isfinite(out).all()), f"track_transmittance, {label}: non-finite")
+        over = (torch.abs(out - ref) > TRACK_W_ATOL + TRACK_W_RTOL * torch.abs(ref)
+                ).any(dim=-1)
+        off = int(over.sum())
+        check(off <= max(1, int(TRACK_LANE_SHARE * n)),
+              f"track_transmittance, {label}: {off} of {n} lanes beyond rtol "
+              f"{TRACK_W_RTOL} / atol {TRACK_W_ATOL}")
+        check(bool((out[~mask] == 1).all()),
+              f"track_transmittance, {label}: a masked lane is not 1")
+        cases["track_transmittance"].append(dict(
+            case=label, n=n, site=site, max_steps=hm.max_steps,
+            tracking_lanes=int(mask.sum()),
+            exhausted=int(((ref == 0).all(dim=-1) & mask).sum()),
+            lanes_off=off, lanes_off_limit=max(1, int(TRACK_LANE_SHARE * n)),
+            bitwise_equal_lanes=int((out == ref).all(dim=-1).sum()),
+            max_abs_err=float(torch.abs(out - ref).max()),
+            mean_transmittance=float(ref[mask].mean()) if bool(mask.any()) else 1.0,
+            plain_ms=plain_ms, plain_loop_steps=len(cand),
+            ms=median_ms(run, reps, flush),
+            **track_bound(hm.scene, n, 29, 12, int(mask.sum()), sum(cand),
+                          FLOPS_TRANSMITTANCE_CANDIDATE)))
+
+    for it, args in zip(CAPTURE_ITERATIONS, got["track_sample"]):
+        sample_case(f"nee iteration {it}", *args)
+    for it, args in zip(CAPTURE_ITERATIONS, got["track_transmittance"]):
+        transmittance_case(f"nee iteration {it} NEE segments", *args)
+
+    # the volume preset's lanes: the shapes volume_path gives track_sample
+    vcfg = get_preset("volume")
+    vtables, vcamk = volume_scene
+    vcam = PinholeCamera.make(vcfg.width / vcfg.height, device=device, **vcamk)
+    vinteg = make_volume_integrator(vtables, scene_statics(vtables), vcfg.max_depth)
+    vr = WavefrontRenderer(vtables, vcam, vinteg, vcfg.width, vcfg.height, seed=0)
+    vgot = capture_tracking_inputs(vr, VOLUME_CAPTURE_ITERATIONS)["track_sample"]
+    check(len(vgot) == len(VOLUME_CAPTURE_ITERATIONS),
+          "volume: the wavefront loop did not call track_sample")
+    for it, args in zip(VOLUME_CAPTURE_ITERATIONS, vgot):
+        sample_case(f"volume iteration {it}", *args)
+        check(cases["track_sample"][-1]["tracking_lanes"] > 0,
+              f"volume iteration {it}: no lane tracks")
+    sample_case(f"volume iteration 0, max_steps {EXHAUST_MAX_STEPS}",
+                mkk.het_medium(vtables, EXHAUST_MAX_STEPS), *vgot[0][1:])
+    check(cases["track_sample"][-1]["exhausted"] > 0,
+          "volume: no lane ran into the step bound")
+
+    # rays that miss the grid (density 0 along the whole span: no lane may
+    # scatter), the uniform channel pick, and an all-masked wavefront
+    hm, o, d, t0, t1, tp, keys, site, mask = got["track_sample"][0]
+    far = o + torch.tensor([0.0, 5000.0, 0.0], device=device)
+    sample_case("rays that miss the grid", hm, far, d, t0, t1, tp, keys, site, mask)
+    check(cases["track_sample"][-1]["scattered"] == 0, "a ray outside the grid scattered")
+    hm_u = mkk.het_medium(tables, hm.max_steps, chan_uniform=True)
+    sample_case("nee iteration 0, uniform channel pick", hm_u, o, d, t0, t1, tp,
+                keys, site, mask)
+    none = torch.zeros_like(mask)
+    zero = torch.zeros_like(t0)
+    sample_case("all lanes masked", hm, o, d, zero, zero, tp, keys, site, none)
+    t_none = mkk.track_sample(hm, o, d, zero, zero, tp, keys, site, none)[0]
+    check(bool((t_none == 1e-3).all()), "masked lanes must stop at t1 + RAY_EPS")
+    hm_t, p1, p2, keys_t, site_t, mask_t = got["track_transmittance"][0]
+    transmittance_case("all lanes masked", hm_t, p1, p1, keys_t, site_t,
+                       torch.zeros_like(mask_t))
+    # the dense-grid fetch (eight loads), which grids past the packing gate take
+    ic = list(hm.ic)
+    ic[8] = 0
+    hm_dense = dataclasses.replace(hm, ic=(ctypes.c_int * len(ic))(*ic))
+    a = mkk.track_sample(hm_dense, o, d, t0, t1, tp, keys, site, mask)
+    b = mkk.track_sample(hm, o, d, t0, t1, tp, keys, site, mask)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(x, y)) for x, y in zip(a, b)),
+          "track_sample: the dense-grid fetch differs from the corner-row fetch")
+
+    emit("kernel_checks", kernels="tracking", cases=cases, reps=reps,
+         captured_from=f"nee preset {cfg.width}x{cfg.height}, sample 0, "
+                       f"iterations {list(CAPTURE_ITERATIONS)}; volume preset "
+                       f"{vcfg.width}x{vcfg.height}, sample 0, iterations "
+                       f"{list(VOLUME_CAPTURE_ITERATIONS)}",
+         dense_fetch_bitwise_equal=True,
+         tolerances=dict(t=[TRACK_T_RTOL, TRACK_T_ATOL], w=[TRACK_W_RTOL, TRACK_W_ATOL],
+                         lane_share=TRACK_LANE_SHARE))
+    entries = []
+    for name, head_case in (("track_sample", "nee iteration 0"),
+                            ("track_transmittance", "nee iteration 0 NEE segments")):
+        head = next(c for c in cases[name] if c["case"] == head_case)
+        entries.append(dict(
+            name=name, route="cuda", source="xraytracer_tpu_torch/csrc/media.cu",
+            replaces=TRACK_REPLACES[name], launches=None, launches_by_path=None,
+            max_abs_err=max(c["max_abs_err"] for c in cases[name]),
+            err_of=("weight per lane and channel on lanes that agree on scattered "
+                    "and scat_step, worst case" if name == "track_sample" else
+                    "transmittance per lane and channel, worst case"),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+            shape=f"{head['case']}: N={head['n']} tracking={head['tracking_lanes']} "
+                  f"candidates={head['candidates']} grid=64^3",
+            cases=[{k: c[k] for k in ("case", "n", "max_steps", "tracking_lanes",
+                                      "candidates", "exhausted", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "lanes_off")}
+                   for c in cases[name]],
+        ))
+    return entries
+
+
+def phase_cloud_golden(device):
+    """The CPU golden of the heterogeneous NEE integrator
+    (tests/golden/cloud_nee_24x18_4spp_seed0.npy), reproduced on the card
+    through both tracking kernels."""
+    import numpy as np
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.math import from_rows
+    from xraytracer_tpu_torch.renderer import render
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.scene.presets import build_volume_scene, procedural_cloud
+
+    golden = np.load(os.path.join(_HERE, "tests", "golden",
+                                  "cloud_nee_24x18_4spp_seed0.npy"))
+    # the golden's grid is rounded to bfloat16 (exact in float32)
+    density = torch.from_numpy(procedural_cloud(res=(24, 20, 16), seed=3)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+    tables = build_volume_scene(
+        density=density, absorption=(0.02, 0.02, 0.02),
+        scattering=(0.06, 0.05, 0.04), le=30.0).build(device)
+    c2w = from_rows(1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0, 0, 70.0, 550.0, 1)
+    cam = PinholeCamera.make(24 / 18, c2w=c2w, fov_deg=60.0, device=device)
+    integ = make_volume_integrator(tables, scene_statics(tables), 8, nee=True,
+                                   max_steps=96)
+    reset_all_counts()
+    r = render(tables, cam, integ, 24, 18, 4, seed=0)
+    counts = all_counts()
+    diff = np.abs(r.image - golden)
+    own = int((diff > CLOUD_GOLDEN_GATE[1] + CLOUD_GOLDEN_GATE[0] * np.abs(golden)).sum())
+    rtol, atol = CLOUD_GOLDEN_CARD_GATE
+    over = int((diff > atol + rtol * np.abs(golden)).sum())
+    launches = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+    emit("golden", image="cloud_nee_24x18_4spp_seed0", values=int(golden.size),
+         max_abs_diff=float(diff.max()), values_over_gate=over,
+         gate=f"rtol {rtol} atol {atol}", values_over_golden_own_gate=own,
+         golden_own_gate=f"rtol {CLOUD_GOLDEN_GATE[0]} atol {CLOUD_GOLDEN_GATE[1]}",
+         n_rejected=r.n_rejected, launches=launches)
+    check(over == 0 and r.n_rejected == 0,
+          f"cloud golden: {over} values beyond rtol {rtol} / atol {atol}")
+    check(counts["track_sample"]["launches"] == 4 * 18
+          and counts["track_transmittance"]["launches"] == 4 * 18,
+          "cloud golden: the render did not go through both tracking kernels")
+    check(sum(v["plain_calls"] for v in counts.values()) == 0,
+          "cloud golden: plain-version calls on the card")
+
+
+def volume_reference(tables, camk, statics, size, depth, nee, spp, device, plain):
+    """The scene at reference size, seed 0: through the route the card takes
+    by default, or (``plain``) through no kernel at all: the whole-render
+    kernel's own plain version where the scene takes the fused route (it has
+    the kernel's camera-ray formulas), else the wavefront loop with
+    host-side tracking over the plain matmul-form sweep."""
+    from types import SimpleNamespace
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.geometry.intersect import intersect_triangles_mm
+    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.integrators import vol_megakernel as vm
+    from xraytracer_tpu_torch.renderer import render
+
+    w, h = size
+    cam = PinholeCamera.make(w / h, device=device, **camk)
+    if not plain:
+        integ = make_volume_integrator(tables, statics, depth, nee=nee)
+        return render(tables, cam, integ, w, h, spp, seed=0)
+    vc = vm._vol_consts(tables, statics, depth, nee, None, None)
+    if vc is not None:
+        view = vm.try_make_fused_volume_spp_render(
+            tables, statics, cam, w, h, 0, depth, nee=nee).view
+        rad, _ = vm.vol_spp_persistent_plain(vc, view, 0, spp)
+        return SimpleNamespace(image=rad.cpu().numpy().reshape(h, w, 3) / spp)
+    integ = make_volume_integrator(tables, statics, depth, nee=nee,
+                                   tri_fn=intersect_triangles_mm, fused="never")
+    return render(tables, cam, integ, w, h, spp, seed=0)
+
+
+def phase_volume_path(label, device, preset, integrator, spp, expected_fn, ref_size,
+                      scene=None):
+    """Drive one volume preset at its full width and depth through the entry
+    points a user calls, with counts set to 0 just before the run and read
+    just after it; hold it against reference-size renders through the
+    kernels and through the plain path. Returns the run's launch counts."""
+    import numpy as np
+
+    from xraytracer_tpu_torch import cli
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import PRESETS, get_preset
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cfg = get_preset(preset, integrator=integrator, spp=spp)
+    tables, camk = scene if scene is not None else cli.build_scene(cfg, device=device)
+    statics = scene_statics(tables)
+    nee = cfg.integrator == "vpt_nee"
+    het = statics["has_heterogeneous"]
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+    integ = cli.make_integrator(cfg, tables, statics)
+    fused = getattr(integ, "fused_spec", None) is not None
+    check(fused != het, f"{label}: wrong route (fused={fused}, heterogeneous={het})")
+    renderer = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height,
+                                 seed=cfg.seed)
+    if fused:
+        renderer.render(1)  # warm-up
+    ref_depth = min(cfg.max_depth, HET_REF_PLAIN_DEPTH) if het else cfg.max_depth
+    spp_full, spp_pair = VOL_REF_SPP[label]
+    ref_full = volume_reference(tables, camk, statics, ref_size, cfg.max_depth, nee,
+                                spp_full, device, plain=False)
+    ref_k = ref_full if (ref_depth, spp_pair) == (cfg.max_depth, spp_full) else (
+        volume_reference(tables, camk, statics, ref_size, ref_depth, nee, spp_pair,
+                         device, plain=False))
+    ref_p = volume_reference(tables, camk, statics, ref_size, ref_depth, nee,
+                             spp_pair, device, plain=True)
+    n_chunks = -(-cfg.spp // (cfg.spp_chunk or cfg.spp))
+    reset_all_counts()
+    result = renderer.render(cfg.spp, spp_chunk=cfg.spp_chunk or None)
+    counts = all_counts()
+
+    expected = expected_fn(cfg, n_chunks)
+    check(result.image.shape == (cfg.height, cfg.width, 3), f"{label}: image shape")
+    check(bool(np.isfinite(result.image).all()), f"{label}: non-finite pixels")
+    check(result.n_rejected == 0, f"{label}: {result.n_rejected} rejected samples")
+    for name, c in counts.items():
+        want = expected.get(name, 0)
+        check(c["launches"] == want,
+              f"{label}: {name} launched {c['launches']}x, expected {want}")
+    plain_calls = sum(c["plain_calls"] for c in counts.values())
+    check(plain_calls == 0, f"{label}: {plain_calls} plain-version calls on the card")
+    m_full, m_ref = float(result.image.mean()), float(ref_full.image.mean())
+    m_k, m_p = float(ref_k.image.mean()), float(ref_p.image.mean())
+    check(m_p > 0 and abs(m_k - m_p) <= MEAN_BAND_KERNEL_VS_PLAIN * m_p,
+          f"{label}: {ref_size} depth-{ref_depth} mean {m_k} (kernels) vs {m_p} (plain)")
+    band = VOLUME_MEAN_BAND[label]
+    check(abs(m_full - m_ref) <= band * m_ref,
+          f"{label}: full-size mean {m_full} vs reference-size mean {m_ref}")
+    diff = np.abs(ref_k.image - ref_p.image)
+    n_ref = ref_size[0] * ref_size[1]
+    n_diff = int((diff > 1e-6 + 1e-4 * np.abs(ref_p.image)).any(axis=-1).sum())
+    check(n_diff <= max(1, REF_PIXEL_DIFF_SHARE * n_ref),
+          f"{label}: {n_diff} of {n_ref} reference pixels differ between the "
+          f"kernels and the plain path")
+    preset_spp = PRESETS[preset].spp
+    emit(label, preset=preset, integrator=cfg.integrator,
+         route=("fused (vol_spp_persistent)" if fused else
+                "wavefront (track_sample" + (" + track_transmittance)" if nee else ")")),
+         width=cfg.width, height=cfg.height, depth=cfg.max_depth, spp=cfg.spp,
+         preset_spp=preset_spp,
+         spp_cut=None if cfg.spp == preset_spp else f"cut from {preset_spp} to {cfg.spp}",
+         spp_chunks=n_chunks, seconds=result.seconds,
+         msamples_per_s=result.samples_per_sec / 1e6, n_rejected=result.n_rejected,
+         mean_radiance=m_full, ref_size=list(ref_size), ref_spp=spp_full,
+         ref_mean_kernels_full_depth=m_ref, full_vs_ref_band=band,
+         ref_pair_depth=ref_depth, ref_pair_spp=spp_pair,
+         ref_mean_kernels=m_k, ref_mean_plain=m_p,
+         ref_pixels_differing=n_diff, ref_pixels=n_ref,
+         launches={k: v["launches"] for k, v in counts.items() if v["launches"]},
+         plain_calls=plain_calls)
+    return counts, result
+
+
+def phase_vol_entry_points(device, main_image_mean):
+    """vol_path and vol_spp through their entry points at the vpt preset's
+    width and depth: ``try_make_fused_volume_integrator`` under the
+    per-sample renderer (one launch per sample), and the ``fused_spec`` with
+    ``persistent=False`` under the renderer's chunk runner (one launch per
+    chunk). Returns the run's launch counts."""
+    import numpy as np
+
+    from xraytracer_tpu_torch import cli
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.integrators.vol_megakernel import (
+        try_make_fused_volume_integrator,
+    )
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cfg = get_preset("vpt")
+    tables, camk = cli.build_scene(cfg, device=device)
+    statics = scene_statics(tables)
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+    per_sample = try_make_fused_volume_integrator(tables, statics, cfg.max_depth)
+    check(per_sample is not None, "vol_entry_points: scene not eligible")
+    chunked = make_volume_integrator(tables, statics, cfg.max_depth)
+    chunked.fused_spec = dict(chunked.fused_spec, persistent=False)
+    merged = make_volume_integrator(tables, statics, cfg.max_depth)
+    renderers = [WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height,
+                                   seed=cfg.seed)
+                 for integ in (per_sample, chunked, merged)]
+    reset_all_counts()
+    res_a = renderers[0].render(VOL_ENTRY_SPP)
+    res_b = renderers[1].render(VOL_ENTRY_SPP)
+    counts = all_counts()
+    res_c = renderers[2].render(VOL_ENTRY_SPP)  # vol_spp_persistent, to compare
+    for name, want in (("vol_path", VOL_ENTRY_SPP), ("vol_spp", 1)):
+        check(counts[name]["launches"] == want,
+              f"vol_entry_points: {name} launched {counts[name]['launches']}x, "
+              f"expected {want}")
+    check(sum(c["launches"] for c in counts.values()) == VOL_ENTRY_SPP + 1,
+          "vol_entry_points: another kernel was launched")
+    check(sum(c["plain_calls"] for c in counts.values()) == 0,
+          "vol_entry_points: plain-version calls on the card")
+    check(res_a.n_rejected == 0 and res_b.n_rejected == 0,
+          "vol_entry_points: rejected samples")
+    ab = np.abs(res_b.image - res_c.image)
+    check(bool((ab <= K1_AB_ATOL + K1_AB_RTOL * np.abs(res_c.image)).all()),
+          f"vol_entry_points: vol_spp vs vol_spp_persistent differ by {ab.max()}")
+    diff = np.abs(res_a.image - res_c.image)
+    n_diff = int((diff > K1_ATOL + K1_RTOL * np.abs(res_c.image)).any(axis=-1).sum())
+    check(n_diff <= K1_PIXEL_DIFF_SHARE * cfg.width * cfg.height,
+          f"vol_entry_points: vol_path route differs from the whole-render "
+          f"kernel on {n_diff} pixels")
+    m = float(res_a.image.mean())
+    check(abs(m - main_image_mean) <= MEAN_BAND_FULL_VS_REF * main_image_mean,
+          f"vol_entry_points: mean {m} vs vpt_path {main_image_mean}")
+    emit("vol_entry_points", spp=VOL_ENTRY_SPP,
+         vol_path=dict(seconds=res_a.seconds,
+                       msamples_per_s=res_a.samples_per_sec / 1e6,
+                       launches=counts["vol_path"]["launches"]),
+         vol_spp=dict(seconds=res_b.seconds,
+                      msamples_per_s=res_b.samples_per_sec / 1e6,
+                      launches=counts["vol_spp"]["launches"]),
+         vol_spp_vs_persistent_max_abs_diff=float(ab.max()),
+         vol_path_vs_persistent_pixels_beyond_gate=n_diff,
+         vol_path_vs_persistent_max_abs_diff=float(diff.max()),
+         mean_radiance=m)
+    return counts
+
+
+def phase_profile_nee(device, nee_scene, top=12):
+    """Trace 1 sample of the nee preset's wavefront route: device busy share
+    and the kernels that take most of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cfg = get_preset("nee")
+    tables, camk = nee_scene
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+    integ = make_volume_integrator(tables, scene_statics(tables), cfg.max_depth,
+                                   nee=True)
+    renderer = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height, seed=0)
+    renderer.render(1)
+    plain = renderer.render(1).seconds
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = renderer.render(1).seconds
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us and getattr(e, "device_type", None) is not None and \
+                "cuda" in str(e.device_type).lower():
+            rows.append((e.key, float(dev_us), int(e.count)))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    emit("profile", route="nee wavefront", spp=1, seconds_untraced=plain,
+         seconds_traced=traced, device_kernels=sum(r[2] for r in rows),
+         device_busy_ms=busy_ms if rows else "not measured",
+         device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
+         top=[dict(kernel=k[:90], ms=us / 1e3, launches=c) for k, us, c in rows[:top]])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fmad-ab", action="store_true",
                     help="also build and check the sweeps with -fmad=false")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the main path and 2 samples of the "
-                         "wavefront route with torch.profiler")
+                    help="also trace the main path, 2 samples of the Cornell "
+                         "wavefront route and 1 sample of the nee wavefront "
+                         "route with torch.profiler")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per kernel and case (median)")
     args = ap.parse_args()
@@ -1343,7 +2110,12 @@ def main():
         "mesh13k": (mesh, mesh_cam, True),
     }, args.reps, args.fmad_ab)
     entries += phase_mega_kernels(device, cornell, cornell_cam, args.reps)
+    entries += phase_vol_kernels(device, args.reps)
+    nee_scene = cli.build_scene(get_preset("nee"), device=device)
+    volume_scene = cli.build_scene(get_preset("volume"), device=device)
+    entries += phase_track_kernels(device, nee_scene, volume_scene, args.reps)
     phase_golden(device)
+    phase_cloud_golden(device)
     by_path = {}
     by_path["main_path"], main_result = phase_main(device, cfg, cornell, cornell_cam)
     main_mean = float(main_result.image.mean())
@@ -1351,12 +2123,38 @@ def main():
         device, cfg, cornell, cornell_cam, main_mean)
     by_path.update(phase_wavefront(device, cfg, cornell, cornell_cam, main_mean))
     by_path["mesh_path"] = phase_mesh(device, mesh, mesh_cam)
+    # the volume paths; the wavefront loop intersects the (empty) triangle
+    # table with the record sweep, as it does for every scene
+    by_path["vpt_path"], vpt_result = phase_volume_path(
+        "vpt_path", device, "vpt", "vpt", None,
+        lambda c, chunks: {"vol_spp_persistent": chunks}, (96, 96))
+    by_path["vpt_nee_path"], _ = phase_volume_path(
+        "vpt_nee_path", device, "vpt", "vpt_nee", VPT_NEE_SPP,
+        lambda c, chunks: {"vol_spp_persistent": chunks}, (96, 96))
+    by_path["vol_entry_points"] = phase_vol_entry_points(
+        device, float(vpt_result.image.mean()))
+    by_path["nee_path"], _ = phase_volume_path(
+        "nee_path", device, "nee", None, NEE_SPP,
+        lambda c, chunks: {
+            "track_sample": c.spp * (2 * c.max_depth + 2),
+            "track_transmittance": c.spp * (2 * c.max_depth + 2),
+            "sweep_nearest_rec": 2 * c.spp * (2 * c.max_depth + 2)},
+        (REF_W, REF_H), scene=nee_scene)
+    by_path["volume_path"], _ = phase_volume_path(
+        "volume_path", device, "volume", None, VOLUME_SPP,
+        lambda c, chunks: {
+            "track_sample": c.spp * (2 * c.max_depth + 2),
+            "sweep_nearest_rec": c.spp * (2 * c.max_depth + 2)},
+        (96, 96), scene=volume_scene)
     # the path on which each kernel must have run, by that path's own count
     runs_on = {"mega_spp_persistent": "main_path",
                "mega_path": "fused_entry_points", "mega_spp": "fused_entry_points",
                "sweep_nearest": "tri_fn_path", "sweep_nearest_rec": "wavefront_path",
-               "occluded_anyhit": "wavefront_path"}
-    check(len(entries) == 6, "the kernels line must list six kernels")
+               "occluded_anyhit": "wavefront_path",
+               "vol_spp_persistent": "vpt_path", "vol_path": "vol_entry_points",
+               "vol_spp": "vol_entry_points", "track_sample": "nee_path",
+               "track_transmittance": "nee_path"}
+    check(len(entries) == 11, "the kernels line must list eleven kernels")
     for e in entries:
         e["launches_by_path"] = {
             path: counts[e["name"]]["launches"] for path, counts in by_path.items()}
@@ -1365,6 +2163,7 @@ def main():
               f"{e['name']} was never launched on {runs_on[e['name']]}")
     if args.profile:
         phase_profile(device, cfg, cornell, cornell_cam)
+        phase_profile_nee(device, nee_scene)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -187,7 +187,7 @@ def test_cli_renders_on_cpu_and_names_roadmap_for_the_rest(tmp_path, capsys):
                      "-o", str(tmp_path / "n.ppm")]) == 0
     assert open(tmp_path / "n.ppm").read(2) == "P3"
     for extra in (["--integrator", "whitted"], ["--integrator", "direct"],
-                  ["--preset", "nee"], ["--preset", "example"]):
+                  ["--preset", "example"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["--preset", "cornellbox", "--device", "cpu", "--spp", "1",
                       "-o", out] + extra)

@@ -1,14 +1,16 @@
 """xraytracer_tpu_torch — the PyTorch/CUDA port of ``xraytracer_tpu``.
 
 A second package beside the JAX one, module for module (same tree, same
-names), for one NVIDIA H100: plain tensor code is PyTorch, and the triangle
-sweeps that the JAX package wrote as Pallas kernels are CUDA kernels written
-for Hopper (``csrc/``, built with nvcc at first use, see ``_build.py``).
+names), for one NVIDIA H100: plain tensor code is PyTorch, and what the JAX
+package wrote as Pallas kernels (the triangle sweeps, the whole-path surface
+and homogeneous-volume kernels, the heterogeneous tracking kernels) are CUDA
+kernels written for Hopper (``csrc/``, built with nvcc at first use, see
+``_build.py``).
 It imports ``torch`` and ``numpy``, never ``jax`` and nothing of the JAX
 package. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
-Ported so far — the wavefront surface path:
+Ported so far — surface GI and forward volume rendering:
   math/         vector/matrix/optics math
   sampling/     counter-based RNG (bitwise equal to the JAX package's),
                 warps, discrete distributions
@@ -16,7 +18,11 @@ Ported so far — the wavefront surface path:
   scene/        flat scene tables, builder, Cornell preset
   materials.py  BSDF tables (Lambert/Mirror/Glass)
   lights.py     area light tables
-  integrators/  Normal, Indirect/GI path tracing (NEE, MIS, stats)
+  media.py      homogeneous and heterogeneous media (delta / ratio tracking)
+  media_kernels.py  the tracking kernels' wrappers and plain versions
+  integrators/  Normal, Indirect/GI path tracing (NEE, MIS, stats), the
+                whole-path surface kernels, volume path tracing (VPT,
+                VPT-NEE) and the whole-path homogeneous volume kernels
   renderer.py   spp-chunked wavefront execution, checkpoints
   film.py, config.py, cli.py, convert.py
 """
@@ -30,6 +36,7 @@ from . import geometry  # noqa: F401
 from . import scene  # noqa: F401
 from . import materials  # noqa: F401
 from . import lights  # noqa: F401
+from . import media  # noqa: F401
 from . import integrators  # noqa: F401
 from . import renderer  # noqa: F401
 from .camera import PinholeCamera
@@ -37,6 +44,6 @@ from .film import write_image
 
 __all__ = [
     "constants", "math", "sampling", "geometry", "scene", "materials",
-    "lights", "integrators", "renderer", "PinholeCamera", "write_image",
+    "lights", "media", "integrators", "renderer", "PinholeCamera", "write_image",
     "__version__",
 ]

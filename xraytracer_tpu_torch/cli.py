@@ -12,8 +12,10 @@ It renders on the card unless ``--device cpu`` is given. On the card a path
 integrator over an eligible scene (``integrators/megakernel.py``; the
 Cornell presets are) takes the fused whole-render route, one kernel launch
 per spp chunk; ``--stats``, ``gi_mis`` and ``--device cpu`` keep the
-composable wavefront route. Presets and
-integrators that are not ported yet raise ``NotImplementedError`` naming
+composable wavefront route. The ``vpt`` preset (one homogeneous box) takes
+the whole-render volume kernel in the same way; ``volume`` and ``nee``
+(heterogeneous cloud) run the wavefront loop with the two tracking kernels.
+Presets and integrators that are not ported yet raise ``NotImplementedError`` naming
 the ROADMAP.md item they wait for.
 """
 
@@ -26,7 +28,11 @@ from .camera import PinholeCamera
 from .config import PRESETS, get_preset
 from .device import resolve_device
 from .film import write_image
-from .integrators import make_normal_integrator, make_path_integrator
+from .integrators import (
+    make_normal_integrator,
+    make_path_integrator,
+    make_volume_integrator,
+)
 from .renderer import Accumulator, render
 from .scene import presets as scene_presets
 from .scene.builder import scene_statics
@@ -36,14 +42,9 @@ _WAITING_INTEGRATORS = {
     "furnace": "queue 1, direct/furnace/Whitted integrators and delta lights",
     "direct": "queue 1, direct/furnace/Whitted integrators and delta lights",
     "whitted": "queue 1, direct/furnace/Whitted integrators and delta lights",
-    "vpt": "queue 1 item 8, media and volume integrators",
-    "vpt_nee": "queue 1 item 8, media and volume integrators",
 }
 _WAITING_PRESETS = {
     "example": "queue 1, direct/furnace/Whitted integrators and delta lights",
-    "vpt": "queue 1 item 8, media and volume integrators",
-    "volume": "queue 1 item 8, media and volume integrators",
-    "nee": "queue 1 item 8, media and volume integrators",
 }
 
 
@@ -84,6 +85,11 @@ def make_integrator(cfg, tables, statics, with_stats=False):
             cosine_sampling=cfg.cosine_sampling, with_stats=with_stats,
             nee_mode=cfg.nee_mode,
         )
+    if cfg.integrator in ("vpt", "vpt_nee"):
+        return make_volume_integrator(
+            tables, statics, cfg.max_depth, nee=cfg.integrator == "vpt_nee",
+            max_steps=cfg.max_steps or None, with_stats=with_stats,
+        )
     if cfg.integrator in _WAITING_INTEGRATORS:
         raise NotImplementedError(
             f"integrator {cfg.integrator!r} is not ported yet "
@@ -95,6 +101,20 @@ def make_integrator(cfg, tables, statics, with_stats=False):
 def print_stats(cfg, result):
     st = result.stats
     n_lanes = cfg.width * cfg.height * cfg.spp
+    if "scattered" in st:
+        # volume integrators: five counters per iteration
+        print(f"[stats] total rays traced: {result.total_rays}"
+              f" ({result.total_rays / max(result.seconds, 1e-9) / 1e6:.2f}"
+              " Mrays/s)")
+        for b in range(len(st["rays"])):
+            rays = int(st["rays"][b])
+            print(f"[stats] iteration {b}: rays={rays}"
+                  f" occupancy={rays / max(n_lanes, 1):.3f}"
+                  f" rr_killed={int(st['rr_killed'][b])}"
+                  f" emitter_hits={int(st['emitter_hits'][b])}"
+                  f" scattered={int(st['scattered'][b])}"
+                  f" active_out={int(st['active_out'][b])}")
+        return
     print(f"[stats] total rays traced: {result.total_rays}"
           f" ({result.total_rays / max(result.seconds, 1e-9) / 1e6:.2f}"
           " Mrays/s incl. shadow)")
@@ -118,7 +138,7 @@ def main(argv=None):
     )
     p.add_argument("--preset", choices=sorted(PRESETS), default="cornellbox")
     p.add_argument("--integrator", default=None,
-                   help="normal|gi|gi_mis|indirect")
+                   help="normal|gi|gi_mis|indirect|vpt|vpt_nee")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--spp", type=int, default=None)
@@ -131,6 +151,9 @@ def main(argv=None):
                    help="NEE light selection: sum all lights (reference "
                         "semantics), one uniform pick, or power-weighted "
                         "pick (many-light scenes)")
+    p.add_argument("--max-steps", type=int, default=None, dest="max_steps",
+                   help="tracking-loop step bound for heterogeneous media "
+                        "(default: auto from majorant x bbox diagonal)")
     p.add_argument("--cosine", action="store_true", default=None,
                    dest="cosine_sampling",
                    help="cosine-weighted Lambert sampling (lower variance)")
@@ -140,7 +163,7 @@ def main(argv=None):
                    help="resume from --checkpoint if it exists")
     p.add_argument("--stats", action="store_true",
                    help="collect + print per-bounce ray/occupancy/RR metrics"
-                        " (SURVEY.md §5; path integrators)")
+                        " (SURVEY.md §5; path and volume integrators)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
     p.add_argument("-o", "--output", default=None)
@@ -154,7 +177,7 @@ def main(argv=None):
         seed=args.seed, spp_chunk=args.spp_chunk,
         cosine_sampling=args.cosine_sampling,
         checkpoint=args.checkpoint, output=args.output,
-        nee_mode=args.nee_mode,
+        nee_mode=args.nee_mode, max_steps=args.max_steps,
     )
 
     tables, cam_kwargs = build_scene(cfg, device=device)

@@ -1,0 +1,149 @@
+// Wavefront tracking kernels for one heterogeneous medium: one thread per
+// lane runs its whole tracking loop.
+//
+// Replaces, in xraytracer_tpu/media_pallas.py:
+//   track_sample         <- _sample_kernel        (over track_sample)
+//   track_transmittance  <- _transmittance_kernel (over track_transmittance)
+// The per-lane arithmetic is media.cuh (shared with any whole-path kernel
+// that tracks); this file adds the loads, the stores and the launchers.
+//
+// track_sample: per lane, ray (o, d), the medium span [t0, t1], the path
+// throughput (3), the path key and a mask -> where the lane stopped (t), its
+// throughput multiplier (3), whether it scattered, and the loop step of the
+// scatter (the caller draws the phase direction at that step's site). Masked
+// lanes pass through: t = t1 + RAY_EPS, weight 1, no scatter.
+// track_transmittance: per lane, two points, key and mask -> ratio-tracked
+// transmittance (3); masked lanes get 1.
+//
+// What bounds them on an H100: of the two roofline bounds the float32
+// operations one (a lane moves 49 B in and 21 B out, resp. 29 B and 12 B;
+// the 64^3 grid is 1 MB, its corner rows 8 MB, both resident in the 50 MB
+// L2; a lane that tracks costs ~800 flop for the supergrid walk and ~170
+// resp. ~90 per collision candidate). What keeps them away from that bound
+// is latency: every candidate is a dependent chain of logf, a 25-way search
+// in local memory, one scattered 32-byte row load and expf, and the lanes of
+// a warp leave the loop at different candidates. The design does the obvious
+// things about that and no more: segments live in a per-thread local array
+// (75 floats; the DDA fills them once per call), a density fetch is ONE
+// 32-byte row of the corner-packed table (two float4 loads) instead of eight
+// scattered loads, nothing is staged in shared memory and there is no
+// barrier, so a lane that is done costs nothing but its slot in the warp.
+// Times against the operations bound are in PERF.md.
+
+#include "media.cuh"
+
+namespace xrt {
+
+constexpr int MEDIA_BLOCK = 128;
+
+__global__ void __launch_bounds__(MEDIA_BLOCK)
+track_sample_kernel(MediaGrid G, const float* __restrict__ o,
+                    const float* __restrict__ d, const float* __restrict__ t0,
+                    const float* __restrict__ t1, const float* __restrict__ tp,
+                    const int32_t* __restrict__ keys,
+                    const uint8_t* __restrict__ mask, int n, uint32_t site,
+                    float* __restrict__ out_t, float* __restrict__ out_w,
+                    uint8_t* __restrict__ out_scat,
+                    int32_t* __restrict__ out_step) {
+  const int i = blockIdx.x * MEDIA_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  TrackResult R;
+  if (mask[i]) {
+    const float tpv[3] = {tp[3 * i], tp[3 * i + 1], tp[3 * i + 2]};
+    R = track_sample(G, load3(o, i), load3(d, i), t0[i], t1[i], tpv,
+                     (uint32_t)keys[i], site);
+  } else {
+    R.t = t1[i] + RAY_EPS_F;
+    R.w[0] = R.w[1] = R.w[2] = 1.0f;
+    R.scattered = 0;
+    R.scat_step = 0;
+  }
+  out_t[i] = R.t;
+  out_w[3 * i + 0] = R.w[0];
+  out_w[3 * i + 1] = R.w[1];
+  out_w[3 * i + 2] = R.w[2];
+  out_scat[i] = (uint8_t)R.scattered;
+  out_step[i] = R.scat_step;
+}
+
+__global__ void __launch_bounds__(MEDIA_BLOCK)
+track_transmittance_kernel(MediaGrid G, const float* __restrict__ p1,
+                           const float* __restrict__ p2,
+                           const int32_t* __restrict__ keys,
+                           const uint8_t* __restrict__ mask, int n,
+                           uint32_t site, float* __restrict__ out_tr) {
+  const int i = blockIdx.x * MEDIA_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  float tr[3] = {1.0f, 1.0f, 1.0f};
+  if (mask[i])
+    track_transmittance(G, load3(p1, i), load3(p2, i), (uint32_t)keys[i], site,
+                        tr);
+  out_tr[3 * i + 0] = tr[0];
+  out_tr[3 * i + 1] = tr[1];
+  out_tr[3 * i + 2] = tr[2];
+}
+
+// The medium and its grid from the host arrays of media_kernels.py:
+// fc = gmin, gmax, ext, res - 1, scale, block size, block count - 1,
+// sigma_a, sigma_s, sigma_t (3 each), sigma_t_max, majorant, density
+// multiplier; ic = resolution (3), block counts (3), chan_uniform,
+// max_steps, use_packed.
+static MediaGrid grid_from(const float* fc, const int* ic, const float* density,
+                           const float* packed, const float* super) {
+  MediaGrid G;
+  float* dst[10] = {G.gmin,   G.gmax,    G.ext,     G.res_m1,  G.scale,
+                    G.bs,     G.nbf_m1,  G.sigma_a, G.sigma_s, G.sigma_t};
+  for (int j = 0; j < 10; ++j)
+    for (int k = 0; k < 3; ++k) dst[j][k] = fc[3 * j + k];
+  G.sigma_t_max = fc[30];
+  G.majorant = fc[31];
+  G.dm = fc[32];
+  for (int k = 0; k < 3; ++k) {
+    G.res[k] = ic[k];
+    G.nb[k] = ic[3 + k];
+  }
+  G.chan_uniform = ic[6];
+  G.max_steps = ic[7];
+  G.density = density;
+  G.packed = ic[8] ? packed : nullptr;
+  G.super = super;
+  return G;
+}
+
+}  // namespace xrt
+
+extern "C" {
+
+// Each launcher returns cudaGetLastError() after its launch (0 = accepted).
+// ``fc`` and ``ic`` are HOST arrays (see grid_from).
+
+int track_sample(const float* o, const float* d, const float* t0,
+                 const float* t1, const float* tp, const int32_t* keys,
+                 const uint8_t* mask, int n, unsigned site, const float* fc,
+                 const int* ic, const float* density, const float* packed,
+                 const float* super, float* out_t, float* out_w,
+                 uint8_t* out_scat, int32_t* out_step, void* stream) {
+  if (n <= 0) return 0;
+  const xrt::MediaGrid G = xrt::grid_from(fc, ic, density, packed, super);
+  const int grid = (n + xrt::MEDIA_BLOCK - 1) / xrt::MEDIA_BLOCK;
+  xrt::track_sample_kernel<<<grid, xrt::MEDIA_BLOCK, 0, (cudaStream_t)stream>>>(
+      G, o, d, t0, t1, tp, keys, mask, n, site, out_t, out_w, out_scat,
+      out_step);
+  return (int)cudaGetLastError();
+}
+
+int track_transmittance(const float* p1, const float* p2, const int32_t* keys,
+                        const uint8_t* mask, int n, unsigned site,
+                        const float* fc, const int* ic, const float* density,
+                        const float* packed, const float* super, float* out_tr,
+                        void* stream) {
+  if (n <= 0) return 0;
+  const xrt::MediaGrid G = xrt::grid_from(fc, ic, density, packed, super);
+  const int grid = (n + xrt::MEDIA_BLOCK - 1) / xrt::MEDIA_BLOCK;
+  xrt::track_transmittance_kernel<<<grid, xrt::MEDIA_BLOCK, 0,
+                                    (cudaStream_t)stream>>>(
+      G, p1, p2, keys, mask, n, site, out_tr);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

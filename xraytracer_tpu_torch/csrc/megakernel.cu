@@ -71,20 +71,16 @@
 // nvcc contracts a*b+c into FMAs; no fast-math flags, so division, sqrtf,
 // sinf and cosf are the accurate ones.
 
+#include "path_common.cuh"
 #include "tri_test.cuh"
 
 namespace xrt {
 
 constexpr int MEGA_BLOCK = 128;
 constexpr int LIGHT_STRIDE = 20;  // floats per light-table row, see below
-constexpr uint32_t GOLDEN = 0x9E3779B9u;
-constexpr uint32_t SITES_PER_BOUNCE = 1u << 16;
 constexpr uint32_t SITE_RR = 0, SITE_BSDF = 1, SITE_LIGHT0 = 16;
 constexpr float SHADOW_BIAS = 0.01f;
 constexpr float PI_INV = (float)(1.0 / 3.14159265359);
-constexpr float TWO_PI = (float)(2.0 * 3.141592653589793);
-constexpr float THIRD = (float)(1.0 / 3.0);
-constexpr float INV24 = 1.0f / 16777216.0f;
 
 enum NeeKind { NEE_ALL = 0, NEE_ONE = 1, NEE_POWER = 2 };
 
@@ -107,45 +103,12 @@ struct MegaScene {
   int nee_kind;  // NeeKind
 };
 
-struct MegaCamera {
-  float m[9];  // camera-to-world rotation, row-vector convention, row-major
-  float o[3];
-  float scale, scale_over_aspect, inv_w, inv_h;
-  uint32_t cam_site;  // (camera site * GOLDEN) mod 2^32
-};
-
 struct Path {
   uint32_t key;
   int it;  // bounces done
   bool act;
   float3 L, T, o, d;
 };
-
-__device__ __forceinline__ uint32_t pcg(uint32_t x) {
-  x = x * 747796405u + 2891336453u;
-  const uint32_t word = ((x >> ((x >> 28) + 4u)) ^ x) * 277803737u;
-  return (word >> 22) ^ word;
-}
-
-__device__ __forceinline__ float tof(uint32_t u) {
-  return (float)(u >> 8) * INV24;
-}
-
-__device__ __forceinline__ float u1(uint32_t key, uint32_t site) {
-  return tof(pcg(key + site * GOLDEN));
-}
-
-__device__ __forceinline__ void u2(uint32_t key, uint32_t site, float& a,
-                                   float& b) {
-  const uint32_t x1 = pcg(key + site * GOLDEN);
-  const uint32_t x2 = pcg(x1);
-  a = tof(x1);
-  b = tof(x2);
-}
-
-__device__ __forceinline__ float3 ld3(const float* __restrict__ p) {
-  return make_float3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
-}
 
 __device__ __forceinline__ int nearest_row(const float4* __restrict__ coef,
                                            int t_total, float3 oc, float3 d,
@@ -212,23 +175,6 @@ __device__ __forceinline__ float nee_coef(const MegaScene& S, float3 center,
               tl - SHADOW_BIAS))
     return 0.f;
   return cosv / pdf * PI_INV;
-}
-
-// Point on a flat light for the uniforms (lu, lv): the sqrt warp on a
-// triangle (a = v0, b = v0 + e1, c = v0 + e2), the bilinear point on a quad.
-__device__ __forceinline__ float3 light_point(bool is_tri, float3 v0,
-                                              float3 e1, float3 e2, float lu,
-                                              float lv) {
-  if (is_tri) {
-    const float su = sqrtf(lu);
-    const float vs = lv * su;
-    return make_float3(
-        (v0.x + e2.x) + (1.0f - su) * (-e2.x) + vs * (e1.x - e2.x),
-        (v0.y + e2.y) + (1.0f - su) * (-e2.y) + vs * (e1.y - e2.y),
-        (v0.z + e2.z) + (1.0f - su) * (-e2.z) + vs * (e1.z - e2.z));
-  }
-  return make_float3(v0.x + e1.x * lu + e2.x * lv, v0.y + e1.y * lu + e2.y * lv,
-                     v0.z + e1.z * lu + e2.z * lv);
 }
 
 // One bounce of an active path. Ends the path (act = false) on a miss, a
@@ -398,41 +344,16 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
   p.d = ww;
 }
 
-// Path key and jittered pinhole ray of sample ``s`` of one pixel.
+// Key and camera ray of sample ``s`` of one pixel (path_common.cuh), and a
+// fresh path.
 __device__ __forceinline__ void start_sample(const MegaCamera& C,
                                              uint32_t pixfold, float px,
                                              float py, uint32_t s, Path& p) {
-  p.key = pcg(pixfold + s);
-  const uint32_t x1 = pcg(p.key + C.cam_site);
-  const uint32_t x2 = pcg(x1);
-  const float uvx = (px + tof(x1)) * C.inv_w;
-  const float uvy = (py + tof(x2)) * C.inv_h;
-  const float nx = (2.0f * uvx - 1.0f) * C.scale;
-  const float ny = (1.0f - 2.0f * uvy) * C.scale_over_aspect;
-  const float dxw = nx * C.m[0] + ny * C.m[3] - C.m[6];
-  const float dyw = nx * C.m[1] + ny * C.m[4] - C.m[7];
-  const float dzw = nx * C.m[2] + ny * C.m[5] - C.m[8];
-  const float inv = 1.0f / sqrtf(dxw * dxw + dyw * dyw + dzw * dzw);
-  p.o = make_float3(C.o[0], C.o[1], C.o[2]);
-  p.d = make_float3(dxw * inv, dyw * inv, dzw * inv);
+  camera_sample(C, pixfold, px, py, s, p.key, p.o, p.d);
   p.it = 0;
   p.act = true;
   p.L = make_float3(0.f, 0.f, 0.f);
   p.T = make_float3(1.f, 1.f, 1.f);
-}
-
-// A finished sample joins the sum unless a channel is NaN, Inf or negative.
-__device__ __forceinline__ void add_sample(const Path& p, float3& acc,
-                                           int& rej) {
-  const bool ok = (p.L.x >= 0.f) & (p.L.x < INFINITY) & (p.L.y >= 0.f) &
-                  (p.L.y < INFINITY) & (p.L.z >= 0.f) & (p.L.z < INFINITY);
-  if (ok) {
-    acc.x += p.L.x;
-    acc.y += p.L.y;
-    acc.z += p.L.z;
-  } else {
-    rej += 1;
-  }
 }
 
 __global__ void __launch_bounds__(MEGA_BLOCK)
@@ -496,7 +417,7 @@ mega_spp_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
   for (int s = 0; s < n_spp; ++s) {
     start_sample(C, fold, x, y, (uint32_t)(s0 + s), p);
     while (p.act && p.it < S.max_depth) bounce(S, center, p);
-    add_sample(p, acc, rej);
+    add_sample(p.L, acc, rej);
   }
   out_sum[3 * i + 0] = acc.x;
   out_sum[3 * i + 1] = acc.y;
@@ -529,7 +450,7 @@ mega_spp_persistent_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
     if (!p.act) start_sample(C, fold, x, y, (uint32_t)(s0 + s), p);
     bounce(S, center, p);
     if (!p.act || p.it >= S.max_depth) {
-      add_sample(p, acc, rej);
+      add_sample(p.L, acc, rej);
       p.act = false;
       s += 1;
     }
@@ -580,18 +501,6 @@ static MegaScene prepare(const SceneArgs& a, cudaStream_t stream) {
   return S;
 }
 
-static MegaCamera camera_from(const float* cam16, unsigned cam_site) {
-  MegaCamera C;
-  for (int k = 0; k < 9; ++k) C.m[k] = cam16[k];
-  for (int k = 0; k < 3; ++k) C.o[k] = cam16[9 + k];
-  C.scale = cam16[12];
-  C.scale_over_aspect = cam16[13];
-  C.inv_w = cam16[14];
-  C.inv_h = cam16[15];
-  C.cam_site = cam_site;
-  return C;
-}
-
 }  // namespace xrt
 
 // The scene arguments of every launcher, in SceneArgs order.
@@ -610,8 +519,7 @@ static MegaCamera camera_from(const float* cam16, unsigned cam_site) {
 extern "C" {
 
 // Each launcher returns cudaGetLastError() after its launches (0 =
-// accepted). ``cam16`` is a HOST array: rotation (9, row-major), origin (3),
-// scale, scale / aspect, 1 / width, 1 / height.
+// accepted). ``cam16`` is the host array of path_common.cuh's camera_from.
 
 int mega_path(const float* o, const float* d, const int32_t* keys, int n,
               XRT_SCENE_PARAMS, float* out, void* stream) {

@@ -1,3 +1,6 @@
 from .surface import make_normal_integrator, make_path_integrator
+from .volume import make_volume_integrator
 
-__all__ = ["make_normal_integrator", "make_path_integrator"]
+__all__ = [
+    "make_normal_integrator", "make_path_integrator", "make_volume_integrator",
+]

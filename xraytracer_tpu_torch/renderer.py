@@ -21,9 +21,12 @@ Checkpoint/resume (absent in the reference, SURVEY.md §5): spp is
 accumulated in chunks; the accumulator (sum buffer + rejected count +
 samples done) round-trips through an .npz file between chunks.
 
-An integrator that carries ``fused_spec`` (``make_path_integrator`` with
-``fused="auto"`` on an eligible scene) is upgraded to the whole-render
-kernel: one launch per spp chunk (``make_fused_chunk_fn``).
+An integrator that carries ``fused_spec`` (``make_path_integrator`` or
+``make_volume_integrator`` with ``fused="auto"`` on an eligible scene) is
+upgraded to its whole-render kernel: one launch per spp chunk
+(``make_fused_chunk_fn``). ``kind="volume"`` in the spec selects the
+homogeneous volume kernels; the whole heterogeneous path in one kernel
+(``kind="het_volume"`` in the JAX package) is not ported yet (ROADMAP.md).
 
 Not ported yet (ROADMAP.md): the ``sharding`` arguments (multi-GPU).
 """
@@ -130,7 +133,8 @@ def make_chunk_fn(sample_once):
 
 def make_fused_chunk_fn(fused_render):
     """Chunk runner over a whole-render kernel
-    (``megakernel.try_make_fused_spp_render``): camera rays, paths,
+    (``megakernel.try_make_fused_spp_render`` or
+    ``vol_megakernel.try_make_fused_volume_spp_render``): camera rays, paths,
     rejection and the sum over the chunk's samples all happen in ONE launch
     per chunk; ``s0`` and the sample count are launch arguments. Same
     signature as ``make_chunk_fn``'s runner, and like it the accumulator is
@@ -263,9 +267,16 @@ class WavefrontRenderer:
         self.run_chunk = None
         spec = getattr(integrate, "fused_spec", None)
         if spec is not None:
-            from .integrators.megakernel import try_make_fused_spp_render
-
-            fused = try_make_fused_spp_render(
+            spec = dict(spec)
+            if spec.pop("kind", "surface") == "volume":
+                from .integrators.vol_megakernel import (
+                    try_make_fused_volume_spp_render as make_fused,
+                )
+            else:
+                from .integrators.megakernel import (
+                    try_make_fused_spp_render as make_fused,
+                )
+            fused = make_fused(
                 camera=camera, width=width, height=height, seed=seed,
                 pixel_order=self.pixel_order, **spec,
             )

@@ -15,7 +15,10 @@ def channel_pmf(values):
     """Normalized pmf over the last axis (3 channels). Guards the all-zero
     case by falling back to uniform (the C++ would produce NaNs there and get
     caught by downstream NaN checks; we choose the deliberate fix)."""
-    s = torch.sum(values, dim=-1, keepdim=True)
+    # written-out order, (v0 + v1) + v2, so that a kernel can add in the
+    # same order
+    assert values.shape[-1] == 3, values.shape
+    s = ((values[..., 0] + values[..., 1]) + values[..., 2])[..., None]
     uniform = torch.full_like(values, 1.0 / values.shape[-1])
     safe = torch.where(s == 0.0, torch.ones_like(s), s)
     return torch.where(s > 0.0, values / safe, uniform)

@@ -1,8 +1,8 @@
 """Built-in scenes reproducing the reference's example workloads.
 
 PyTorch counterpart of ``xraytracer_tpu/scene/presets.py``; the Cornell box
-is ported, the example/vpt/volume/nee presets follow with their
-integrators (see ROADMAP.md).
+and the three volume scenes (vpt, volume, nee) are ported, the example scene
+follows with its integrators (see ROADMAP.md).
 
 Each preset mirrors one of the reference's hard-coded example mains
 (reference: Src/examples/*.cpp, see SURVEY.md §2.3). Geometry is generated
@@ -102,4 +102,113 @@ def preset_cornellbox(device=None):
         tables,
         cornell_camera(),
         dict(width=780, height=585, spp=16, max_depth=3, gamma=1.2),
+    )
+
+
+def build_vpt_scene(variant="mis"):
+    """Homogeneous unit box + overhead quad light
+    (reference: Src/examples/vpt.cpp:47-71)."""
+    b = SceneBuilder()
+    b.add_homogeneous_medium(
+        0.0, (0.5, 0.5, 0.5), (0.5, 0.5, 0.5),
+        (-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), variant=variant,
+    )
+    b.add_quad_light(
+        (0.5, 1.4, 0.5), (-0.5, 1.4, 0.5), (0.5, 1.4, -0.5),
+        10.0 * np.ones(3, np.float32),
+    )
+    return b
+
+
+def preset_vpt(device=None):
+    tables = build_vpt_scene().build(device)
+    c2w = from_rows(
+        1.0, 0, 0, 0,
+        0, 1.0, 0, 0,
+        0, 0, 1.0, 0,
+        0, 0, 5.0, 1,
+    )
+    fov = 2.0 * 180.0 * np.arctan(1.0 / 3.0) / np.pi
+    return (
+        tables,
+        dict(c2w=c2w, fov_deg=fov),
+        dict(width=512, height=512, spp=1024, max_depth=10, gamma=2.2),
+    )
+
+
+def procedural_cloud(res=(64, 64, 64), seed=0):
+    """Deterministic value-noise puff standing in for the reference's
+    wdas_cloud OpenVDB asset (not redistributable; Src/examples/volume.cpp:46).
+    Returns a dense (res) float32 density field in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    density = np.zeros(res, np.float32)
+    # sum of a few octaves of smoothed random lattices
+    for octave, amp in ((4, 1.0), (8, 0.5), (16, 0.25)):
+        lattice = rng.random((octave, octave, octave)).astype(np.float32)
+        zoom = [r // octave + 1 for r in res]
+        up = np.kron(lattice, np.ones(zoom, np.float32))[
+            : res[0], : res[1], : res[2]
+        ]
+        # cheap trilinear-ish smoothing
+        for ax in range(3):
+            up = (up + np.roll(up, 1, ax) + np.roll(up, -1, ax)) / 3.0
+        density += amp * up
+    density /= density.max()
+    # carve an ellipsoid falloff so it looks like a puff and has empty space
+    g = np.stack(
+        np.meshgrid(*[np.linspace(-1, 1, r) for r in res], indexing="ij")
+    )
+    r2 = (g**2).sum(0)
+    density = density * np.clip(1.0 - r2, 0.0, 1.0)
+    density[density < 0.1] = 0.0
+    return density.astype(np.float32)
+
+
+def build_volume_scene(res=(64, 64, 64), absorption=(0.5, 0.5, 0.5),
+                       scattering=(0.5, 0.5, 0.5), le=10.0,
+                       light_center=(0.0, 380.0, 0.0), light_radius=50.0,
+                       density=None):
+    """Heterogeneous cloud + sphere light (reference: Src/examples/volume.cpp:
+    43-58), with the procedural cloud in place of the VDB asset (pass
+    ``density`` — e.g. np.load of a converted grid — to use real data). The
+    grid is scaled to the wdas-quarter-cloud's approximate world extent."""
+    b = SceneBuilder()
+    if density is None:
+        density = procedural_cloud(res)
+    bmin = np.array([-165.0, -110.0, -160.0], np.float32)
+    bmax = np.array([165.0, 110.0, 160.0], np.float32)
+    b.set_density_grid(density, bmin, bmax)
+    b.add_heterogeneous_medium(0.0, absorption, scattering)
+    b.add_sphere_light(light_center, light_radius, le * np.ones(3, np.float32))
+    return b
+
+
+def _cloud_camera():
+    c2w = from_rows(
+        1.0, 0, 0, 0,
+        0, 1.0, 0, 0,
+        0, 0, 1.0, 0,
+        0, 70.0, 550.0, 1,
+    )
+    return dict(c2w=c2w, fov_deg=60.0)
+
+
+def preset_volume(device=None):
+    tables = build_volume_scene().build(device)
+    return (
+        tables,
+        _cloud_camera(),
+        dict(width=512, height=512, spp=10240, max_depth=100, gamma=2.2),
+    )
+
+
+def preset_nee(device=None):
+    tables = build_volume_scene(
+        absorption=(0.01, 0.01, 0.01), scattering=(0.05, 0.05, 0.05),
+        le=30.0, light_center=(0.0, 400.0, 0.0),
+    ).build(device)
+    return (
+        tables,
+        _cloud_camera(),
+        dict(width=780, height=585, spp=1024, max_depth=32, gamma=2.2),
     )
