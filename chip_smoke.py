@@ -6,16 +6,21 @@
                                      # -fmad=false itself and runs the sweep
                                      # checks on that library as well
     python3 chip_smoke.py --profile  # also traces the main path, 2 samples of
-                                     # the Cornell wavefront path and 1 sample
-                                     # of the nee wavefront path with
+                                     # the Cornell wavefront path, the nee
+                                     # preset by its default route and 1
+                                     # sample of its wavefront route with
                                      # torch.profiler (device time by kernel)
+    python3 chip_smoke.py --launch-bounds-ab  # also compiles
+                                     # csrc/het_megakernel.cu under other
+                                     # __launch_bounds__ caps and times them
 
-Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (four
+Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
 libraries: the sweeps, the whole-path surface kernels, the whole-path
-homogeneous volume kernels, the heterogeneous tracking kernels), holds each
-of the eleven kernels against its plain PyTorch version on the card at the
-shapes its path gives it, reproduces the two CPU golden images through the
-kernels, and then drives, through the port's public entry points:
+homogeneous volume kernels, the heterogeneous tracking kernels, the
+whole-path heterogeneous volume kernels), holds each of the fourteen kernels
+against its plain PyTorch version on the card at the shapes its path gives
+it, reproduces the two CPU golden images through the kernels, and then
+drives, through the port's public entry points:
 
 * ``main_path``: the ``cornellbox_gi`` preset (780x585, depth 3) by its
   default route, the whole-render kernel ``mega_spp_persistent`` (one launch
@@ -33,22 +38,29 @@ kernels, and then drives, through the port's public entry points:
   ``vol_spp_persistent``; ``vpt_nee_path``: the same with next-event
   estimation; ``vol_entry_points``: the same scene through ``vol_path`` and
   ``vol_spp``;
-* ``nee_path``: the ``nee`` preset (780x585, depth 32; a 64^3 cloud under a
-  sphere light) and ``volume_path``: the ``volume`` preset (512x512, depth
-  100), both by the wavefront volume route, whose tracking loops are the
+* ``nee_path``: the ``nee`` preset (780x585, depth 32, its own 1024 spp; a
+  64^3 cloud under a sphere light) and ``volume_path``: the ``volume``
+  preset (512x512, depth 100, its own 10240 spp), both by their default
+  route, the whole-render heterogeneous kernel ``het_spp_persistent`` (one
+  launch per spp chunk); ``het_entry_points``: the nee scene through
+  ``het_path`` and ``het_spp``;
+* ``nee_wavefront_path``: the nee preset by the wavefront volume route
+  (``with_stats=True``, 1 sample, full depth), whose tracking loops are the
   kernels ``track_sample`` and ``track_transmittance``.
 
 Every launch count is set to 0 just before each of these runs and read just
 after it; the script checks that the run went through exactly the kernels
 of its route and through no plain version. In the ``kernels`` line
-``launches_by_path`` holds these readings and ``launches`` is their sum.
+``launches_by_path`` holds these readings, ``launches`` is their sum and
+``runs_on`` names the path that must have launched the kernel.
 There is no fallback: without a card, or when any phase fails, the script
 exits non-zero and prints no result line.
 
 Output: one JSON object per line (``device``, ``build``, ``kernel_checks``
-four times (sweeps, whole-path, volume whole-path, tracking), ``golden``
-twice, then one line per driven path), then ``{"kernels": [...]}`` with one
-entry per kernel, the card's name and power limit, and as the last line
+five times (sweeps, whole-path, volume whole-path, tracking, heterogeneous
+whole-path), ``golden`` three times, then one line per driven path), then
+``{"kernels": [...]}`` with one entry per kernel, the card's name and power
+limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Bounds. ``bound_ms`` is the least time the card could take: the larger of
@@ -86,7 +98,20 @@ run's data:
   its mask byte and writes its outputs; the 64^3 density grid (1 MB) counts
   once when any candidate was drawn, the supergrid once when any lane
   tracks. The 8 MB corner table the kernels read instead of the grid is the
-  port's own copy and is not counted.
+  port's own copy and is not counted;
+* a whole-path heterogeneous kernel needs, per iteration, for every lane
+  that enters it (counter ``rays``) the sphere tests (30 flop each: the
+  offset, two dot products, the discriminant, square root, two roots and
+  compares), the box slab (30) and the roulette (8); for every lane that
+  tracks, the tracking kernel's supergrid walk and per-candidate work as
+  above (lanes and candidates counted by the plain version's own tracking
+  loops on the same inputs); for every lane that scatters (``scattered``)
+  the phase direction (45); with next-event estimation, for every lane that
+  scatters the light pick and cone sample (75), a second nearest-hit test,
+  the phase value and the sum (30), and for every shadow ray through the
+  box the transmittance kernel's walk and per-candidate work. Bytes: what
+  the launch reads per lane and writes per pixel, the density grid once and
+  the supergrid once.
 """
 
 import argparse
@@ -114,8 +139,13 @@ VOL_CHECK_SPP = 4      # volume whole-path kernel checks at the vpt preset's siz
 VOL_PLAIN_BATCH = 32
 VPT_NEE_SPP = 64       # vpt with next-event estimation, cut from 1024
 VOL_ENTRY_SPP = 4      # vol_path / vol_spp through their entry points
-NEE_SPP = 2            # the nee preset by the wavefront route, cut from 1024
-VOLUME_SPP = 1         # the volume preset by the wavefront route, cut from 10240
+# the nee and volume presets run their own 1024 and 10240 spp (one chunk
+# each) through the whole-render heterogeneous kernel
+HET_CHECK_SPP = 2      # heterogeneous whole-path kernel checks at the presets' sizes
+HET_LIGHTS_DEPTH = 8   # the 8-light cloud of those checks (nee size and camera)
+HET_ENTRY_SPP = 2      # het_path / het_spp through their entry points
+NEE_WAVEFRONT_SPP = 1  # the nee preset by the wavefront route, cut from 1024
+AB_SPP = 16            # samples per launch of the --launch-bounds-ab timings
 # reference-size renders beside the volume paths: samples per pixel of the
 # full-depth kernel render and of the kernels-vs-plain pair (same seeds, so
 # that pair agrees pixel by pixel whatever the count)
@@ -143,6 +173,7 @@ FLOPS_PER_ANYHIT_TEST = 39
 FLOPS_VOL_TRI_TEST, FLOPS_VOL_BOX, FLOPS_VOL_RR = 45, 30, 8
 FLOPS_VOL_MEDIUM, FLOPS_VOL_LIGHT, FLOPS_VOL_NEE_REST = 110, 40, 50
 FLOPS_DDA, FLOPS_TRACK_CANDIDATE, FLOPS_TRANSMITTANCE_CANDIDATE = 800, 170, 90
+FLOPS_HET_SPHERE, FLOPS_HET_SCATTER, FLOPS_HET_CONE, FLOPS_HET_NEE_REST = 30, 45, 75, 30
 
 # tolerances, kernel vs plain version on the same inputs
 IDX_MISMATCH_SHARE = 1e-4   # idx mismatches outside the tie band / rays
@@ -190,14 +221,18 @@ TRACK_T_RTOL, TRACK_T_ATOL = 1e-5, 1e-4
 TRACK_W_RTOL, TRACK_W_ATOL = 1e-4, 1e-6
 TRACK_LANE_SHARE = 1e-4
 # the cloud golden through the tracking kernels: start from ten times the
-# golden's own gate; values outside its own gate are counted and printed
+# golden's own gate; values outside its own gate are counted and printed.
+# Through the whole-render heterogeneous kernel: its camera ray multiplies by
+# a float32 1 / width where the wavefront route that made the golden divides
+# (as for K1), so the kernels' pixel gate
 CLOUD_GOLDEN_GATE = (1e-5, 1e-7)
 CLOUD_GOLDEN_CARD_GATE = (1e-4, 1e-6)
+CLOUD_GOLDEN_HET_GATE = (K1_RTOL, K1_ATOL)
 # full-size mean vs reference-size mean of the volume paths: Monte-Carlo
 # noise at a few samples per pixel; the volume preset has no next-event
 # estimation, so a path finds the light only by chance
 VOLUME_MEAN_BAND = {"vpt_path": 0.05, "vpt_nee_path": 0.05, "nee_path": 0.05,
-                    "volume_path": 0.25}
+                    "volume_path": 0.25, "nee_wavefront_path": 0.05}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -307,16 +342,20 @@ def many_light_scene(device, n_side=8, face_in=False):
 
 
 def kernel_modules():
-    """The four modules that hold kernels, each with its own counts."""
+    """The five modules that hold kernels, each with its own counts."""
     from xraytracer_tpu_torch import media_kernels
     from xraytracer_tpu_torch.geometry import kernels
-    from xraytracer_tpu_torch.integrators import megakernel, vol_megakernel
+    from xraytracer_tpu_torch.integrators import (
+        het_megakernel,
+        megakernel,
+        vol_megakernel,
+    )
 
-    return kernels, megakernel, vol_megakernel, media_kernels
+    return kernels, megakernel, vol_megakernel, media_kernels, het_megakernel
 
 
 def all_counts():
-    """Launch and plain-call counts of all eleven kernels."""
+    """Launch and plain-call counts of all fourteen kernels."""
     out = {}
     for mod in kernel_modules():
         out.update(mod.counts())
@@ -1548,7 +1587,8 @@ def phase_vol_kernels(device, reps):
 
 def capture_tracking_inputs(renderer, which):
     """Render one sample and keep the arguments of the ``which``-th calls of
-    both tracking kernels (clones), as the wavefront loop gave them."""
+    both tracking kernels (clones), as the wavefront loop gave them; the
+    renderer's integrator must take the wavefront route."""
     from xraytracer_tpu_torch import media_kernels as mkk
 
     got = {"track_sample": [], "track_transmittance": []}
@@ -1656,7 +1696,10 @@ def phase_track_kernels(device, nee_scene, volume_scene, reps):
     st = scene_statics(tables)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
     cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
-    integ = make_volume_integrator(tables, st, cfg.max_depth, nee=True)
+    # the wavefront route (with_stats keeps it), whose tracking loops are the
+    # two kernels; the default route of this scene is the whole-path kernel
+    integ = make_volume_integrator(tables, st, cfg.max_depth, nee=True,
+                                   with_stats=True)
     r = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height, seed=0)
     got = capture_tracking_inputs(r, CAPTURE_ITERATIONS)
     check(all(len(v) == len(CAPTURE_ITERATIONS) for v in got.values()),
@@ -1717,7 +1760,8 @@ def phase_track_kernels(device, nee_scene, volume_scene, reps):
     vcfg = get_preset("volume")
     vtables, vcamk = volume_scene
     vcam = PinholeCamera.make(vcfg.width / vcfg.height, device=device, **vcamk)
-    vinteg = make_volume_integrator(vtables, scene_statics(vtables), vcfg.max_depth)
+    vinteg = make_volume_integrator(vtables, scene_statics(vtables), vcfg.max_depth,
+                                    with_stats=True)
     vr = WavefrontRenderer(vtables, vcam, vinteg, vcfg.width, vcfg.height, seed=0)
     vgot = capture_tracking_inputs(vr, VOLUME_CAPTURE_ITERATIONS)["track_sample"]
     check(len(vgot) == len(VOLUME_CAPTURE_ITERATIONS),
@@ -1789,10 +1833,438 @@ def phase_track_kernels(device, nee_scene, volume_scene, reps):
     return entries
 
 
+# --------------------------------------------------------------------------
+# the heterogeneous whole-path kernels
+# --------------------------------------------------------------------------
+HET_REPLACES = {
+    "het_path": "xraytracer_tpu/integrators/het_megakernel.py:548",
+    "het_spp": "xraytracer_tpu/integrators/megakernel.py:1468",
+    "het_spp_persistent": "xraytracer_tpu/integrators/megakernel.py:1519",
+}
+
+
+class TrackingTally:
+    """Counts, over a plain render, the lanes that enter each host-side
+    tracking loop of ``media.py`` and the collision candidates they draw:
+    the work a whole-path heterogeneous kernel does in its tracking."""
+
+    def __init__(self):
+        self.sample_lanes = self.sample_candidates = 0
+        self.tr_lanes = self.tr_candidates = 0
+
+    def __enter__(self):
+        from xraytracer_tpu_torch import media
+
+        self._orig = media._track_sample, media._track_transmittance
+        orig_s, orig_t = self._orig
+
+        def sample(*args, het_mask=None, candidates=None, **kw):
+            cand = []
+            out = orig_s(*args, het_mask=het_mask, candidates=cand, **kw)
+            self.sample_lanes += int(het_mask.sum())
+            self.sample_candidates += sum(cand)
+            return out
+
+        def transmittance(scene, med, p1, p2, keys, site, max_steps, het_mask,
+                          candidates=None):
+            cand = []
+            out = orig_t(scene, med, p1, p2, keys, site, max_steps, het_mask,
+                         candidates=cand)
+            self.tr_lanes += int(het_mask.sum())
+            self.tr_candidates += sum(cand)
+            return out
+
+        media._track_sample, media._track_transmittance = sample, transmittance
+        return self
+
+    def __exit__(self, *exc):
+        from xraytracer_tpu_torch import media
+
+        media._track_sample, media._track_transmittance = self._orig
+        return False
+
+
+def het_bound(tables, n, n_spheres, nee, stats, tally, bytes_in, bytes_out):
+    """bound_ms of a whole-path heterogeneous launch from the plain version's
+    per-iteration counters and tracking tallies on the same inputs (see the
+    docstring)."""
+    rays = int(stats["rays"].sum())
+    scattered = int(stats["scattered"].sum())
+    hit_test = n_spheres * FLOPS_HET_SPHERE + FLOPS_VOL_BOX
+    ops = (rays * (hit_test + FLOPS_VOL_RR)
+           + tally.sample_lanes * FLOPS_DDA
+           + tally.sample_candidates * FLOPS_TRACK_CANDIDATE
+           + scattered * FLOPS_HET_SCATTER)
+    if nee:
+        ops += (scattered * (FLOPS_HET_CONE + hit_test + FLOPS_HET_NEE_REST)
+                + tally.tr_lanes * FLOPS_DDA
+                + tally.tr_candidates * FLOPS_TRANSMITTANCE_CANDIDATE)
+    n_bytes = n * (bytes_in + bytes_out)
+    if tally.sample_lanes or tally.tr_lanes:
+        n_bytes += tables.grid_super.numel() * 4
+    if tally.sample_candidates or tally.tr_candidates:
+        n_bytes += tables.grid_density.numel() * 4
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                rays=rays, scattered=scattered, tracking_lanes=tally.sample_lanes,
+                candidates=tally.sample_candidates, shadow_lanes=tally.tr_lanes,
+                shadow_candidates=tally.tr_candidates)
+
+
+def eight_light_cloud(device):
+    """The nee preset's 64^3 cloud (g = 0.3) under 8 sphere lights of
+    different colours, placed as in tests/test_het_megakernel.py: every light
+    pick and shadow ray of the NEE block gets work."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.scene.builder import SceneBuilder
+    from xraytracer_tpu_torch.scene.presets import procedural_cloud
+
+    b = SceneBuilder()
+    b.set_density_grid(procedural_cloud(), np.array([-165.0, -110.0, -160.0], np.float32),
+                       np.array([165.0, 110.0, 160.0], np.float32))
+    b.add_heterogeneous_medium(0.3, (0.01, 0.01, 0.01), (0.05, 0.05, 0.05))
+    g = np.random.default_rng(9)
+    for i in range(8):
+        c = g.uniform(-1.0, 1.0, 3) * np.array([300.0, 80.0, 300.0])
+        c[1] += 330.0
+        b.add_sphere_light(tuple(c), 40.0, (5.0 + 3.0 * i, 20.0 - 2.0 * i, 8.0))
+    return b.build(device)
+
+
+def phase_het_kernels(device, nee_scene, volume_scene, reps):
+    """Hold the three whole-path heterogeneous kernels against their plain
+    versions on the card: the nee preset (780x585, depth 32, NEE), the
+    volume preset (512x512, depth 100) and the 8-light cloud (nee size,
+    depth 8, NEE); on the camera rays of sample 0, and on a chunk of
+    HET_CHECK_SPP samples per pixel, per-sample loop against merged loop
+    (bitwise), raster against morton lane order (bitwise); a resumed chunk
+    and the depth gate. Returns the ``kernels`` entries."""
+    import numpy as np
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import het_megakernel as hk
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    ncfg, vcfg = get_preset("nee"), get_preset("volume")
+    scenes = [
+        # label, tables, camera, width, height, depth, nee
+        ("nee", *nee_scene, ncfg.width, ncfg.height, ncfg.max_depth, True),
+        ("volume", *volume_scene, vcfg.width, vcfg.height, vcfg.max_depth, False),
+        ("8 lights nee", eight_light_cloud(device), nee_scene[1], ncfg.width,
+         ncfg.height, HET_LIGHTS_DEPTH, True),
+    ]
+    cases = {k: [] for k in hk.KERNEL_NAMES}
+    for label, tables, camk, w, h, depth, nee in scenes:
+        st = scene_statics(tables)
+        hc = hk._het_consts(tables, st, depth, nee, None, None)
+        check(hc is not None, f"{label}: scene not eligible for the fused het route")
+        cam = PinholeCamera.make(w / h, device=device, **camk)
+        render = {order: hk.try_make_fused_het_spp_render(
+            tables, st, cam, w, h, 0, depth, nee=nee, pixel_order=order)
+            for order in ("raster", "morton")}
+        view = render["raster"].view
+        n = view.n
+        n_sph = int(hc.ic[0])
+        common = dict(n_spheres=n_sph, n_lights=int(hc.ic[1]), nee=nee, max_depth=depth,
+                      n_iterations=hc.n_iterations, max_steps=hc.max_steps)
+
+        # K9a on the camera rays of sample 0
+        keys, o, d = mk._camera_rays_plain(view, 0)
+        stats = {}
+        with TrackingTally() as tally:
+            ref, plain_ms = timed_once(lambda: hk.het_path_plain(hc, o, d, keys, stats))
+        got = hk.het_path(hc, o, d, keys)
+        torch.cuda.synchronize()
+        case = compare_radiance(f"het_path, {label}", got, ref)
+        case.update(case=label, n_spp=1, plain_ms=plain_ms,
+                    ms=median_ms(lambda: hk.het_path(hc, o, d, keys), reps, flush),
+                    **het_bound(tables, n, n_sph, nee, stats, tally, 28, 12), **common)
+        cases["het_path"].append(case)
+        del got, ref
+
+        n_spp = HET_CHECK_SPP
+        tag = f"{label}, {n_spp} spp"
+        stats = {}
+        with TrackingTally() as tally:
+            (ref, ref_rej), plain_ms = timed_once(
+                lambda: hk.het_spp_persistent_plain(hc, view, 0, n_spp, stats, n_spp))
+        got_c, rej_c = hk.het_spp_persistent(hc, view, 0, n_spp)
+        got_b, rej_b = hk.het_spp(hc, view, 0, n_spp)
+        torch.cuda.synchronize()
+        bound = het_bound(tables, n, n_sph, nee, stats, tally, 12, 16)
+        for name, got, rej in (("het_spp_persistent", got_c, rej_c),
+                               ("het_spp", got_b, rej_b)):
+            case = compare_radiance(f"{name}, {tag}", got, ref, rej, ref_rej)
+            fn = getattr(hk, name)
+            case.update(case=tag, n_spp=n_spp, plain_ms=plain_ms, plain_batch=n_spp,
+                        ms=median_ms(lambda: fn(hc, view, 0, n_spp), reps, flush),
+                        **bound, **common)
+            cases[name].append(case)
+        # per-sample loop vs merged loop, raster vs morton: bitwise
+        check(bool(torch.equal(got_b, got_c)) and bool(torch.equal(rej_b, rej_c)),
+              f"{tag}: het_spp vs het_spp_persistent differ by "
+              f"{float(torch.abs(got_b - got_c).max())}")
+        rad_m, rej_m = render["morton"](0, n_spp)
+        back = torch.empty_like(rad_m)
+        back[torch.as_tensor(render["morton"].pixel_ids.astype(np.int64),
+                             device=device)] = rad_m
+        check(bool(torch.equal(back, got_c)) and int(rej_m) == int(rej_c.sum()),
+              f"{tag}: morton lane order is not bitwise raster's image")
+        cases["het_spp_persistent"][-1].update(vs_het_spp_bitwise_equal=True,
+                                                morton_bitwise_equal=True)
+        del got_c, got_b, ref, back
+
+    # a resumed chunk continues the stream: (0, 2) + (2, 1) == (0, 3)
+    tables, camk = nee_scene
+    st = scene_statics(tables)
+    cam = PinholeCamera.make(ncfg.width / ncfg.height, device=device, **camk)
+    rc = hk.try_make_fused_het_spp_render(tables, st, cam, ncfg.width, ncfg.height, 0,
+                                          ncfg.max_depth, nee=True)
+    whole, _ = rc(0, 3)
+    first, _ = rc(0, 2)
+    last, _ = rc(2, 1)
+    resumed_diff = float(torch.abs(first + last - whole).max())
+    check(resumed_diff <= 1e-4, f"het: resumed chunk differs by {resumed_diff}")
+    check(hk.try_make_fused_het_spp_render(tables, st, cam, ncfg.width, ncfg.height, 0,
+                                           hk.MAX_DEPTH + 1) is None,
+          "depth 129 must route to the wavefront volume integrator")
+
+    emit("kernel_checks", kernels="heterogeneous whole-path", cases=cases, reps=reps,
+         resumed_chunk_max_abs_diff=resumed_diff,
+         tolerances=dict(pixel=[K1_RTOL, K1_ATOL], pixel_share=K1_PIXEL_DIFF_SHARE,
+                         loose=[K1_LOOSE_RTOL, K1_LOOSE_ATOL],
+                         mean=MEAN_BAND_KERNEL_VS_PLAIN, loop_ab="bitwise"))
+    headline = {"het_path": "nee", "het_spp": f"nee, {HET_CHECK_SPP} spp",
+                "het_spp_persistent": f"nee, {HET_CHECK_SPP} spp"}
+    entries = []
+    for name in hk.KERNEL_NAMES:
+        head = next(c for c in cases[name] if c["case"] == headline[name])
+        entries.append(dict(
+            name=name, route="cuda",
+            source="xraytracer_tpu_torch/csrc/het_megakernel.cu",
+            replaces=HET_REPLACES[name],
+            launches=None, launches_by_path=None,
+            max_abs_err=max(c["max_abs_err"] for c in cases[name]),
+            err_of="radiance (sum over the launch's samples) per pixel and "
+                   "channel against the plain version, worst case",
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=None,
+            shape=f"{head['case']}: N={head['n']} depth={head['max_depth']} "
+                  f"n_spp={head['n_spp']} grid=64^3",
+            cases=[{k: c.get(k) for k in ("case", "n", "n_spp", "max_depth", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "candidates", "shadow_candidates",
+                                          "pixels_beyond_gate")}
+                   for c in cases[name]],
+        ))
+    return entries
+
+
+def load_het_with_bounds(min_blocks):
+    """Compile ``csrc/het_megakernel.cu`` once more with another
+    ``__launch_bounds__`` block count next to the package's own library;
+    return (ctypes handle, ptxas register / stack / spill lines)."""
+    import ctypes
+
+    from xraytracer_tpu_torch import _build
+    from xraytracer_tpu_torch.integrators import het_megakernel as hk
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, f"libhet_megakernel_mb{min_blocks}.so")
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-DHET_MIN_BLOCKS={min_blocks}",
+           "-o", out, os.path.join(_build.CSRC_DIR, "het_megakernel.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    check(proc.returncode == 0, f"HET_MIN_BLOCKS={min_blocks} build failed:\n{proc.stderr}")
+    ptxas = [ln.strip() for ln in proc.stderr.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    return hk._bind(ctypes.CDLL(out)), ptxas
+
+
+def phase_launch_bounds_ab(device, nee_scene, volume_scene, reps):
+    """K9b and K9c at AB_SPP samples per pixel on the nee and volume presets,
+    compiled with __launch_bounds__(128, m) for m = 1, 2, 4 (the package's
+    own) and 8: registers, spills and times in one call, on one card."""
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import het_megakernel as hk
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    libs = {m: load_het_with_bounds(m) for m in (1, 2, 4, 8)}
+    package_lib = hk._lib
+    rows = []
+    try:
+        for preset, (tables, camk) in (("nee", nee_scene), ("volume", volume_scene)):
+            cfg = get_preset(preset)
+            st = scene_statics(tables)
+            nee = cfg.integrator == "vpt_nee"
+            hc = hk._het_consts(tables, st, cfg.max_depth, nee, None, None)
+            cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+            view = hk.try_make_fused_het_spp_render(
+                tables, st, cam, cfg.width, cfg.height, 0, cfg.max_depth, nee=nee).view
+            ref = None
+            for m, (lib, _) in libs.items():
+                hk._lib = lambda lib=lib: lib
+                out, _ = hk.het_spp_persistent(hc, view, 0, AB_SPP)
+                torch.cuda.synchronize()
+                if ref is None:
+                    ref = out
+                rows.append(dict(
+                    preset=preset, min_blocks=m, n_spp=AB_SPP,
+                    het_spp_persistent_ms=median_ms(
+                        lambda: hk.het_spp_persistent(hc, view, 0, AB_SPP), reps, flush),
+                    het_spp_ms=median_ms(
+                        lambda: hk.het_spp(hc, view, 0, AB_SPP), reps, flush),
+                    max_abs_diff_vs_first=float(torch.abs(out - ref).max())))
+    finally:
+        hk._lib = package_lib
+    emit("launch_bounds_ab", block=128, rows=rows,
+         ptxas={m: p for m, (_, p) in libs.items()})
+
+
+def phase_het_entry_points(device, nee_scene, main_image_mean):
+    """het_path and het_spp through their entry points at the nee preset's
+    width and depth: ``try_make_fused_het_path_integrator`` under the
+    per-sample renderer (one launch per sample), and the ``fused_spec`` with
+    ``persistent=False`` under the renderer's chunk runner (one launch per
+    chunk). Returns the run's launch counts."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.integrators.het_megakernel import (
+        try_make_fused_het_path_integrator,
+    )
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cfg = get_preset("nee")
+    tables, camk = nee_scene
+    statics = scene_statics(tables)
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+    per_sample = try_make_fused_het_path_integrator(tables, statics, cfg.max_depth,
+                                                    nee=True)
+    check(per_sample is not None, "het_entry_points: scene not eligible")
+    chunked = make_volume_integrator(tables, statics, cfg.max_depth, nee=True)
+    chunked.fused_spec = dict(chunked.fused_spec, persistent=False)
+    merged = make_volume_integrator(tables, statics, cfg.max_depth, nee=True)
+    renderers = [WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height,
+                                   seed=cfg.seed)
+                 for integ in (per_sample, chunked, merged)]
+    reset_all_counts()
+    res_a = renderers[0].render(HET_ENTRY_SPP)
+    res_b = renderers[1].render(HET_ENTRY_SPP)
+    counts = all_counts()
+    res_c = renderers[2].render(HET_ENTRY_SPP)  # het_spp_persistent, to compare
+    for name, want in (("het_path", HET_ENTRY_SPP), ("het_spp", 1)):
+        check(counts[name]["launches"] == want,
+              f"het_entry_points: {name} launched {counts[name]['launches']}x, "
+              f"expected {want}")
+    check(sum(c["launches"] for c in counts.values()) == HET_ENTRY_SPP + 1,
+          "het_entry_points: another kernel was launched")
+    check(sum(c["plain_calls"] for c in counts.values()) == 0,
+          "het_entry_points: plain-version calls on the card")
+    check(res_a.n_rejected == 0 and res_b.n_rejected == 0,
+          "het_entry_points: rejected samples")
+    check(bool(np.array_equal(res_b.image, res_c.image)),
+          "het_entry_points: het_spp and het_spp_persistent images differ")
+    # the per-sample route takes the wavefront renderer's camera ray
+    # (division by the width)
+    diff = np.abs(res_a.image - res_c.image)
+    n_diff = int((diff > K1_ATOL + K1_RTOL * np.abs(res_c.image)).any(axis=-1).sum())
+    check(n_diff <= K1_PIXEL_DIFF_SHARE * cfg.width * cfg.height,
+          f"het_entry_points: het_path route differs from the whole-render "
+          f"kernel on {n_diff} pixels")
+    m = float(res_a.image.mean())
+    check(abs(m - main_image_mean) <= MEAN_BAND_FULL_VS_REF * main_image_mean,
+          f"het_entry_points: mean {m} vs nee_path {main_image_mean}")
+    emit("het_entry_points", preset="nee", spp=HET_ENTRY_SPP,
+         het_path=dict(seconds=res_a.seconds,
+                       msamples_per_s=res_a.samples_per_sec / 1e6,
+                       launches=counts["het_path"]["launches"]),
+         het_spp=dict(seconds=res_b.seconds,
+                      msamples_per_s=res_b.samples_per_sec / 1e6,
+                      launches=counts["het_spp"]["launches"]),
+         het_spp_vs_persistent_bitwise_equal=True,
+         het_path_vs_persistent_pixels_beyond_gate=n_diff,
+         het_path_vs_persistent_max_abs_diff=float(diff.max()),
+         mean_radiance=m)
+    return counts
+
+
+def phase_nee_wavefront(device, nee_scene, nee_image_mean):
+    """The nee preset at full width and depth by the wavefront volume route
+    (``with_stats=True`` keeps it): 2 * max_depth + 2 iterations per sample,
+    each with the record sweep twice (bounce and shadow rays) and the two
+    tracking kernels once. Returns the run's launch counts."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cfg = get_preset("nee")
+    tables, camk = nee_scene
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+    integ = make_volume_integrator(tables, scene_statics(tables), cfg.max_depth,
+                                   nee=True, with_stats=True)
+    check(getattr(integ, "fused_spec", None) is None,
+          "nee_wavefront_path: with_stats took a fused route")
+    renderer = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height, seed=0)
+    renderer.render(1)  # warm-up
+    reset_all_counts()
+    result = renderer.render(NEE_WAVEFRONT_SPP)
+    counts = all_counts()
+    iters = NEE_WAVEFRONT_SPP * (2 * cfg.max_depth + 2)
+    expected = {"track_sample": iters, "track_transmittance": iters,
+                "sweep_nearest_rec": 2 * iters}
+    check(result.image.shape == (cfg.height, cfg.width, 3), "nee_wavefront_path: shape")
+    check(bool(np.isfinite(result.image).all()), "nee_wavefront_path: non-finite pixels")
+    check(result.n_rejected == 0, f"nee_wavefront_path: {result.n_rejected} rejected")
+    for name, c in counts.items():
+        check(c["launches"] == expected.get(name, 0),
+              f"nee_wavefront_path: {name} launched {c['launches']}x, "
+              f"expected {expected.get(name, 0)}")
+    plain_calls = sum(c["plain_calls"] for c in counts.values())
+    check(plain_calls == 0, f"nee_wavefront_path: {plain_calls} plain-version calls")
+    m = float(result.image.mean())
+    band = VOLUME_MEAN_BAND["nee_wavefront_path"]
+    check(abs(m - nee_image_mean) <= band * nee_image_mean,
+          f"nee_wavefront_path: mean {m} vs nee_path {nee_image_mean}")
+    emit("nee_wavefront_path", preset="nee", integrator=cfg.integrator,
+         route="wavefront (track_sample + track_transmittance, with_stats)",
+         width=cfg.width, height=cfg.height, depth=cfg.max_depth,
+         spp=NEE_WAVEFRONT_SPP, preset_spp=cfg.spp,
+         spp_cut=f"cut from {cfg.spp} to {NEE_WAVEFRONT_SPP}",
+         seconds=result.seconds, msamples_per_s=result.samples_per_sec / 1e6,
+         total_rays=result.total_rays, n_rejected=result.n_rejected,
+         mean_radiance=m, nee_path_mean=nee_image_mean, mean_band=band,
+         rays=result.stats["rays"].tolist(),
+         scattered=result.stats["scattered"].tolist(),
+         launches={k: v["launches"] for k, v in counts.items() if v["launches"]},
+         plain_calls=plain_calls)
+    return counts
+
+
 def phase_cloud_golden(device):
     """The CPU golden of the heterogeneous NEE integrator
-    (tests/golden/cloud_nee_24x18_4spp_seed0.npy), reproduced on the card
-    through both tracking kernels."""
+    (tests/golden/cloud_nee_24x18_4spp_seed0.npy), reproduced on the card by
+    the default route (the whole-render kernel ``het_spp_persistent``) and
+    by the wavefront route (``with_stats=True``) through both tracking
+    kernels."""
     import numpy as np
     import torch
 
@@ -1813,40 +2285,48 @@ def phase_cloud_golden(device):
         scattering=(0.06, 0.05, 0.04), le=30.0).build(device)
     c2w = from_rows(1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0, 0, 70.0, 550.0, 1)
     cam = PinholeCamera.make(24 / 18, c2w=c2w, fov_deg=60.0, device=device)
-    integ = make_volume_integrator(tables, scene_statics(tables), 8, nee=True,
-                                   max_steps=96)
-    reset_all_counts()
-    r = render(tables, cam, integ, 24, 18, 4, seed=0)
-    counts = all_counts()
-    diff = np.abs(r.image - golden)
-    own = int((diff > CLOUD_GOLDEN_GATE[1] + CLOUD_GOLDEN_GATE[0] * np.abs(golden)).sum())
-    rtol, atol = CLOUD_GOLDEN_CARD_GATE
-    over = int((diff > atol + rtol * np.abs(golden)).sum())
-    launches = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+    routes = (("het", {}, CLOUD_GOLDEN_HET_GATE, {"het_spp_persistent": 1}),
+              ("tracking", dict(with_stats=True), CLOUD_GOLDEN_CARD_GATE,
+               {"track_sample": 4 * 18, "track_transmittance": 4 * 18,
+                "sweep_nearest_rec": 2 * 4 * 18}))
+    out = {}
+    for route, kw, (rtol, atol), expected in routes:
+        integ = make_volume_integrator(tables, scene_statics(tables), 8, nee=True,
+                                       max_steps=96, **kw)
+        reset_all_counts()
+        r = render(tables, cam, integ, 24, 18, 4, seed=0)
+        counts = all_counts()
+        diff = np.abs(r.image - golden)
+        own = int((diff > CLOUD_GOLDEN_GATE[1] + CLOUD_GOLDEN_GATE[0] * np.abs(golden)).sum())
+        over = int((diff > atol + rtol * np.abs(golden)).sum())
+        out[route] = dict(
+            max_abs_diff=float(diff.max()), values_over_gate=over,
+            gate=f"rtol {rtol} atol {atol}", values_over_golden_own_gate=own,
+            n_rejected=r.n_rejected,
+            launches={k: v["launches"] for k, v in counts.items() if v["launches"]})
+        check(over == 0 and r.n_rejected == 0,
+              f"cloud golden, {route} route: {over} values beyond rtol {rtol} / atol {atol}")
+        for name, c in counts.items():
+            check(c["launches"] == expected.get(name, 0),
+                  f"cloud golden, {route} route: {name} launched {c['launches']}x, "
+                  f"expected {expected.get(name, 0)}")
+        check(sum(v["plain_calls"] for v in counts.values()) == 0,
+              f"cloud golden, {route} route: plain-version calls on the card")
     emit("golden", image="cloud_nee_24x18_4spp_seed0", values=int(golden.size),
-         max_abs_diff=float(diff.max()), values_over_gate=over,
-         gate=f"rtol {rtol} atol {atol}", values_over_golden_own_gate=own,
          golden_own_gate=f"rtol {CLOUD_GOLDEN_GATE[0]} atol {CLOUD_GOLDEN_GATE[1]}",
-         n_rejected=r.n_rejected, launches=launches)
-    check(over == 0 and r.n_rejected == 0,
-          f"cloud golden: {over} values beyond rtol {rtol} / atol {atol}")
-    check(counts["track_sample"]["launches"] == 4 * 18
-          and counts["track_transmittance"]["launches"] == 4 * 18,
-          "cloud golden: the render did not go through both tracking kernels")
-    check(sum(v["plain_calls"] for v in counts.values()) == 0,
-          "cloud golden: plain-version calls on the card")
+         **out)
 
 
 def volume_reference(tables, camk, statics, size, depth, nee, spp, device, plain):
     """The scene at reference size, seed 0: through the route the card takes
-    by default, or (``plain``) through no kernel at all: the whole-render
-    kernel's own plain version where the scene takes the fused route (it has
-    the kernel's camera-ray formulas), else the wavefront loop with
-    host-side tracking over the plain matmul-form sweep."""
+    by default (a whole-render kernel), or (``plain``) through no kernel at
+    all: that kernel's own plain version, which has the kernel's camera-ray
+    formulas and traces the ``spp`` samples of every pixel as one
+    wavefront."""
     from types import SimpleNamespace
 
     from xraytracer_tpu_torch.camera import PinholeCamera
-    from xraytracer_tpu_torch.geometry.intersect import intersect_triangles_mm
+    from xraytracer_tpu_torch.integrators import het_megakernel as hk
     from xraytracer_tpu_torch.integrators import make_volume_integrator
     from xraytracer_tpu_torch.integrators import vol_megakernel as vm
     from xraytracer_tpu_torch.renderer import render
@@ -1856,15 +2336,17 @@ def volume_reference(tables, camk, statics, size, depth, nee, spp, device, plain
     if not plain:
         integ = make_volume_integrator(tables, statics, depth, nee=nee)
         return render(tables, cam, integ, w, h, spp, seed=0)
-    vc = vm._vol_consts(tables, statics, depth, nee, None, None)
-    if vc is not None:
+    if statics["has_heterogeneous"]:
+        consts = hk._het_consts(tables, statics, depth, nee, None, None)
+        view = hk.try_make_fused_het_spp_render(
+            tables, statics, cam, w, h, 0, depth, nee=nee).view
+        rad, _ = hk.het_spp_persistent_plain(consts, view, 0, spp, batch=spp)
+    else:
+        consts = vm._vol_consts(tables, statics, depth, nee, None, None)
         view = vm.try_make_fused_volume_spp_render(
             tables, statics, cam, w, h, 0, depth, nee=nee).view
-        rad, _ = vm.vol_spp_persistent_plain(vc, view, 0, spp)
-        return SimpleNamespace(image=rad.cpu().numpy().reshape(h, w, 3) / spp)
-    integ = make_volume_integrator(tables, statics, depth, nee=nee,
-                                   tri_fn=intersect_triangles_mm, fused="never")
-    return render(tables, cam, integ, w, h, spp, seed=0)
+        rad, _ = vm.vol_spp_persistent_plain(consts, view, 0, spp, batch=spp)
+    return SimpleNamespace(image=rad.cpu().numpy().reshape(h, w, 3) / spp)
 
 
 def phase_volume_path(label, device, preset, integrator, spp, expected_fn, ref_size,
@@ -1872,7 +2354,8 @@ def phase_volume_path(label, device, preset, integrator, spp, expected_fn, ref_s
     """Drive one volume preset at its full width and depth through the entry
     points a user calls, with counts set to 0 just before the run and read
     just after it; hold it against reference-size renders through the
-    kernels and through the plain path. Returns the run's launch counts."""
+    kernels and through the plain path. ``spp`` None = the preset's own.
+    Returns the run's launch counts and result."""
     import numpy as np
 
     from xraytracer_tpu_torch import cli
@@ -1888,12 +2371,14 @@ def phase_volume_path(label, device, preset, integrator, spp, expected_fn, ref_s
     het = statics["has_heterogeneous"]
     cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
     integ = cli.make_integrator(cfg, tables, statics)
-    fused = getattr(integ, "fused_spec", None) is not None
-    check(fused != het, f"{label}: wrong route (fused={fused}, heterogeneous={het})")
+    # the default route of every volume preset is a whole-render kernel: the
+    # heterogeneous one for the cloud presets, the homogeneous one for vpt
+    kind = getattr(integ, "fused_spec", {}).get("kind")
+    want_kind = "het_volume" if het else "volume"
+    check(kind == want_kind, f"{label}: route {kind}, expected {want_kind}")
     renderer = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height,
                                  seed=cfg.seed)
-    if fused:
-        renderer.render(1)  # warm-up
+    renderer.render(1)  # warm-up
     ref_depth = min(cfg.max_depth, HET_REF_PLAIN_DEPTH) if het else cfg.max_depth
     spp_full, spp_pair = VOL_REF_SPP[label]
     ref_full = volume_reference(tables, camk, statics, ref_size, cfg.max_depth, nee,
@@ -1933,8 +2418,7 @@ def phase_volume_path(label, device, preset, integrator, spp, expected_fn, ref_s
           f"kernels and the plain path")
     preset_spp = PRESETS[preset].spp
     emit(label, preset=preset, integrator=cfg.integrator,
-         route=("fused (vol_spp_persistent)" if fused else
-                "wavefront (track_sample" + (" + track_transmittance)" if nee else ")")),
+         route="fused (het_spp_persistent)" if het else "fused (vol_spp_persistent)",
          width=cfg.width, height=cfg.height, depth=cfg.max_depth, spp=cfg.spp,
          preset_spp=preset_spp,
          spp_cut=None if cfg.spp == preset_spp else f"cut from {preset_spp} to {cfg.spp}",
@@ -2021,8 +2505,10 @@ def phase_vol_entry_points(device, main_image_mean):
 
 
 def phase_profile_nee(device, nee_scene, top=12):
-    """Trace 1 sample of the nee preset's wavefront route: device busy share
-    and the kernels that take most of the device time."""
+    """Trace the nee preset by its default route (the whole preset, one
+    launch of het_spp_persistent) and 1 sample of its wavefront route
+    (``with_stats=True``): device busy share and the kernels that take most
+    of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from xraytracer_tpu_torch.camera import PinholeCamera
@@ -2034,28 +2520,31 @@ def phase_profile_nee(device, nee_scene, top=12):
     cfg = get_preset("nee")
     tables, camk = nee_scene
     cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
-    integ = make_volume_integrator(tables, scene_statics(tables), cfg.max_depth,
-                                   nee=True)
-    renderer = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height, seed=0)
-    renderer.render(1)
-    plain = renderer.render(1).seconds
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced = renderer.render(1).seconds
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us and getattr(e, "device_type", None) is not None and \
-                "cuda" in str(e.device_type).lower():
-            rows.append((e.key, float(dev_us), int(e.count)))
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 1e3
-    emit("profile", route="nee wavefront", spp=1, seconds_untraced=plain,
-         seconds_traced=traced, device_kernels=sum(r[2] for r in rows),
-         device_busy_ms=busy_ms if rows else "not measured",
-         device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
-         top=[dict(kernel=k[:90], ms=us / 1e3, launches=c) for k, us, c in rows[:top]])
+    for route, kw, n_spp in (("nee fused (het_spp_persistent)", {}, cfg.spp),
+                             ("nee wavefront", dict(with_stats=True), 1)):
+        integ = make_volume_integrator(tables, scene_statics(tables), cfg.max_depth,
+                                       nee=True, **kw)
+        renderer = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height, seed=0)
+        renderer.render(1)
+        plain = renderer.render(n_spp).seconds
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = renderer.render(n_spp).seconds
+        rows = []
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if dev_us and getattr(e, "device_type", None) is not None and \
+                    "cuda" in str(e.device_type).lower():
+                rows.append((e.key, float(dev_us), int(e.count)))
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows) / 1e3
+        emit("profile", route=route, spp=n_spp, seconds_untraced=plain,
+             seconds_traced=traced, device_kernels=sum(r[2] for r in rows),
+             device_busy_ms=busy_ms if rows else "not measured",
+             device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
+             top=[dict(kernel=k[:90], ms=us / 1e3, launches=c)
+                  for k, us, c in rows[:top]])
 
 
 def main():
@@ -2064,8 +2553,11 @@ def main():
                     help="also build and check the sweeps with -fmad=false")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the main path, 2 samples of the Cornell "
-                         "wavefront route and 1 sample of the nee wavefront "
-                         "route with torch.profiler")
+                         "wavefront route, the nee preset by its default route "
+                         "and 1 sample of its wavefront route with torch.profiler")
+    ap.add_argument("--launch-bounds-ab", action="store_true",
+                    help="also build the heterogeneous whole-path kernels under "
+                         "other __launch_bounds__ caps and time them")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per kernel and case (median)")
     args = ap.parse_args()
@@ -2114,6 +2606,9 @@ def main():
     nee_scene = cli.build_scene(get_preset("nee"), device=device)
     volume_scene = cli.build_scene(get_preset("volume"), device=device)
     entries += phase_track_kernels(device, nee_scene, volume_scene, args.reps)
+    entries += phase_het_kernels(device, nee_scene, volume_scene, args.reps)
+    if args.launch_bounds_ab:
+        phase_launch_bounds_ab(device, nee_scene, volume_scene, args.reps)
     phase_golden(device)
     phase_cloud_golden(device)
     by_path = {}
@@ -2123,8 +2618,7 @@ def main():
         device, cfg, cornell, cornell_cam, main_mean)
     by_path.update(phase_wavefront(device, cfg, cornell, cornell_cam, main_mean))
     by_path["mesh_path"] = phase_mesh(device, mesh, mesh_cam)
-    # the volume paths; the wavefront loop intersects the (empty) triangle
-    # table with the record sweep, as it does for every scene
+    # the volume paths, each by its default route
     by_path["vpt_path"], vpt_result = phase_volume_path(
         "vpt_path", device, "vpt", "vpt", None,
         lambda c, chunks: {"vol_spp_persistent": chunks}, (96, 96))
@@ -2133,18 +2627,16 @@ def main():
         lambda c, chunks: {"vol_spp_persistent": chunks}, (96, 96))
     by_path["vol_entry_points"] = phase_vol_entry_points(
         device, float(vpt_result.image.mean()))
-    by_path["nee_path"], _ = phase_volume_path(
-        "nee_path", device, "nee", None, NEE_SPP,
-        lambda c, chunks: {
-            "track_sample": c.spp * (2 * c.max_depth + 2),
-            "track_transmittance": c.spp * (2 * c.max_depth + 2),
-            "sweep_nearest_rec": 2 * c.spp * (2 * c.max_depth + 2)},
+    by_path["nee_path"], nee_result = phase_volume_path(
+        "nee_path", device, "nee", None, None,
+        lambda c, chunks: {"het_spp_persistent": chunks},
         (REF_W, REF_H), scene=nee_scene)
+    nee_mean = float(nee_result.image.mean())
+    by_path["het_entry_points"] = phase_het_entry_points(device, nee_scene, nee_mean)
+    by_path["nee_wavefront_path"] = phase_nee_wavefront(device, nee_scene, nee_mean)
     by_path["volume_path"], _ = phase_volume_path(
-        "volume_path", device, "volume", None, VOLUME_SPP,
-        lambda c, chunks: {
-            "track_sample": c.spp * (2 * c.max_depth + 2),
-            "sweep_nearest_rec": c.spp * (2 * c.max_depth + 2)},
+        "volume_path", device, "volume", None, None,
+        lambda c, chunks: {"het_spp_persistent": chunks},
         (96, 96), scene=volume_scene)
     # the path on which each kernel must have run, by that path's own count
     runs_on = {"mega_spp_persistent": "main_path",
@@ -2152,10 +2644,13 @@ def main():
                "sweep_nearest": "tri_fn_path", "sweep_nearest_rec": "wavefront_path",
                "occluded_anyhit": "wavefront_path",
                "vol_spp_persistent": "vpt_path", "vol_path": "vol_entry_points",
-               "vol_spp": "vol_entry_points", "track_sample": "nee_path",
-               "track_transmittance": "nee_path"}
-    check(len(entries) == 11, "the kernels line must list eleven kernels")
+               "vol_spp": "vol_entry_points", "track_sample": "nee_wavefront_path",
+               "track_transmittance": "nee_wavefront_path",
+               "het_spp_persistent": "nee_path", "het_path": "het_entry_points",
+               "het_spp": "het_entry_points"}
+    check(len(entries) == 14, "the kernels line must list fourteen kernels")
     for e in entries:
+        e["runs_on"] = runs_on[e["name"]]
         e["launches_by_path"] = {
             path: counts[e["name"]]["launches"] for path, counts in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -13,8 +13,10 @@ integrator over an eligible scene (``integrators/megakernel.py``; the
 Cornell presets are) takes the fused whole-render route, one kernel launch
 per spp chunk; ``--stats``, ``gi_mis`` and ``--device cpu`` keep the
 composable wavefront route. The ``vpt`` preset (one homogeneous box) takes
-the whole-render volume kernel in the same way; ``volume`` and ``nee``
-(heterogeneous cloud) run the wavefront loop with the two tracking kernels.
+the whole-render volume kernel in the same way, and ``volume`` and ``nee``
+(a heterogeneous cloud under a sphere light) the whole-render heterogeneous
+kernel; with ``--stats`` they run the wavefront loop with the two tracking
+kernels.
 Presets and integrators that are not ported yet raise ``NotImplementedError`` naming
 the ROADMAP.md item they wait for.
 """

@@ -83,33 +83,6 @@ track_transmittance_kernel(MediaGrid G, const float* __restrict__ p1,
   out_tr[3 * i + 2] = tr[2];
 }
 
-// The medium and its grid from the host arrays of media_kernels.py:
-// fc = gmin, gmax, ext, res - 1, scale, block size, block count - 1,
-// sigma_a, sigma_s, sigma_t (3 each), sigma_t_max, majorant, density
-// multiplier; ic = resolution (3), block counts (3), chan_uniform,
-// max_steps, use_packed.
-static MediaGrid grid_from(const float* fc, const int* ic, const float* density,
-                           const float* packed, const float* super) {
-  MediaGrid G;
-  float* dst[10] = {G.gmin,   G.gmax,    G.ext,     G.res_m1,  G.scale,
-                    G.bs,     G.nbf_m1,  G.sigma_a, G.sigma_s, G.sigma_t};
-  for (int j = 0; j < 10; ++j)
-    for (int k = 0; k < 3; ++k) dst[j][k] = fc[3 * j + k];
-  G.sigma_t_max = fc[30];
-  G.majorant = fc[31];
-  G.dm = fc[32];
-  for (int k = 0; k < 3; ++k) {
-    G.res[k] = ic[k];
-    G.nb[k] = ic[3 + k];
-  }
-  G.chan_uniform = ic[6];
-  G.max_steps = ic[7];
-  G.density = density;
-  G.packed = ic[8] ? packed : nullptr;
-  G.super = super;
-  return G;
-}
-
 }  // namespace xrt
 
 extern "C" {

@@ -1,8 +1,9 @@
 // Heterogeneous-medium tracking on one lane: trilinear density, the
 // supergrid DDA, the optical-depth inversion, weighted delta tracking and
-// ratio-tracked transmittance. Device functions only; media.cu wraps them
-// into the wavefront kernels, and a whole-path heterogeneous kernel can
-// include this header for the same arithmetic.
+// ratio-tracked transmittance. Device functions, and the host function that
+// assembles a MediaGrid; media.cu wraps them into the wavefront kernels, and
+// the whole-path heterogeneous kernels of het_megakernel.cu include this
+// header for the same arithmetic.
 //
 // Replaces, in xraytracer_tpu/media_pallas.py: _density_rows, _super_rows,
 // _dda_segments, _tau_to_t, _pick_channel, track_sample and
@@ -341,6 +342,35 @@ __device__ __forceinline__ void track_transmittance(const MediaGrid& G,
   }
   // exhausted lanes: 0 (never biased bright)
   if (active) tr[0] = tr[1] = tr[2] = 0.f;
+}
+
+// The medium and its grid from the host arrays of media_kernels.py (host
+// code, shared by the launchers of media.cu and het_megakernel.cu):
+// fc = gmin, gmax, ext, res - 1, scale, block size, block count - 1,
+// sigma_a, sigma_s, sigma_t (3 each), sigma_t_max, majorant, density
+// multiplier; ic = resolution (3), block counts (3), chan_uniform,
+// max_steps, use_packed.
+static inline MediaGrid grid_from(const float* fc, const int* ic,
+                                  const float* density, const float* packed,
+                                  const float* super) {
+  MediaGrid G;
+  float* dst[10] = {G.gmin,   G.gmax,    G.ext,     G.res_m1,  G.scale,
+                    G.bs,     G.nbf_m1,  G.sigma_a, G.sigma_s, G.sigma_t};
+  for (int j = 0; j < 10; ++j)
+    for (int k = 0; k < 3; ++k) dst[j][k] = fc[3 * j + k];
+  G.sigma_t_max = fc[30];
+  G.majorant = fc[31];
+  G.dm = fc[32];
+  for (int k = 0; k < 3; ++k) {
+    G.res[k] = ic[k];
+    G.nb[k] = ic[3 + k];
+  }
+  G.chan_uniform = ic[6];
+  G.max_steps = ic[7];
+  G.density = density;
+  G.packed = ic[8] ? packed : nullptr;
+  G.super = super;
+  return G;
 }
 
 }  // namespace xrt

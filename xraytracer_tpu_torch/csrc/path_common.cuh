@@ -17,6 +17,7 @@ constexpr float TWO_PI = (float)(2.0 * 3.141592653589793);
 constexpr float THIRD = (float)(1.0 / 3.0);
 constexpr float RAY_EPS_F = 1e-3f;  // constants.py::RAY_EPS
 constexpr float TINY = 1e-38f;      // floor under 1 - u before a logarithm
+constexpr float INV_4PI = (float)(1.0 / (4.0 * 3.14159265359));  // warps.py
 
 __device__ __forceinline__ uint32_t pcg(uint32_t x) {
   x = x * 747796405u + 2891336453u;
@@ -40,11 +41,13 @@ __device__ __forceinline__ void u2(uint32_t key, uint32_t site, float& a,
   b = tof(x2);
 }
 
-// A product resp. a sum that the compiler must not contract into a fused
-// multiply-add: for values on the way to a discrete decision that a plain
-// PyTorch version takes from separately rounded tensor operations.
+// A product, a sum resp. a difference that the compiler must not contract
+// into a fused multiply-add: for values on the way to a discrete decision
+// that a plain PyTorch version takes from separately rounded tensor
+// operations.
 #define XM(a, b) __fmul_rn((a), (b))
 #define XA(a, b) __fadd_rn((a), (b))
+#define XS(a, b) __fsub_rn((a), (b))
 
 __device__ __forceinline__ float safe1(float x) { return x == 0.f ? 1.0f : x; }
 
@@ -139,6 +142,71 @@ __device__ __forceinline__ float3 light_point(bool is_tri, float3 v0,
   }
   return make_float3(v0.x + e1.x * lu + e2.x * lv, v0.y + e1.y * lu + e2.y * lv,
                      v0.z + e1.z * lu + e2.z * lv);
+}
+
+// The volume kernels' shared geometry and phase function: every product,
+// sum and difference rounded on its own, in the order of the plain
+// PyTorch version named beside each, so that the decisions a path takes
+// after them (the next hit, the next tracking step) follow it bit for bit.
+// ((a.x * b.x + a.y * b.y) + a.z * b.z), each step rounded: PyTorch's sum
+// of a 3-vector product
+__device__ __forceinline__ float dot3x(float3 a, float3 b) {
+  return XA(XA(XM(a.x, b.x), XM(a.y, b.y)), XM(a.z, b.z));
+}
+
+__device__ __forceinline__ float3 f3(const float v[3]) {
+  return make_float3(v[0], v[1], v[2]);
+}
+
+// geometry/intersect.py::intersect_boxes for one box
+__device__ __forceinline__ void slab(float o, float d, float lo, float hi,
+                                     float& t_near, float& t_far) {
+  const float d_safe = fabsf(d) < 1e-12f ? 1e-12f : d;
+  const float iv = 1.0f / d_safe;
+  const float ta = XM(XS(lo, o), iv), tb = XM(XS(hi, o), iv);
+  t_near = fminf(ta, tb);
+  t_far = fmaxf(ta, tb);
+}
+
+// math/vec.py::orthonormal_basis (the branchless Duff et al. frame)
+__device__ __forceinline__ void onb(float3 n, float3& t, float3& b) {
+  const float sg = copysignf(1.0f, n.z);
+  const float a = -1.0f / XA(sg, n.z);
+  const float c = XM(XM(n.x, n.y), a);
+  t = make_float3(XA(1.0f, XM(XM(XM(sg, n.x), n.x), a)), XM(sg, c),
+                  XM(-sg, n.x));
+  b = make_float3(c, XA(sg, XM(XM(n.y, n.y), a)), -n.y);
+}
+
+// (v0 * t + v1 * m) + v2 * b, per component: math/vec.py::local_to_world
+__device__ __forceinline__ float3 to_world(float v0, float v1, float v2,
+                                          float3 t, float3 m, float3 b) {
+  return make_float3(XA(XA(XM(v0, t.x), XM(v1, m.x)), XM(v2, b.x)),
+                     XA(XA(XM(v0, t.y), XM(v1, m.y)), XM(v2, b.y)),
+                     XA(XA(XM(v0, t.z), XM(v1, m.z)), XM(v2, b.z)));
+}
+
+// sampling/warps.py::hg_sample_direction about wo (local +Y is wo)
+__device__ __forceinline__ float3 hg_direction(float g, float3 wo, float u1_,
+                                               float u2_) {
+  float cos_t;
+  if (fabsf(g) < 1e-3f) {
+    cos_t = XS(XM(2.0f, u1_), 1.0f);
+  } else {
+    const float sqr = XS(1.0f, XM(g, g)) / XA(XS(1.0f, g), XM(XM(2.0f, g), u1_));
+    cos_t = XS(XA(1.0f, XM(g, g)), XM(sqr, sqr)) / XM(2.0f, g);
+  }
+  const float sin_t = sqrtf(fmaxf(XS(1.0f, XM(cos_t, cos_t)), 0.f));
+  const float phi = XM(TWO_PI, u2_);
+  float3 t, b;
+  onb(wo, t, b);
+  return to_world(XM(cosf(phi), sin_t), cos_t, XM(sinf(phi), sin_t), t, wo, b);
+}
+
+// sampling/warps.py::hg_phase
+__device__ __forceinline__ float hg_phase(float g, float cos_t) {
+  const float denom = XS(XA(1.0f, XM(g, g)), XM(XM(2.0f, g), cos_t));
+  return XM(INV_4PI, XS(1.0f, XM(g, g))) / XM(denom, sqrtf(denom));
 }
 
 }  // namespace xrt

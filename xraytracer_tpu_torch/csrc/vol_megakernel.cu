@@ -51,10 +51,11 @@
 // so its sums are those of vol_spp. No shared memory and no barrier.
 //
 // The products that feed the channel pick's sums use XM / XA
-// (path_common.cuh) so that the pick follows the plain version bit for bit;
-// everything else may contract (a * b + c -> one fused multiply-add). No
-// fast-math: division, logf, expf, sqrtf, sinf and cosf are the accurate
-// ones.
+// (path_common.cuh) so that the pick follows the plain version bit for bit,
+// as do the box slab, the scattered direction and the phase value, which
+// this file shares with het_megakernel.cu (path_common.cuh); everything else
+// may contract (a * b + c -> one fused multiply-add). No fast-math: division,
+// logf, expf, sqrtf, sinf and cosf are the accurate ones.
 
 #include "path_common.cuh"
 
@@ -64,7 +65,6 @@ constexpr int VOL_BLOCK = 128;
 constexpr int VOL_MAX_TRIS = 8;
 constexpr int VOL_MAX_LIGHTS = 4;
 constexpr uint32_t VSITE_RR = 0, VSITE_MEDIUM = 16;
-constexpr float INV_4PI = (float)(1.0 / (4.0 * 3.14159265359));
 
 enum MedVariant { MED_MIS = 0, MED_ACHRO = 1, MED_NOMIS = 2 };
 
@@ -108,19 +108,6 @@ struct VolHit {
   float lrow, mtype;
   float3 ns;
 };
-
-__device__ __forceinline__ float3 f3(const float v[3]) {
-  return make_float3(v[0], v[1], v[2]);
-}
-
-__device__ __forceinline__ void slab(float o, float d, float lo, float hi,
-                                     float& t_near, float& t_far) {
-  const float d_safe = fabsf(d) < 1e-12f ? 1e-12f : d;
-  const float iv = 1.0f / d_safe;
-  const float ta = (lo - o) * iv, tb = (hi - o) * iv;
-  t_near = fminf(ta, tb);
-  t_far = fmaxf(ta, tb);
-}
 
 // Nearest hit over the triangles and the box. Ties go to the triangle, as
 // intersect_scene's argmin over [triangle, sphere, box] does.
@@ -169,19 +156,6 @@ __device__ __forceinline__ VolHit intersect(const VolScene& S, float3 o,
     h.ns = make_float3(0.f, 0.f, 0.f);
   }
   return h;
-}
-
-// warps.py::hg_sample_cos_theta
-__device__ __forceinline__ float hg_cos(float g, float u) {
-  if (fabsf(g) < 1e-3f) return 2.0f * u - 1.0f;
-  const float sqr = (1.0f - g * g) / (1.0f - g + 2.0f * g * u);
-  return (1.0f + g * g - sqr * sqr) / (2.0f * g);
-}
-
-// warps.py::hg_phase
-__device__ __forceinline__ float hg_phase(float g, float cos_t) {
-  const float denom = 1.0f + g * g - 2.0f * g * cos_t;
-  return INV_4PI * (1.0f - g * g) / (denom * sqrtf(denom));
 }
 
 // One iteration of an active path. Ends the path (act = false) at the depth
@@ -306,7 +280,7 @@ __device__ __forceinline__ void vol_bounce(const VolScene& S, VolPath& p) {
       if (!blocked) {
         const float seg =
             sh.box_win ? (sh.t1 < INF_T ? sh.t1 : sh.t) - sh.t : 0.f;
-        const float f = hg_phase(S.g, wi.x * d.x + wi.y * d.y + wi.z * d.z);
+        const float f = hg_phase(S.g, dot3x(d, wi));
         p.L.x += (p.T.x * w[0]) * (expf(-S.sigma_t[0] * seg) * f * Lt.le[0] / pdf);
         p.L.y += (p.T.y * w[1]) * (expf(-S.sigma_t[1] * seg) * f * Lt.le[1] / pdf);
         p.L.z += (p.T.z * w[2]) * (expf(-S.sigma_t[2] * seg) * f * Lt.le[2] / pdf);
@@ -317,20 +291,8 @@ __device__ __forceinline__ void vol_bounce(const VolScene& S, VolPath& p) {
   // advance: depth only on a real scatter
   p.o = mp;
   if (scattered) {
-    // Henyey-Greenstein direction about wo = d (local +Y is d, the
-    // copysign frame supplies X and Z)
-    const float cos_t = hg_cos(S.g, u_p1);
-    const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.f));
-    const float phi = TWO_PI * u_p2;
-    const float lx = cosf(phi) * sin_t, lz = sinf(phi) * sin_t;
-    const float sg = copysignf(1.0f, d.z);
-    const float a = -1.0f / (sg + d.z);
-    const float b = d.x * d.y * a;
-    const float3 t0 = make_float3(1.0f + sg * d.x * d.x * a, sg * b, -sg * d.x);
-    const float3 b0 = make_float3(b, sg + d.y * d.y * a, -d.y);
-    p.d = make_float3(lx * t0.x + cos_t * d.x + lz * b0.x,
-                      lx * t0.y + cos_t * d.y + lz * b0.y,
-                      lx * t0.z + cos_t * d.z + lz * b0.z);
+    // Henyey-Greenstein direction about wo = d
+    p.d = hg_direction(S.g, d, u_p1, u_p2);
     p.depth += 1;
   }
   p.T = make_float3(p.T.x * w[0], p.T.y * w[1], p.T.z * w[2]);

@@ -22,12 +22,14 @@ The NEE block floats above the tracking block as a function of ``max_steps``
 bit-identical to the historical fixed layout).
 
 Routes on the card (``fused="auto"``, the default): one homogeneous box with
-a few flat triangles goes to the whole-path kernel of ``vol_megakernel.py``;
-a scene with a heterogeneous medium keeps the wavefront loop below with the
-tracking kernels of ``media_kernels.py`` in place of the host-side tracking
-loops. The whole heterogeneous path in one kernel (the JAX package's
-``het_megakernel.py``, ``kind="het_volume"``) is not ported yet
-(ROADMAP.md), nor are ``differentiable`` / ``score_terms``.
+a few flat triangles goes to the whole-path kernel of ``vol_megakernel.py``
+(``kind="volume"``); a heterogeneous cloud box with emissive sphere lights
+(the ``nee`` and ``volume`` presets) goes to the whole-path kernel of
+``het_megakernel.py`` (``kind="het_volume"``). Any other scene with a
+heterogeneous medium, and any scene under ``tri_fn`` or ``with_stats``,
+keeps the wavefront loop below with the tracking kernels of
+``media_kernels.py`` in place of the host-side tracking loops.
+``differentiable`` / ``score_terms`` are not ported yet (ROADMAP.md).
 """
 
 import warnings
@@ -49,6 +51,7 @@ from ..sampling import SITES_PER_BOUNCE, uniform1, uniform2
 
 _SITE_RR = 0
 _SITE_MEDIUM = 16
+_THIRD = 1.0 / 3.0   # a Python float: rounded to float32 where it multiplies
 
 STAT_KEYS = ("rays", "rr_killed", "emitter_hits", "scattered", "active_out")
 
@@ -94,7 +97,9 @@ def make_volume_integrator(
     ``fused="auto"``: see the module docstring; any other value keeps the
     wavefront loop with the host-side tracking loops, as do tables on the
     CPU. ``tri_fn`` and ``with_stats`` keep the wavefront loop but, like the
-    JAX package, still take the tracking kernels.
+    JAX package, still take the tracking kernels. The heterogeneous
+    whole-path kernel takes ``grad_sampling`` as a launch flag (the JAX
+    package does not pass it to its fused route).
 
     ``differentiable`` and ``score_terms`` raise ``NotImplementedError``
     until the volume-gradient slice.
@@ -118,6 +123,22 @@ def make_volume_integrator(
 
     if max_steps is None:
         max_steps = default_max_steps(scene)
+    # single-kernel heterogeneous route (het_megakernel.py): on the card, a
+    # cloud box with emissive sphere lights (the reference's volume.cpp /
+    # nee.cpp workloads) runs its whole path in ONE launch
+    if (fused == "auto" and tri_fn is None and not with_stats
+            and statics["has_heterogeneous"]):
+        from .het_megakernel import try_make_fused_het_path_integrator
+
+        spec = dict(
+            scene=scene, statics=statics, max_depth=max_depth, nee=nee,
+            max_steps=max_steps, n_iterations=n_iterations,
+            grad_sampling=grad_sampling,
+        )
+        fi = try_make_fused_het_path_integrator(**spec)
+        if fi is not None:
+            fi.fused_spec = dict(kind="het_volume", **spec)
+            return fi
     # tracking kernels (media_kernels.py): on the card the delta-tracking
     # sample and the NEE ratio-tracking transmittance each run as ONE launch
     # per wavefront instead of a host loop over candidate steps
@@ -171,7 +192,13 @@ def make_volume_integrator(
             active = active & hit.hit
 
             # Russian roulette for depth > 0 (Src/integrator.h:431-438)
-            rr_prob = torch.clamp(torch.mean(throughput, dim=-1), max=1.0)
+            # the mean throughput; order: ((r + g) + b) * f32(1 / 3), as the
+            # kernels and the card's torch.mean compute it (the CPU's
+            # torch.mean divides by 3)
+            rr_prob = torch.clamp(
+                ((throughput[:, 0] + throughput[:, 1]) + throughput[:, 2]) * _THIRD,
+                max=1.0,
+            )
             u_rr = uniform1(keys, site + _SITE_RR)
             do_rr = active & (depth > 0)
             if grad_sampling:

@@ -25,8 +25,7 @@ An integrator that carries ``fused_spec`` (``make_path_integrator`` or
 ``make_volume_integrator`` with ``fused="auto"`` on an eligible scene) is
 upgraded to its whole-render kernel: one launch per spp chunk
 (``make_fused_chunk_fn``). ``kind="volume"`` in the spec selects the
-homogeneous volume kernels; the whole heterogeneous path in one kernel
-(``kind="het_volume"`` in the JAX package) is not ported yet (ROADMAP.md).
+homogeneous volume kernels, ``kind="het_volume"`` the heterogeneous ones.
 
 Not ported yet (ROADMAP.md): the ``sharding`` arguments (multi-GPU).
 """
@@ -133,8 +132,9 @@ def make_chunk_fn(sample_once):
 
 def make_fused_chunk_fn(fused_render):
     """Chunk runner over a whole-render kernel
-    (``megakernel.try_make_fused_spp_render`` or
-    ``vol_megakernel.try_make_fused_volume_spp_render``): camera rays, paths,
+    (``megakernel.try_make_fused_spp_render``,
+    ``vol_megakernel.try_make_fused_volume_spp_render`` or
+    ``het_megakernel.try_make_fused_het_spp_render``): camera rays, paths,
     rejection and the sum over the chunk's samples all happen in ONE launch
     per chunk; ``s0`` and the sample count are launch arguments. Same
     signature as ``make_chunk_fn``'s runner, and like it the accumulator is
@@ -268,9 +268,14 @@ class WavefrontRenderer:
         spec = getattr(integrate, "fused_spec", None)
         if spec is not None:
             spec = dict(spec)
-            if spec.pop("kind", "surface") == "volume":
+            kind = spec.pop("kind", "surface")
+            if kind == "volume":
                 from .integrators.vol_megakernel import (
                     try_make_fused_volume_spp_render as make_fused,
+                )
+            elif kind == "het_volume":
+                from .integrators.het_megakernel import (
+                    try_make_fused_het_spp_render as make_fused,
                 )
             else:
                 from .integrators.megakernel import (
