@@ -7,17 +7,19 @@
                                      # checks on that library as well
     python3 chip_smoke.py --profile  # also traces the main path, 2 samples of
                                      # the Cornell wavefront path, the nee
-                                     # preset by its default route and 1
-                                     # sample of its wavefront route with
+                                     # preset by its default route, 1
+                                     # sample of its wavefront route and one
+                                     # step of each gradient route with
                                      # torch.profiler (device time by kernel)
     python3 chip_smoke.py --launch-bounds-ab  # also compiles
                                      # csrc/het_megakernel.cu under other
                                      # __launch_bounds__ caps and times them
 
 Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
-libraries: the sweeps, the whole-path surface kernels, the whole-path
-homogeneous volume kernels, the heterogeneous tracking kernels, the
-whole-path heterogeneous volume kernels), holds each of the fourteen kernels
+libraries: the sweeps, the whole-path surface kernels with the
+analytic-gradient kernel, the whole-path homogeneous volume kernels, the
+heterogeneous tracking kernels, the whole-path heterogeneous volume
+kernels), holds each of the fifteen kernels
 against its plain PyTorch version on the card at the shapes its path gives
 it, reproduces the two CPU golden images through the kernels, and then
 drives, through the port's public entry points:
@@ -46,7 +48,16 @@ drives, through the port's public entry points:
   ``het_path`` and ``het_spp``;
 * ``nee_wavefront_path``: the nee preset by the wavefront volume route
   (``with_stats=True``, 1 sample, full depth), whose tracking loops are the
-  kernels ``track_sample`` and ``track_transmittance``.
+  kernels ``track_sample`` and ``track_transmittance``;
+* ``grad_path_autograd`` and ``grad_path_analytic``: the gradient of the L2
+  image loss w.r.t. albedo and emission on ``cornellbox_gi`` (780x585,
+  depth 3, cosine sampling), by torch autograd through
+  ``diff.make_loss_fn(diff.make_radiance_fn(...))`` (``sweep_nearest``
+  through the zero-gradient ``SweepStopGrad``, ``occluded_anyhit`` for the
+  shadow rays) and by ``diff.try_make_fast_value_and_grad`` (one
+  ``mega_grad_path`` launch per step), which must agree;
+* ``fit_path``: ``tools.fit_scene.fit`` at 780x585, depth 3, 20 steps of
+  1 sample through ``mega_grad_path``, whose loss must fall.
 
 Every launch count is set to 0 just before each of these runs and read just
 after it; the script checks that the run went through exactly the kernels
@@ -57,8 +68,9 @@ There is no fallback: without a card, or when any phase fails, the script
 exits non-zero and prints no result line.
 
 Output: one JSON object per line (``device``, ``build``, ``kernel_checks``
-five times (sweeps, whole-path, volume whole-path, tracking, heterogeneous
-whole-path), ``golden`` three times, then one line per driven path), then
+six times (sweeps, whole-path, volume whole-path, tracking, heterogeneous
+whole-path, surface gradient), ``golden`` three times, then one line per
+driven path), then
 ``{"kernels": [...]}`` with one entry per kernel, the card's name and power
 limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -111,7 +123,18 @@ run's data:
   the phase value and the sum (30), and for every shadow ray through the
   box the transmittance kernel's walk and per-candidate work. Bytes: what
   the launch reads per lane and writes per pixel, the density grid once and
-  the supergrid once.
+  the supergrid once;
+* the analytic-gradient kernel needs the whole-path surface kernel's pair
+  tests and, for its M materials, the Jacobian updates of the events its
+  paths take, counted by the plain version's per-bounce counters on the
+  same inputs: per entry of the 9M albedo Jacobian 3 flop at every
+  roulette a path survives (the sum over channels, the product with the
+  boost's derivative, the product rule), 2 at every emitter hit that
+  counts, 4 at every light sample (the product, the same-channel term, the
+  multiply-add into the lane's sum) and 2 at every scattering; per light
+  sample 6 and per emitter hit 3 more for the emission Jacobian. Bytes: 28
+  per lane in (ray, key), 4 per lane and output plane out (3 + 9M + 3L
+  planes), the table and the light rows once.
 """
 
 import argparse
@@ -164,6 +187,9 @@ CAPTURE_ITERATIONS = (0, 4)  # tracking calls of one nee sample kept for the che
 # fourth
 VOLUME_CAPTURE_ITERATIONS = (0, 3)
 EXHAUST_MAX_STEPS = 8  # a step bound the volume lanes run into: weight 0
+GRAD_SAMPLE = 1        # the sample whose camera rays the K5 checks take
+GRAD_STEPS = 8         # timed steps of each gradient route (bench.py:109-117)
+FIT_STEPS, FIT_SPP = 20, 1  # tools.fit_scene.fit on the card
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -174,6 +200,9 @@ FLOPS_VOL_TRI_TEST, FLOPS_VOL_BOX, FLOPS_VOL_RR = 45, 30, 8
 FLOPS_VOL_MEDIUM, FLOPS_VOL_LIGHT, FLOPS_VOL_NEE_REST = 110, 40, 50
 FLOPS_DDA, FLOPS_TRACK_CANDIDATE, FLOPS_TRANSMITTANCE_CANDIDATE = 800, 170, 90
 FLOPS_HET_SPHERE, FLOPS_HET_SCATTER, FLOPS_HET_CONE, FLOPS_HET_NEE_REST = 30, 45, 75, 30
+# the analytic-gradient kernel's Jacobian updates, per entry of the 9M
+# albedo entries and event (derived in the docstring above)
+FLOPS_JAC_ROULETTE, FLOPS_JAC_EMIT, FLOPS_JAC_NEE, FLOPS_JAC_SCATTER = 3, 2, 4, 2
 
 # tolerances, kernel vs plain version on the same inputs
 IDX_MISMATCH_SHARE = 1e-4   # idx mismatches outside the tie band / rays
@@ -228,6 +257,15 @@ TRACK_LANE_SHARE = 1e-4
 CLOUD_GOLDEN_GATE = (1e-5, 1e-7)
 CLOUD_GOLDEN_CARD_GATE = (1e-4, 1e-6)
 CLOUD_GOLDEN_HET_GATE = (K1_RTOL, K1_ATOL)
+# the analytic-gradient kernel vs its plain version, per lane, on radiance and
+# Jacobians of the same draws: float32 rounding (FMA contraction, CUDA sinf /
+# cosf, 1 / p against a division) unless a decision flipped, which moves a
+# whole lane; values are compared against their array's largest, since a
+# Jacobian entry is a sum of products that may cancel to near zero. The
+# contracted gradients (and the analytic vs autograd routes) at the JAX
+# package's own tolerances (tests/test_diff.py)
+GRAD_LANE_RTOL, GRAD_LANE_ATOL_REL, GRAD_LANE_SHARE = 1e-4, 1e-5, 2e-4
+GRAD_RTOL, GRAD_ATOL_REL, GRAD_LOSS_RTOL = 2e-3, 2e-4, 2e-4
 # full-size mean vs reference-size mean of the volume paths: Monte-Carlo
 # noise at a few samples per pixel; the volume preset has no next-event
 # estimation, so a path finds the light only by chance
@@ -1085,7 +1123,7 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
                 "mega_spp": f"cornell uniform, {K1_SPP} spp",
                 "mega_spp_persistent": f"cornell uniform, {MAIN_SPP} spp"}
     entries = []
-    for name in mk.KERNEL_NAMES:
+    for name in headline:
         head = next(c for c in cases[name] if c["case"] == headline[name])
         entries.append(dict(
             name=name, route="cuda",
@@ -1344,6 +1382,31 @@ def phase_wavefront(device, cfg, cornell, cornell_cam, main_image_mean):
     return {"wavefront_path": counts_wave, "tri_fn_path": counts_tri}
 
 
+def emit_profile(prof, top, **fields):
+    """One ``profile`` line from a finished ``torch.profiler`` trace: device
+    kernels by self device time, the busy share of ``seconds_traced``, and
+    the host operators by self CPU time."""
+    rows, host = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us and getattr(e, "device_type", None) is not None and \
+                "cuda" in str(e.device_type).lower():
+            rows.append((e.key, float(dev_us), int(e.count)))
+        elif e.self_cpu_time_total:
+            host.append((e.key, float(e.self_cpu_time_total), int(e.count)))
+    rows.sort(key=lambda r: -r[1])
+    host.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    traced = fields["seconds_traced"]
+    emit("profile", **fields, device_kernels=sum(r[2] for r in rows),
+         device_busy_ms=busy_ms if rows else "not measured",
+         device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
+         top=[dict(kernel=k[:90], ms=us / 1e3, launches=c) for k, us, c in rows[:top]],
+         top_host=[dict(op=k[:90], ms=us / 1e3, calls=c) for k, us, c in host[:top]])
+
+
 def phase_profile(device, cfg, cornell, cornell_cam, top=12):
     """Trace the main path (the whole preset, one launch per chunk) and 2
     samples of the wavefront route: device busy share and the kernels that
@@ -1367,22 +1430,8 @@ def phase_profile(device, cfg, cornell, cornell_cam, top=12):
         plain = renderer.render(n_spp).seconds
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             traced = renderer.render(n_spp).seconds
-        rows = []
-        for e in prof.key_averages():
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "self_cuda_time_total", 0.0)
-            if dev_us and getattr(e, "device_type", None) is not None and \
-                    "cuda" in str(e.device_type).lower():
-                rows.append((e.key, float(dev_us), int(e.count)))
-        rows.sort(key=lambda r: -r[1])
-        busy_ms = sum(r[1] for r in rows) / 1e3
-        emit("profile", route=route, spp=n_spp, seconds_untraced=plain,
-             seconds_traced=traced, device_kernels=sum(r[2] for r in rows),
-             device_busy_ms=busy_ms if rows else "not measured",
-             device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
-             top=[dict(kernel=k[:90], ms=us / 1e3, launches=c)
-                  for k, us, c in rows[:top]])
+        emit_profile(prof, top, route=route, spp=n_spp, seconds_untraced=plain,
+                     seconds_traced=traced)
 
 
 def phase_mesh(device, mesh, mesh_cam):
@@ -2529,22 +2578,389 @@ def phase_profile_nee(device, nee_scene, top=12):
         plain = renderer.render(n_spp).seconds
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             traced = renderer.render(n_spp).seconds
-        rows = []
-        for e in prof.key_averages():
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "self_cuda_time_total", 0.0)
-            if dev_us and getattr(e, "device_type", None) is not None and \
-                    "cuda" in str(e.device_type).lower():
-                rows.append((e.key, float(dev_us), int(e.count)))
-        rows.sort(key=lambda r: -r[1])
-        busy_ms = sum(r[1] for r in rows) / 1e3
-        emit("profile", route=route, spp=n_spp, seconds_untraced=plain,
-             seconds_traced=traced, device_kernels=sum(r[2] for r in rows),
-             device_busy_ms=busy_ms if rows else "not measured",
-             device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
-             top=[dict(kernel=k[:90], ms=us / 1e3, launches=c)
-                  for k, us, c in rows[:top]])
+        emit_profile(prof, top, route=route, spp=n_spp, seconds_untraced=plain,
+                     seconds_traced=traced)
+
+# --------------------------------------------------------------------------
+# surface gradients: K5, the autograd and analytic routes, the trainer
+# --------------------------------------------------------------------------
+GRAD_REPLACES = "xraytracer_tpu/integrators/megakernel.py:1127"
+
+
+def light_box_scene(device):
+    """The 16-light power-NEE box of tests/test_diff.py (floor, back wall and
+    ceiling wound toward the room, 4 x 4 ceiling quads of skewed powers),
+    built with the port's SceneBuilder, and its camera."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.math import from_rows
+    from xraytracer_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.add_lambert((0.7, 0.7, 0.7))
+    quads = []
+    for v0, v1, v2, v3 in (
+        ((0, 0, 0), (556, 0, 0), (556, 0, 559), (0, 0, 559)),
+        ((0, 0, 559), (556, 0, 559), (556, 548, 559), (0, 548, 559)),
+        ((0, 548, 0), (556, 548, 0), (556, 548, 559), (0, 548, 559)),
+    ):
+        quads.append(np.asarray([[v0, v2, v1], [v0, v3, v2]], np.float32))
+    b.add_mesh(np.concatenate(quads, axis=0), material=white)
+    rng = np.random.default_rng(3)
+    for i in range(4):
+        for j in range(4):
+            x0, z0 = 60.0 + i * 110.0, 60.0 + j * 110.0
+            le = float(rng.uniform(1.0, 30.0))
+            b.add_quad_light((x0, 547.0, z0), (x0 + 40.0, 547.0, z0),
+                             (x0, 547.0, z0 + 40.0), (le, 0.8 * le, 0.6 * le))
+    c2w = from_rows(-1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, -1.0, 0,
+                    278.0, 273.0, -600.0, 1)
+    return b.build(device), dict(c2w=c2w, fov_deg=38.0)
+
+
+def sample_rays(camk, device, sample):
+    """Path keys and camera rays of one sample of every pixel at the full
+    size, as the gradient routes make them (``camera.sample_rays``)."""
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.renderer import CAMERA_SITE, pixel_grid
+    from xraytracer_tpu_torch.sampling import path_keys, uniform2
+
+    cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
+    ids, xy = pixel_grid(WIDTH, HEIGHT, device=device)
+    keys = path_keys(0, ids, sample)
+    u = uniform2(keys, CAMERA_SITE)
+    rays = cam.sample_rays((xy + u) / torch.tensor([float(WIDTH), float(HEIGHT)],
+                                                   device=device))
+    return keys, rays.o.contiguous(), rays.d.contiguous()
+
+
+def grad_bound(gs, stats, t_total):
+    """bound_ms of a K5 launch: the whole-path kernel's pair tests and bytes
+    (mega_bound) plus the Jacobian updates of the events this run's paths
+    take, from the plain version's per-bounce counters (docstring above)."""
+    fs = gs.fs
+    n = int(stats["rays"][0])
+    m9 = 9 * gs.n_mats
+    n_shadow = fs.n_lights if fs.nee_mode == "all" else 1
+    nee_lanes = (stats["shadow_rays"] // max(n_shadow, 1)) if fs.nee else 0 * stats["rays"]
+    roulette = int((nee_lanes[1:] + stats["emitter_hits"][1:]).sum())
+    emits = int(stats["emitter_hits"][0] if fs.le0 else stats["emitter_hits"].sum())
+    nee = int(stats["shadow_rays"].sum())
+    scatter = int(nee_lanes[:fs.max_depth - 1].sum())
+    b = mega_bound(n, t_total, fs.n_lights, stats, 28, 4 * gs.n_planes)
+    jac_ops = (m9 * (FLOPS_JAC_ROULETTE * roulette + FLOPS_JAC_EMIT * emits
+                     + FLOPS_JAC_NEE * nee + FLOPS_JAC_SCATTER * scatter)
+               + 3 * (emits + 2 * nee))
+    by_bytes = (n * (28 + 4 * gs.n_planes) + t_total * (36 + 2 + 128)
+                + fs.n_lights * 80) / PEAK_BYTES_PER_S * 1e3
+    by_ops = ((b["rays"] * t_total * FLOPS_PER_TEST
+               + b["shadow_rays"] * t_total * FLOPS_PER_ANYHIT_TEST + jac_ops)
+              / PEAK_F32_FLOPS * 1e3)
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                rays=b["rays"], shadow_rays=b["shadow_rays"],
+                jacobian_events=dict(roulette=roulette, emission=emits,
+                                     nee=nee, scatter=scatter))
+
+
+def compare_grad_lanes(what, got, ref):
+    """K5 vs its plain version, lane by lane, for one of img / galb / gle:
+    the count of lanes with any value beyond GRAD_LANE_RTOL * |ref| +
+    GRAD_LANE_ATOL_REL * max |ref|, gated at GRAD_LANE_SHARE of the lanes."""
+    import torch
+
+    n = ref.shape[0]
+    check(tuple(got.shape) == tuple(ref.shape) and bool(torch.isfinite(got).all()),
+          f"{what}: shape {tuple(got.shape)} or non-finite values")
+    diff = torch.abs(got - ref)
+    scale = float(torch.abs(ref).max())
+    lim = GRAD_LANE_RTOL * torch.abs(ref) + GRAD_LANE_ATOL_REL * scale
+    beyond = int((diff > lim).reshape(n, -1).any(dim=1).sum())
+    out = dict(max_abs_err=float(diff.max()), max_abs=scale,
+               lanes_differing_at_all=int((diff > 0).reshape(n, -1).any(dim=1).sum()),
+               lanes_beyond_gate=beyond)
+    check(beyond <= max(2, GRAD_LANE_SHARE * n),
+          f"{what}: {beyond} of {n} lanes beyond the per-lane gate")
+    return out
+
+
+def contract(img, galb, gle):
+    """The L2 loss against a zero target, chained: d loss / d albedo (M, 3)
+    and d loss / d Le (L, 3)."""
+    import torch
+
+    n = img.shape[0]
+    r = 2.0 * img / (n * 3)
+    return (torch.einsum("nc,nckm->mk", r, galb), torch.einsum("nc,ncl->lc", r, gle))
+
+
+def rel_err(got, ref):
+    import torch
+
+    return float(torch.abs(got - ref).max() / torch.clamp(torch.abs(ref).max(), min=1e-30))
+
+
+def phase_grad_kernels(device, cornell, cornell_cam, reps):
+    """Hold K5 (mega_grad_path) against its plain version (forward-mode
+    autodiff of the wavefront integrator along every parameter direction)
+    on the card, on sample GRAD_SAMPLE's camera rays at 780x585: Cornell at
+    depth 3 with Le x 1.3 and red / green albedos of its own (white stays
+    1, the roulette's tie), the 16-light box with power picks at depth 2,
+    and 4 facing-in lights with NEE "all" and uniform sampling at depth 3.
+    Returns the ``kernels`` entry."""
+    import torch
+
+    from xraytracer_tpu_torch.geometry import Rays
+    from xraytracer_tpu_torch.geometry.intersect import intersect_triangles_mm
+    from xraytracer_tpu_torch.integrators import make_path_integrator
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.scene.presets import cornell_camera
+    from xraytracer_tpu_torch.scene.tables import rejoin_appearance
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    box, box_cam = light_box_scene(device)
+    room = many_light_scene(device, n_side=2, face_in=True)
+    alb = cornell.mat_albedo.clone()
+    alb[1] = torch.tensor([0.12, 0.75, 0.1], device=device)
+    alb[2] = torch.tensor([0.8, 0.1, 0.05], device=device)
+    scenes = [
+        # label, tables, camera, options, albedo, Le scale
+        ("cornell, Le x 1.3, own albedos", cornell, cornell_cam,
+         dict(max_depth=DEPTH, cosine_sampling=True, nee_mode="all"), alb, 1.3),
+        ("16-light box, power", box, box_cam,
+         dict(max_depth=2, cosine_sampling=True, nee_mode="power"), None, 1.0),
+        ("4 lights facing in, all, uniform", room, cornell_camera(),
+         dict(max_depth=DEPTH, cosine_sampling=False, nee_mode="all"), None, 1.3),
+    ]
+    cases = []
+    for label, tables, camk, opts, albedo, le_scale in scenes:
+        st = scene_statics(tables)
+        f = mk.try_make_fused_grad_path(tables, st, opts["max_depth"], nee=True,
+                                        cosine_sampling=opts["cosine_sampling"],
+                                        nee_mode=opts["nee_mode"])
+        check(f is not None, f"{label}: scene not eligible for the gradient kernel")
+        gs = f.grad_scene
+        keys, o, d = sample_rays(camk, device, GRAD_SAMPLE)
+        le = tables.al_le * le_scale
+        rec = rejoin_appearance(tables._replace(
+            mat_albedo=tables.mat_albedo if albedo is None else albedo,
+            al_le=le)).tri_rec.contiguous()
+        ref, plain_ms = timed_once(
+            lambda: mk.mega_grad_path_plain(gs, o, d, keys, rec, le))
+        got = mk.mega_grad_path(gs, o, d, keys, rec, le)
+        torch.cuda.synchronize()
+        case = dict(case=label, n=int(o.shape[0]), t_total=int(tables.tri_v0.shape[0]),
+                    n_mats=gs.n_mats, n_lights=gs.fs.n_lights, planes=gs.n_planes,
+                    **{k: v for k, v in opts.items()})
+        for what, a, b in zip(("img", "galb", "gle"), got, ref):
+            case[what] = compare_grad_lanes(f"mega_grad_path, {label}, {what}", a, b)
+        (ka, kl), (pa, pl) = contract(*got), contract(*ref)
+        case["contracted_rel_err"] = dict(mat_albedo=rel_err(ka, pa), al_le=rel_err(kl, pl))
+        for k, (x, y) in (("mat_albedo", (ka, pa)), ("al_le", (kl, pl))):
+            ok = bool((torch.abs(x - y) <= GRAD_RTOL * torch.abs(y)
+                       + GRAD_ATOL_REL * float(torch.abs(y).max())).all())
+            check(ok, f"mega_grad_path, {label}: contracted d loss / d {k} off by "
+                      f"{case['contracted_rel_err'][k]} (relative to its largest)")
+        case["max_abs_err"] = max(case[w]["max_abs_err"] for w in ("img", "galb", "gle"))
+        # the plain version's per-bounce counters on the same inputs, for the bound
+        sc = tables._replace(tri_rec=rec, al_le=le)
+        _, stats = make_path_integrator(
+            sc, st, opts["max_depth"], nee=True, cosine_sampling=opts["cosine_sampling"],
+            tri_fn=intersect_triangles_mm, nee_mode=opts["nee_mode"],
+            pick_weights=gs.fs.pick_weights, fused="never", with_stats=True,
+        )(Rays(o=o, d=d), keys)
+        stats = {k: v.cpu() for k, v in stats.items()}
+        case.update(plain_ms=plain_ms,
+                    ms=median_ms(lambda: mk.mega_grad_path(gs, o, d, keys, rec, le),
+                                 reps, flush),
+                    **grad_bound(gs, stats, case["t_total"]))
+        cases.append(case)
+        del got, ref
+    # the cap on materials routes a scene back
+    many = cornell._replace(mat_albedo=torch.rand((mk.MAX_GRAD_MATS + 1, 3), device=device))
+    check(mk.try_make_fused_grad_path(many, scene_statics(cornell), DEPTH) is None,
+          f"more than {mk.MAX_GRAD_MATS} materials must not take the gradient kernel")
+    emit("kernel_checks", kernels="surface gradient", cases=cases, reps=reps,
+         tolerances=dict(lane=[GRAD_LANE_RTOL, GRAD_LANE_ATOL_REL],
+                         lane_share=GRAD_LANE_SHARE,
+                         contracted=[GRAD_RTOL, GRAD_ATOL_REL]))
+    head = cases[0]
+    return [dict(
+        name="mega_grad_path", route="cuda",
+        source="xraytracer_tpu_torch/csrc/megakernel.cu",
+        replaces=GRAD_REPLACES, launches=None, launches_by_path=None,
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        err_of="radiance, d radiance / d albedo and d radiance / d Le per lane "
+               "against the plain version (forward-mode autodiff), worst case",
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+        shape=f"{head['case']}: N={head['n']} T={head['t_total']} "
+              f"M={head['n_mats']} L={head['n_lights']} planes={head['planes']}",
+        cases=[{k: c[k] for k in ("case", "n", "t_total", "n_mats", "n_lights", "ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "contracted_rel_err")}
+               for c in cases],
+    )]
+
+
+def phase_grad_path(device, cornell, cornell_cam):
+    """The gradient of the L2 loss (zero target) w.r.t. albedo and Le at
+    780x585, depth 3, cosine sampling, NEE all, by both routes a user calls:
+    autograd through ``diff.make_loss_fn(diff.make_radiance_fn(...))``
+    (K2 through the stopgrad sweep, K4 for the shadow rays) and
+    ``diff.try_make_fast_value_and_grad`` (one K5 launch per step). One
+    warm-up step at sample 0, whose results the two routes must agree on,
+    then GRAD_STEPS timed steps, counted from 0 (bench.py:109-117's
+    protocol). Returns the counts of the two timed runs."""
+    import torch
+
+    from xraytracer_tpu_torch import diff
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.renderer import pixel_grid
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    st = scene_statics(cornell)
+    cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **cornell_cam)
+    ids, xy = pixel_grid(WIDTH, HEIGHT, device=device)
+    target = torch.zeros((WIDTH * HEIGHT, 3), device=device)
+    params = {"mat_albedo": cornell.mat_albedo, "al_le": cornell.al_le}
+    radiance = diff.make_radiance_fn(cornell, st, cam, WIDTH, HEIGHT,
+                                     max_depth=DEPTH, cosine_sampling=True)
+    fast = diff.try_make_fast_value_and_grad(cornell, st, cam, WIDTH, HEIGHT,
+                                             max_depth=DEPTH, nee=True,
+                                             cosine_sampling=True)
+    check(fast is not None, "grad_path: Cornell did not take the analytic route")
+    n_lights = st["n_area_lights"]
+    routes = (
+        ("autograd", diff.value_and_grad(diff.make_loss_fn(radiance)),
+         {"sweep_nearest": DEPTH * GRAD_STEPS,
+          "occluded_anyhit": DEPTH * n_lights * GRAD_STEPS}),
+        ("analytic", fast, {"mega_grad_path": GRAD_STEPS}),
+    )
+    out, by_path, first = {}, {}, {}
+    for route, fn, expected in routes:
+        val0, g0 = fn(params, ids, xy, target, 0)
+        torch.cuda.synchronize()
+        first[route] = (float(val0), g0)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        for s in range(1, 1 + GRAD_STEPS):
+            val, g = fn(params, ids, xy, target, s)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = all_counts()
+        for name, c in counts.items():
+            check(c["launches"] == expected.get(name, 0),
+                  f"grad_path, {route}: {name} launched {c['launches']}x, "
+                  f"expected {expected.get(name, 0)}")
+            check(c["plain_calls"] == 0, f"grad_path, {route}: plain calls of {name}")
+        check(all(bool(torch.isfinite(v).all()) for v in g.values()),
+              f"grad_path, {route}: non-finite gradients")
+        by_path[f"grad_path_{route}"] = counts
+        out[route] = dict(
+            seconds=secs, steps=GRAD_STEPS, rays_per_s=WIDTH * HEIGHT * GRAD_STEPS / secs,
+            loss_sample0=float(val0),
+            launches={k: v["launches"] for k, v in counts.items() if v["launches"]})
+    (va, ga), (vf, gf) = first["autograd"], first["analytic"]
+    check(abs(vf - va) <= GRAD_LOSS_RTOL * abs(va),
+          f"grad_path: analytic loss {vf} vs autograd {va}")
+    errs = {}
+    for k in params:
+        errs[k] = rel_err(gf[k], ga[k])
+        ok = bool((torch.abs(gf[k] - ga[k]) <= GRAD_RTOL * torch.abs(ga[k])
+                   + GRAD_ATOL_REL * float(torch.abs(ga[k]).max())).all())
+        check(ok, f"grad_path: d loss / d {k}, analytic vs autograd off by {errs[k]}")
+    emit("grad_path", width=WIDTH, height=HEIGHT, depth=DEPTH, cosine_sampling=True,
+         nee_mode="all", target="zero", routes=out,
+         autodiff_rays_per_s=out["autograd"]["rays_per_s"],
+         analytic_rays_per_s=out["analytic"]["rays_per_s"],
+         grads_sample0={r: {k: v.tolist() for k, v in first[r][1].items()}
+                        for r in first},
+         analytic_vs_autograd_rel_err=errs,
+         tolerances=dict(loss=GRAD_LOSS_RTOL, grads=[GRAD_RTOL, GRAD_ATOL_REL]))
+    return by_path
+
+
+def phase_profile_grad(device, cornell, cornell_cam, top=12):
+    """Trace one step of each gradient route of ``grad_path`` (after a
+    warm-up and one untraced step): device busy share, the kernels that
+    take most of the device time, the host operators that take most of the
+    host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xraytracer_tpu_torch import diff
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.renderer import pixel_grid
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    st = scene_statics(cornell)
+    cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **cornell_cam)
+    ids, xy = pixel_grid(WIDTH, HEIGHT, device=device)
+    target = torch.zeros((WIDTH * HEIGHT, 3), device=device)
+    params = {"mat_albedo": cornell.mat_albedo, "al_le": cornell.al_le}
+    radiance = diff.make_radiance_fn(cornell, st, cam, WIDTH, HEIGHT,
+                                     max_depth=DEPTH, cosine_sampling=True)
+    routes = (
+        ("grad autograd", diff.value_and_grad(diff.make_loss_fn(radiance))),
+        ("grad analytic", diff.try_make_fast_value_and_grad(
+            cornell, st, cam, WIDTH, HEIGHT, max_depth=DEPTH, nee=True,
+            cosine_sampling=True)),
+    )
+    for route, fn in routes:
+        def step(s):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(params, ids, xy, target, s)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        step(0)
+        plain = step(1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = step(2)
+        emit_profile(prof, top, route=route, steps=1, seconds_untraced=plain,
+                     seconds_traced=traced)
+
+
+def phase_fit_path(device):
+    """``tools.fit_scene.fit`` at 780x585, depth 3, FIT_STEPS steps of
+    FIT_SPP sample through K5: the trainer a user runs, counted from 0.
+    Returns its counts."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.tools.fit_scene import fit
+
+    stats = {}
+    reset_all_counts()
+    t0 = time.perf_counter()
+    hist, fitted, true = fit(width=WIDTH, height=HEIGHT, max_depth=DEPTH,
+                             steps=FIT_STEPS, spp=FIT_SPP, device="cuda", stats=stats)
+    secs = time.perf_counter() - t0
+    counts = all_counts()
+    check(stats["route"] == "analytic", f"fit_path: took the {stats['route']} route")
+    k5 = counts["mega_grad_path"]["launches"]
+    check(k5 == FIT_STEPS * FIT_SPP,
+          f"fit_path: mega_grad_path launched {k5}x, expected {FIT_STEPS * FIT_SPP}")
+    plain = sum(c["plain_calls"] for c in counts.values())
+    check(plain == 0, f"fit_path: {plain} plain-version calls on the card")
+    first, last = float(np.mean(hist[:4])), float(np.mean(hist[-4:]))
+    check(last < first, f"fit_path: loss did not fall ({first} -> {last})")
+    check(stats["grads_finite"] and bool(np.isfinite(hist).all()),
+          "fit_path: non-finite loss or gradient")
+    check(stats["n_rejected"] == 0, f"fit_path: {stats['n_rejected']} rejected samples")
+    emit("fit_path", width=WIDTH, height=HEIGHT, depth=DEPTH, steps=FIT_STEPS,
+         spp=FIT_SPP, route=stats["route"], seconds=secs,
+         seconds_per_step=float(np.median(stats["step_seconds"])),
+         step_seconds=stats["step_seconds"], loss=hist,
+         loss_first4=first, loss_last4=last, n_rejected=stats["n_rejected"],
+         albedo_mae=float(np.abs(fitted["mat_albedo"] - true["mat_albedo"]).mean()),
+         le_fitted=fitted["al_le"].tolist(),
+         launches={k: v["launches"] for k, v in counts.items() if v["launches"]})
+    return counts
 
 
 def main():
@@ -2553,8 +2969,9 @@ def main():
                     help="also build and check the sweeps with -fmad=false")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the main path, 2 samples of the Cornell "
-                         "wavefront route, the nee preset by its default route "
-                         "and 1 sample of its wavefront route with torch.profiler")
+                         "wavefront route, the nee preset by its default route, "
+                         "1 sample of its wavefront route and one step of each "
+                         "gradient route with torch.profiler")
     ap.add_argument("--launch-bounds-ab", action="store_true",
                     help="also build the heterogeneous whole-path kernels under "
                          "other __launch_bounds__ caps and time them")
@@ -2607,6 +3024,7 @@ def main():
     volume_scene = cli.build_scene(get_preset("volume"), device=device)
     entries += phase_track_kernels(device, nee_scene, volume_scene, args.reps)
     entries += phase_het_kernels(device, nee_scene, volume_scene, args.reps)
+    entries += phase_grad_kernels(device, cornell, cornell_cam, args.reps)
     if args.launch_bounds_ab:
         phase_launch_bounds_ab(device, nee_scene, volume_scene, args.reps)
     phase_golden(device)
@@ -2638,6 +3056,9 @@ def main():
         "volume_path", device, "volume", None, None,
         lambda c, chunks: {"het_spp_persistent": chunks},
         (96, 96), scene=volume_scene)
+    # the surface gradients: both routes of one loss, and the trainer
+    by_path.update(phase_grad_path(device, cornell, cornell_cam))
+    by_path["fit_path"] = phase_fit_path(device)
     # the path on which each kernel must have run, by that path's own count
     runs_on = {"mega_spp_persistent": "main_path",
                "mega_path": "fused_entry_points", "mega_spp": "fused_entry_points",
@@ -2647,8 +3068,8 @@ def main():
                "vol_spp": "vol_entry_points", "track_sample": "nee_wavefront_path",
                "track_transmittance": "nee_wavefront_path",
                "het_spp_persistent": "nee_path", "het_path": "het_entry_points",
-               "het_spp": "het_entry_points"}
-    check(len(entries) == 14, "the kernels line must list fourteen kernels")
+               "het_spp": "het_entry_points", "mega_grad_path": "grad_path_analytic"}
+    check(len(entries) == 15, "the kernels line must list fifteen kernels")
     for e in entries:
         e["runs_on"] = runs_on[e["name"]]
         e["launches_by_path"] = {
@@ -2659,6 +3080,7 @@ def main():
     if args.profile:
         phase_profile(device, cfg, cornell, cornell_cam)
         phase_profile_nee(device, nee_scene)
+        phase_profile_grad(device, cornell, cornell_cam)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

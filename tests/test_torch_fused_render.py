@@ -240,7 +240,7 @@ def test_renderer_fused_route_equals_wavefront_route(cornell, order):
     out = r.render(spp, spp_chunk=3)
     # one call of the whole-render entry point per chunk, nothing else
     assert mk.PLAIN_CALLS == {"mega_path": 0, "mega_spp": 0,
-                              "mega_spp_persistent": 2}
+                              "mega_spp_persistent": 2, "mega_grad_path": 0}
     assert out.n_rejected == ref.n_rejected == 0 and out.spp == spp
     close = np.isclose(out.image, ref.image, **ROUTE_GATE).all(axis=-1)
     assert (~close).sum() <= FLIPS, (~close).sum()

@@ -7,8 +7,13 @@
 //   mega_spp             <- _mega_spp_kernel             (over _trace_body)
 //   mega_spp_persistent  <- _mega_spp_persistent_kernel  (over
 //                           _make_surface_iteration)
-// One device function for a bounce (`bounce`), three kernels around it, three
-// extern "C" launchers.
+//   mega_grad_path       <- _mega_grad_kernel            (over _trace_body
+//                           with ``grads``)
+// One device function for a bounce (`bounce`), a template over a Jacobian
+// accumulator, four kernels around it, four extern "C" launchers. The
+// render kernels instantiate it with `NoGrad`, whose hooks are empty, so
+// they compile to the bounce alone; mega_grad_path instantiates it with
+// `Grad`.
 //
 // What a bounce computes (triangles only, Lambert only, flat area lights):
 // nearest hit over the whole table; exact (t, u, v) of the winner by the
@@ -62,6 +67,17 @@
 // within 2^-16 relative t instead). The per-chunk AABB culling of the Pallas
 // kernels is work reduction and is not done here.
 //
+// mega_grad_path carries, beside the path, its Jacobians w.r.t. the
+// material albedos and the light emissions (see `Grad` below): the gradient
+// of the same estimator that autodiff of the wavefront integrator computes,
+// in the forward pass. Its outputs are 3 + 9M + 3L planes of N floats
+// (radiance, dL/dalbedo, dL/dLe); each lane owns its column, so there are no
+// atomics and the stores of a warp are coalesced. Its 9 x MAX_GRAD_MATS
+// throughput Jacobian lives in registers (every loop over materials is
+// unrolled), its sums in the output planes, read and written in place; it
+// moves 28 + 4 (3 + 9M + 3L) bytes per lane, so it is bound by operations
+// for Cornell (M = 3, L = 1) and by bytes once the lights are many.
+//
 // What bounds it on an H100: float32 operations. A pixel moves 12 B in and
 // 16 B out per launch whatever the sample count, while every ray costs T
 // pair tests of ~38 flops. The kernels are brute force and far above that
@@ -108,6 +124,153 @@ struct Path {
   int it;  // bounces done
   bool act;
   float3 L, T, o, d;
+};
+
+// The hooks `bounce` calls at the points where the Jacobians change. For the
+// render kernels every hook is empty and compiles to nothing.
+struct NoGrad {
+  __device__ __forceinline__ void hit(float) {}
+  // the boosted throughput
+  __device__ __forceinline__ float3 roulette(float3 t, float boost, float) {
+    return make_float3(t.x * boost, t.y * boost, t.z * boost);
+  }
+  __device__ __forceinline__ void emit(float3, float3, int) {}
+  __device__ __forceinline__ void nee(float3, float3, float3, float, int) {}
+  __device__ __forceinline__ void scatter(float3, float3, float) {}
+};
+
+constexpr int MAX_GRAD_MATS = 8;  // integrators/megakernel.py::MAX_GRAD_MATS
+
+// Per-lane Jacobians of the estimator w.r.t. mat_albedo (M x 3) and al_le
+// (L x 3), the recursion of _trace_body(grads=...):
+//   GT[c][cc][m] = dT_c / dalbedo_{m,cc}   (registers: every loop over m is
+//                                           unrolled to MAX_GRAD_MATS and
+//                                           predicated on n_mats)
+//   dL[c][cc][m] = dL_c / dalbedo_{m,cc}   (plane 3 + (3c + cc) M + m)
+//   dE[c][l]     = dL_c / dLe_{l,c}        (plane 3 + 9M + c L + l)
+// Channels couple through the roulette's boost 1 / mean(T); Le enters no
+// throughput, so dE has no cross-channel terms. dL and dE are summed in the
+// lane's own column of the output, which the constructor zeroes.
+struct Grad {
+  const int32_t* __restrict__ obj_mat;  // object -> material row, -1 none
+  int n_obj, n_mats, n_lights;
+  float* __restrict__ out;  // (3 + 9M + 3L, n) plane-major
+  int n, i;
+  int mat;  // material of the current hit, -1 none
+  float GT[3][3][MAX_GRAD_MATS];
+
+  __device__ __forceinline__ float& dl(int c, int cc, int m) {
+    return out[(size_t)(3 + (3 * c + cc) * n_mats + m) * n + i];
+  }
+  __device__ __forceinline__ float& de(int c, int l) {
+    return out[(size_t)(3 + 9 * n_mats + c * n_lights + l) * n + i];
+  }
+
+  __device__ __forceinline__ Grad(const int32_t* om, int no, int nm, int nl,
+                                  float* o, int n_, int i_)
+      : obj_mat(om), n_obj(no), n_mats(nm), n_lights(nl), out(o), n(n_),
+        i(i_), mat(-1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc)
+#pragma unroll
+        for (int m = 0; m < MAX_GRAD_MATS; ++m) GT[c][cc][m] = 0.f;
+    const int planes = 3 + 9 * n_mats + 3 * n_lights;
+    for (int k = 3; k < planes; ++k) out[(size_t)k * n + i] = 0.f;
+  }
+
+  // the winner's record column 24 (object id) -> its material row
+  __device__ __forceinline__ void hit(float obj_col) {
+    const int obj = (int)obj_col;
+    const int m = (obj >= 0 && obj < n_obj) ? __ldg(obj_mat + obj) : -1;
+    mat = m < n_mats ? m : -1;
+  }
+
+  // T' = T * boost, boost = 1 / max(min(mean(T), 1), 1e-12): the product
+  // rule with dboost = -boost^2 * gate * sum_c GT / 3, where gate is the
+  // derivative of the two clamps: 1 inside, 0 outside and 1/2 AT a tie, as
+  // autodiff's minimum / maximum. Ties are the rule, not the exception: a
+  // white albedo of exactly 1 keeps the mean at 1, and so does a white
+  // bounce right after a roulette, since mean(T / mean(T)) = 1. Whether the
+  // rounded mean lands on 1 depends on every rounding before it, so the
+  // mean is rounded as the plain version computes it, and the throughput is
+  // returned as the plain version boosts it: divided by the probability
+  // (the render kernels multiply by its reciprocal, an ulp apart).
+  __device__ __forceinline__ float3 roulette(float3 t, float boost,
+                                             float rr_prob) {
+    const float mean_t = XM(XA(XA(t.x, t.y), t.z), THIRD);
+    float gate = mean_t < 1.0f ? 1.0f : (mean_t == 1.0f ? 0.5f : 0.f);
+    gate *= rr_prob > 1e-12f ? 1.0f : (rr_prob == 1e-12f ? 0.5f : 0.f);
+    const float live = XM(XM(gate, -XM(boost, boost)), THIRD);
+    const float tc[3] = {t.x, t.y, t.z};
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc)
+#pragma unroll
+      for (int m = 0; m < MAX_GRAD_MATS; ++m) {
+        if (m >= n_mats) break;
+        const float db = live * ((GT[0][cc][m] + GT[1][cc][m]) + GT[2][cc][m]);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          GT[c][cc][m] = GT[c][cc][m] * boost + tc[c] * db;
+      }
+    const float q = fmaxf(rr_prob, 1e-12f);
+    return make_float3(t.x / q, t.y / q, t.z / q);
+  }
+
+  // L += T * Le on an emitter hit of light li
+  __device__ __forceinline__ void emit(float3 t, float3 le, int li) {
+    const float tc[3] = {t.x, t.y, t.z}, lc[3] = {le.x, le.y, le.z};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc)
+#pragma unroll
+        for (int m = 0; m < MAX_GRAD_MATS; ++m) {
+          if (m >= n_mats) break;
+          dl(c, cc, m) += GT[c][cc][m] * lc[c];
+        }
+      de(c, li) += tc[c];
+    }
+  }
+
+  // L += T * albedo * Le * coef for a light sample of light li; the hit's
+  // own albedo adds the same-channel term T * Le * coef
+  __device__ __forceinline__ void nee(float3 t, float3 alb, float3 le,
+                                      float coef, int li) {
+    if (coef == 0.f) return;
+    const float tc[3] = {t.x, t.y, t.z}, ac[3] = {alb.x, alb.y, alb.z};
+    const float lc[3] = {le.x * coef, le.y * coef, le.z * coef};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc)
+#pragma unroll
+        for (int m = 0; m < MAX_GRAD_MATS; ++m) {
+          if (m >= n_mats) break;
+          float dd = GT[c][cc][m] * ac[c];
+          if (cc == c && m == mat) dd += tc[c];
+          dl(c, cc, m) += dd * lc[c];
+        }
+      de(c, li) += tc[c] * ac[c] * coef;
+    }
+  }
+
+  // T' = T * w with w = albedo * f (f = 1 cosine, 2 cos(theta) uniform)
+  __device__ __forceinline__ void scatter(float3 t, float3 w, float f) {
+    const float tc[3] = {t.x, t.y, t.z}, wc[3] = {w.x, w.y, w.z};
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc)
+#pragma unroll
+        for (int m = 0; m < MAX_GRAD_MATS; ++m) {
+          if (m >= n_mats) break;
+          float g = GT[c][cc][m] * wc[c];
+          if (cc == c && m == mat) g += tc[c] * f;
+          GT[c][cc][m] = g;
+        }
+  }
 };
 
 __device__ __forceinline__ int nearest_row(const float4* __restrict__ coef,
@@ -179,8 +342,10 @@ __device__ __forceinline__ float nee_coef(const MegaScene& S, float3 center,
 
 // One bounce of an active path. Ends the path (act = false) on a miss, a
 // roulette kill, an emitter, zero throughput, or after the last bounce.
+// ``jac`` follows the Jacobians (NoGrad: nothing).
+template <class J>
 __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
-                                       Path& p) {
+                                       Path& p, J& jac) {
   const uint32_t base = (uint32_t)p.it * SITES_PER_BOUNCE;
   const float3 o = p.o, d = p.d;
   const float3 oc = sub3(o, center);
@@ -206,6 +371,7 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
   const float3 e2 = make_float3(r5.y, r5.z, r5.w);
   const float lrow = r6.y;
   const float3 alb = make_float3(r7.y, r7.z, r7.w);
+  jac.hit(r6.x);
 
   float t, tu, tv;
   winner_tuv(o, d, v0, e1, e2, t, tu, tv);
@@ -231,7 +397,7 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
       return;
     }
     const float boost = 1.0f / fmaxf(rr_prob, 1e-12f);
-    p.T = make_float3(p.T.x * boost, p.T.y * boost, p.T.z * boost);
+    p.T = jac.roulette(p.T, boost, rr_prob);
   }
 
   // emitter hit: one-sided radiance, and the path ends
@@ -244,6 +410,7 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
         p.L.x += p.T.x * le.x;
         p.L.y += p.T.y * le.y;
         p.L.z += p.T.z * le.z;
+        jac.emit(p.T, le, li);
       }
     }
     p.act = false;
@@ -267,6 +434,7 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
         p.L.x += p.T.x * alb.x * le.x * coef;
         p.L.y += p.T.y * alb.y * le.y * coef;
         p.L.z += p.T.z * alb.z * le.z * coef;
+        jac.nee(p.T, alb, le, coef, i);
       }
     } else {
       // one light per vertex: pick at site LIGHT0, sample at LIGHT0 + 1
@@ -295,6 +463,7 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
       p.L.x += p.T.x * alb.x * le.x * coef;
       p.L.y += p.T.y * alb.y * le.y * coef;
       p.L.z += p.T.z * alb.z * le.z * coef;
+      jac.nee(p.T, alb, le, coef, lidx);
     }
   }
 
@@ -310,6 +479,7 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
   const float phi = TWO_PI * ub2;
   float lx, ly, lz;
   float3 w = alb;
+  float f_bounce = 1.0f;  // w = albedo * f_bounce
   if (S.cosine) {
     const float rad = sqrtf(ub1);
     lx = rad * cosf(phi);
@@ -322,6 +492,7 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
     lz = st * sinf(phi);
     const float cw = 2.0f * fmaxf(ly, 0.f);
     w = make_float3(alb.x * cw, alb.y * cw, alb.z * cw);
+    f_bounce = cw;
   }
   const float sg = copysignf(1.0f, ns.z);
   const float a = -1.0f / (sg + ns.z);
@@ -332,6 +503,7 @@ __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
   const float3 ww = make_float3(lx * t0.x + ly * ns.x + lz * b0.x,
                                 lx * t0.y + ly * ns.y + lz * b0.y,
                                 lx * t0.z + ly * ns.z + lz * b0.z);
+  jac.scatter(p.T, w, f_bounce);
   p.T = make_float3(p.T.x * w.x, p.T.y * w.y, p.T.z * w.z);
   if (!((p.T.x > 0.f) | (p.T.y > 0.f) | (p.T.z > 0.f))) {
     p.act = false;
@@ -395,7 +567,8 @@ mega_path_kernel(MegaScene S, const float* __restrict__ o,
   p.T = make_float3(1.f, 1.f, 1.f);
   p.o = load3(o, i);
   p.d = load3(d, i);
-  while (p.act && p.it < S.max_depth) bounce(S, center, p);
+  NoGrad ng;
+  while (p.act && p.it < S.max_depth) bounce(S, center, p, ng);
   out[3 * i + 0] = p.L.x;
   out[3 * i + 1] = p.L.y;
   out[3 * i + 2] = p.L.z;
@@ -414,9 +587,10 @@ mega_spp_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
   float3 acc = make_float3(0.f, 0.f, 0.f);
   int rej = 0;
   Path p;
+  NoGrad ng;
   for (int s = 0; s < n_spp; ++s) {
     start_sample(C, fold, x, y, (uint32_t)(s0 + s), p);
-    while (p.act && p.it < S.max_depth) bounce(S, center, p);
+    while (p.act && p.it < S.max_depth) bounce(S, center, p, ng);
     add_sample(p.L, acc, rej);
   }
   out_sum[3 * i + 0] = acc.x;
@@ -442,13 +616,14 @@ mega_spp_persistent_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
   Path p;
   p.act = false;
   p.it = 0;
+  NoGrad ng;
   int s = 0;
   // a lane needs one pass per bounce; the bound can only cut a loop that
   // would otherwise not end
   const long long limit = (long long)n_spp * (S.max_depth + 1) + 1;
   for (long long guard = 0; s < n_spp && guard < limit; ++guard) {
     if (!p.act) start_sample(C, fold, x, y, (uint32_t)(s0 + s), p);
-    bounce(S, center, p);
+    bounce(S, center, p, ng);
     if (!p.act || p.it >= S.max_depth) {
       add_sample(p.L, acc, rej);
       p.act = false;
@@ -459,6 +634,32 @@ mega_spp_persistent_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
   out_sum[3 * i + 1] = acc.y;
   out_sum[3 * i + 2] = acc.z;
   out_rej[i] = rej;
+}
+
+// Radiance and Jacobians of one whole path per ray: mega_path_kernel with
+// the Grad accumulator. ``out`` holds 3 + 9M + 3L planes of n floats.
+__global__ void __launch_bounds__(MEGA_BLOCK)
+mega_grad_path_kernel(MegaScene S, const int32_t* __restrict__ obj_mat,
+                      int n_obj, int n_mats, const float* __restrict__ o,
+                      const float* __restrict__ d,
+                      const int32_t* __restrict__ keys, int n,
+                      float* __restrict__ out) {
+  const int i = blockIdx.x * MEGA_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  const float3 center = ld3(S.center);
+  Grad jac(obj_mat, n_obj, n_mats, S.n_lights, out, n, i);
+  Path p;
+  p.key = (uint32_t)keys[i];
+  p.it = 0;
+  p.act = true;
+  p.L = make_float3(0.f, 0.f, 0.f);
+  p.T = make_float3(1.f, 1.f, 1.f);
+  p.o = load3(o, i);
+  p.d = load3(d, i);
+  while (p.act && p.it < S.max_depth) bounce(S, center, p, jac);
+  out[i] = p.L.x;
+  out[(size_t)n + i] = p.L.y;
+  out[2 * (size_t)n + i] = p.L.z;
 }
 
 // What the launchers share: the scene arguments as the C interface takes
@@ -557,6 +758,20 @@ int mega_spp_persistent(int s0, int n_spp, const int32_t* pixfold,
   const int grid = (n + xrt::MEGA_BLOCK - 1) / xrt::MEGA_BLOCK;
   xrt::mega_spp_persistent_kernel<<<grid, xrt::MEGA_BLOCK, 0, st>>>(
       S, C, s0, n_spp, pixfold, px, py, n, out_sum, out_rej);
+  return (int)cudaGetLastError();
+}
+
+// ``out``: (3 + 9 n_mats + 3 n_lights, n) plane-major; n_mats <= MAX_GRAD_MATS.
+int mega_grad_path(const float* o, const float* d, const int32_t* keys, int n,
+                   XRT_SCENE_PARAMS, const int32_t* obj_mat, int n_obj,
+                   int n_mats, float* out, void* stream) {
+  if (n <= 0) return 0;
+  if (n_mats < 0 || n_mats > xrt::MAX_GRAD_MATS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const xrt::MegaScene S = xrt::prepare(XRT_SCENE_ARGS, st);
+  const int grid = (n + xrt::MEGA_BLOCK - 1) / xrt::MEGA_BLOCK;
+  xrt::mega_grad_path_kernel<<<grid, xrt::MEGA_BLOCK, 0, st>>>(
+      S, obj_mat, n_obj, n_mats, o, d, keys, n, out);
   return (int)cudaGetLastError();
 }
 

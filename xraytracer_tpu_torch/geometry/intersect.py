@@ -26,7 +26,7 @@ or the wrapper raises.
 import torch
 
 from ..constants import INF, K_EPS
-from ..math import cross, dot, normalize, orthonormal_basis
+from ..math import cross, dot, normalize, orthonormal_basis, take_rows
 from . import kernels
 from .types import Hit, Rays
 
@@ -347,7 +347,7 @@ def intersect_scene(scene, rays: Rays, tri_fn=None, present=None) -> Hit:
         tt, ti, tu, tv = tri_fn(
             rays, scene.tri_v0, scene.tri_e1, scene.tri_e2, tri_valid
         )
-        rec = scene.tri_rec[_ix(ti)]
+        rec = take_rows(scene.tri_rec, _ix(ti))
     has_sph, has_box = present if present is not None else tables_present(scene)
     if has_sph:
         st, si = intersect_spheres(
@@ -424,7 +424,7 @@ def intersect_scene(scene, rays: Rays, tri_fn=None, present=None) -> Hit:
         (sph_obj >= 0) & (sph_mat >= 0), scene.mat_type[sph_mix], neg1
     )
     sph_ior = scene.mat_ior[sph_mix]
-    sph_albedo = scene.mat_albedo[sph_mix]
+    sph_albedo = take_rows(scene.mat_albedo, sph_mix)
 
     # box record: t/t1 only, no surface (reference: Src/primitive.h:256-259)
     bix = _ix(bi)
@@ -496,18 +496,22 @@ def occluded(scene, rays: Rays, t_max, tri_fn=None, present=None):
     block. Medium boxes never block (deliberate fix, see module docstring).
     Returns (N,) bool. With ``tri_fn=None`` the triangle part is the boolean
     any-hit sweep ``kernels.occluded_anyhit`` (CUDA kernel on the card, its
-    plain version on the CPU); a given ``tri_fn`` is swept over the blocking
-    mask and its nearest t compared with ``t_max``.
+    plain version on the CPU); so it is with a ``tri_fn`` that carries
+    ``detached_ok = True`` (the gradient pipelines' sweep, diff.py):
+    visibility is a detached boolean in every estimator, so the shadow rays
+    go in detached and the kernel needs no gradient rule. Any other given
+    ``tri_fn`` is swept over the blocking mask and its nearest t compared
+    with ``t_max``.
     """
     tri_light = scene.obj_light[_ix(scene.tri_obj)]
     tri_blocks = (scene.tri_obj >= 0) & (tri_light < 0)
-    if tri_fn is None:
+    if tri_fn is None or getattr(tri_fn, "detached_ok", False):
         n = rays.o.shape[0]
         t_max = torch.as_tensor(
             t_max, dtype=torch.float32, device=rays.o.device
-        ).expand(n)
+        ).detach().expand(n)
         blocked = kernels.occluded_anyhit(
-            rays.o.contiguous(), rays.d.contiguous(),
+            rays.o.detach().contiguous(), rays.d.detach().contiguous(),
             scene.tri_v0, scene.tri_e1, scene.tri_e2,
             tri_blocks, t_max.contiguous(),
         )

@@ -182,6 +182,52 @@ def sweep_nearest_tri_fn(rays, v0, e1, e2, valid):
     return sweep_nearest(rays.o, rays.d, v0, e1, e2, valid)
 
 
+class SweepStopGrad(torch.autograd.Function):
+    """``sweep_nearest`` inside gradient pipelines: zero gradients for rays
+    and geometry in reverse mode, zero tangents in forward mode.
+    Counterpart of ``pallas_kernels.py::intersect_triangles_pallas_stopgrad``.
+
+    Exact for the parameters the gradient pipelines differentiate (albedo,
+    emission): with detached sampling, ray origins, directions and vertices
+    depend on geometry and random numbers only, so no gradient flows
+    through the sweep's outputs; appearance gradients travel through the
+    winner's record, gathered outside the kernel as ``tri_rec[idx]``. Not
+    for vertex gradients (they would be silently zero): those take
+    ``intersect_triangles_mm``. The forward pass launches the kernel for
+    CUDA tensors and runs the plain version for CPU tensors."""
+
+    @staticmethod
+    def forward(o, d, v0, e1, e2, valid):
+        return sweep_nearest(o.contiguous(), d.contiguous(), v0, e1, e2, valid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        o, d, v0, e1, e2, _ = inputs
+        ctx.shapes = [(x.shape, x.dtype, x.device) for x in (o, d, v0, e1, e2)]
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        zeros = [torch.zeros(s, dtype=t, device=dev) for s, t, dev in ctx.shapes]
+        return (*zeros, None)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        (o_shape, dt, dev) = ctx.shapes[0]
+        z = torch.zeros(o_shape[:1], dtype=dt, device=dev)
+        return z, None, z, z
+
+
+def sweep_nearest_stopgrad_tri_fn(rays, v0, e1, e2, valid):
+    """``SweepStopGrad`` in the ``tri_fn`` form. Its ``detached_ok`` tells
+    ``occluded`` to send this pipeline's shadow rays, detached, through the
+    boolean any-hit kernel."""
+    return SweepStopGrad.apply(rays.o, rays.d, v0, e1, e2, valid)
+
+
+sweep_nearest_stopgrad_tri_fn.detached_ok = True
+
+
 # --------------------------------------------------------------------------
 # K3: nearest hit + winner record
 # --------------------------------------------------------------------------

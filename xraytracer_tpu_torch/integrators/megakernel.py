@@ -1,7 +1,7 @@
 """Whole-path surface kernels: CUDA kernels, their wrappers, their plain
 PyTorch versions, and the factories that route a scene to them.
 
-Counterpart of ``xraytracer_tpu/integrators/megakernel.py``. Three kernels,
+Counterpart of ``xraytracer_tpu/integrators/megakernel.py``. Four kernels,
 one device function for a bounce in ``csrc/megakernel.cu``:
 
 * ``mega_path`` replaces ``_mega_kernel`` (through
@@ -15,6 +15,12 @@ one device function for a bounce in ``csrc/megakernel.cu``:
   ``_make_surface_iteration`` (``persistent=True``, the default and so the
   main path): the same render with the sample loop and the bounce loop
   merged, so a lane whose path has ended starts its next sample at once.
+* ``mega_grad_path`` replaces ``_mega_grad_kernel`` (through
+  ``try_make_fused_grad_path``, the analytic route of
+  ``diff.try_make_fast_value_and_grad``): ``mega_path`` plus each lane's
+  Jacobians of radiance w.r.t. the material albedos and the light
+  emissions, accumulated in the forward pass; ``tri_rec`` and ``al_le`` are
+  live per call.
 
 Nothing is compiled per scene: lights go into a device table, the camera
 and the flags are launch arguments (``FusedScene``, ``RenderView``). What
@@ -39,7 +45,9 @@ which runs the plain versions (the tests' way in).
 
 The plain versions are the port's own wavefront integrator over the plain
 matmul-form sweep, with a host loop over samples and the camera ray of the
-kernels' formulas, so they reach no kernel on either device.
+kernels' formulas, so they reach no kernel on either device; that of
+``mega_grad_path`` differentiates it in forward mode (``torch.func.jvp``)
+along every parameter direction.
 """
 
 import ctypes
@@ -53,7 +61,7 @@ from ..geometry import Rays
 from ..geometry import kernels as sweeps
 from ..sampling import rng
 
-KERNEL_NAMES = ("mega_path", "mega_spp", "mega_spp_persistent")
+KERNEL_NAMES = ("mega_path", "mega_spp", "mega_spp_persistent", "mega_grad_path")
 
 # launches of each kernel, and calls of each plain version, since the last
 # ``reset_counts()``: plain ints, bumped exactly where a wrapper launches
@@ -66,6 +74,7 @@ MAX_TRIANGLES = 4096  # the JAX package's gate, kept as it is
 MAX_DEPTH = 8
 MAX_LIGHTS_ALL = 8    # "all": one shadow test per light and vertex
 MAX_LIGHTS_PICK = 64  # "one" / "power": one shadow test per vertex
+MAX_GRAD_MATS = 8     # materials the gradient kernel carries (csrc/megakernel.cu)
 LIGHT_STRIDE = 20     # floats per light-table row (csrc/megakernel.cu)
 NEE_KINDS = {"all": 0, "one": 1, "power": 2}
 
@@ -86,6 +95,8 @@ _ARGTYPES = {
     # s0, n_spp, pixfold, px, py, n, cam16, cam_site, scene..., sum, rej, stream
     "mega_spp": _SPP_ARGTYPES,
     "mega_spp_persistent": _SPP_ARGTYPES,
+    # o, d, keys, n, scene..., obj_mat, n_obj, n_mats, out planes, stream
+    "mega_grad_path": [_P, _P, _P, _I] + _SCENE_ARGTYPES + [_P, _I, _I, _P, _P],
 }
 
 
@@ -200,9 +211,11 @@ class FusedScene:
     def device(self):
         return self.scene.tri_v0.device
 
-    def scene_args(self):
-        """The launchers' scene arguments, in the order of the C interface."""
+    def scene_args(self, tri_rec=None):
+        """The launchers' scene arguments, in the order of the C interface;
+        ``tri_rec`` in place of the scene's record table."""
         s = self.scene
+        rec = s.tri_rec if tri_rec is None else tri_rec
         t_total = s.tri_v0.shape[0]
         if self.coef is None:
             shape = (t_total, 16)
@@ -213,7 +226,7 @@ class FusedScene:
             self.valid.data_ptr(), self.blocks.data_ptr(), t_total,
             sweeps._center(s.tri_v0).data_ptr(),
             self.coef.data_ptr(), self.coef_blocks.data_ptr(),
-            s.tri_rec.data_ptr(), self.lights.data_ptr(),
+            rec.data_ptr(), self.lights.data_ptr(),
             self.pick_cdf.data_ptr(), self.n_lights, self.max_depth,
             int(self.nee), int(self.le0), int(self.cosine),
             NEE_KINDS[self.nee_mode],
@@ -458,6 +471,136 @@ def mega_spp_persistent(fs, view, s0, n_spp):
 
 
 # --------------------------------------------------------------------------
+# K5: radiance and its per-lane gradients w.r.t. albedo and emission
+# --------------------------------------------------------------------------
+@dataclass
+class GradScene:
+    """A ``FusedScene`` (its light table the gradient kernel's own: the Le
+    columns are written per call) and what the Jacobians need: the object
+    -> material map and the parameter counts."""
+
+    fs: FusedScene
+    obj_mat: torch.Tensor  # (O,) int32
+    n_mats: int
+
+    @property
+    def n_planes(self):
+        return 3 + 9 * self.n_mats + 3 * self.fs.n_lights
+
+
+def _grad_inputs(gs, tri_rec, al_le):
+    s = gs.fs.scene
+    return (s.tri_rec if tri_rec is None else tri_rec,
+            s.al_le if al_le is None else al_le)
+
+
+def _split_planes(out, n_mats, n_lights):
+    """(3 + 9M + 3L, N) plane-major -> views img (N, 3), galb (N, 3, 3, M),
+    gle (N, 3, L)."""
+    n = out.shape[1]
+    img = out[:3].T
+    galb = out[3:3 + 9 * n_mats].T.reshape(n, 3, 3, n_mats)
+    gle = out[3 + 9 * n_mats:].T.reshape(n, 3, n_lights)
+    return img, galb, gle
+
+
+def mega_grad_path_plain(gs, o, d, keys, tri_rec=None, al_le=None):
+    """Plain PyTorch version of ``mega_grad_path``: ``torch.func.jvp`` of the
+    wavefront integrator of the same options, over the matmul sweep, along
+    each of the 3M + 3L parameter directions. The albedo of a table row is
+    its record's columns 29-31 plus the tangent of its material (through
+    ``obj_mat``), the emission ``al_le`` plus its tangent, so every lane's
+    ∂img/∂θ is what autodiff defines for the same draws, independently of
+    the kernel's recursion. Returns (img, galb, gle) as the kernel does."""
+    from ..geometry.intersect import intersect_triangles_mm
+    from .surface import make_path_integrator
+
+    PLAIN_CALLS["mega_grad_path"] += 1
+    fs = gs.fs
+    scene = fs.scene
+    tri_rec, al_le = _grad_inputs(gs, tri_rec, al_le)
+    n, m_n, l_n = o.shape[0], gs.n_mats, fs.n_lights
+    dev = o.device
+    tri_obj = scene.tri_obj.to(torch.int64)
+    row_mat = torch.where(tri_obj >= 0,
+                          gs.obj_mat.to(torch.int64)[torch.clamp(tri_obj, min=0)],
+                          torch.full_like(tri_obj, -1))
+    onehot = (row_mat[:, None] == torch.arange(m_n, device=dev)[None]).to(torch.float32)
+    rays = Rays(o=o, d=d)
+    keys = keys.to(torch.int64) & _MASK
+
+    def render(d_alb, d_le):
+        rec = torch.cat([tri_rec[:, :29], tri_rec[:, 29:32] + onehot @ d_alb], dim=1)
+        sc = scene._replace(tri_rec=rec, al_le=al_le + d_le)
+        integrate = make_path_integrator(
+            sc, fs.statics, fs.max_depth, nee=fs.nee, le_depth0_only=fs.le0,
+            cosine_sampling=fs.cosine, tri_fn=intersect_triangles_mm,
+            nee_mode=fs.nee_mode, pick_weights=fs.pick_weights, fused="never",
+        )
+        return integrate(rays, keys)
+
+    z_alb = torch.zeros((m_n, 3), dtype=torch.float32, device=dev)
+    z_le = torch.zeros_like(al_le)
+    out = torch.empty((gs.n_planes, n), dtype=torch.float32, device=dev)
+    img, galb, gle = _split_planes(out, m_n, l_n)
+    primal = None
+    for m in range(m_n):
+        for cc in range(3):
+            t_alb = z_alb.clone()
+            t_alb[m, cc] = 1.0
+            primal, tan = torch.func.jvp(render, (z_alb, z_le), (t_alb, z_le))
+            galb[:, :, cc, m] = tan
+    for li in range(l_n):
+        for c in range(3):
+            t_le = z_le.clone()
+            t_le[li, c] = 1.0
+            primal, tan = torch.func.jvp(render, (z_alb, z_le), (z_alb, t_le))
+            gle[:, c, li] = tan[:, c]
+    img[:] = render(z_alb, z_le) if primal is None else primal
+    return img, galb, gle
+
+
+def mega_grad_path(gs, o, d, keys, tri_rec=None, al_le=None):
+    """Radiance of one whole path per ray and its per-lane Jacobians:
+    ``img`` (N, 3), ``galb[:, c, cc, m] = ∂img_c/∂mat_albedo[m, cc]``
+    (N, 3, 3, M) and ``gle[:, c, l] = ∂img_c/∂al_le[l, c]`` (N, 3, L), as
+    views of one (3 + 9M + 3L, N) plane-major output. ``tri_rec`` (T, 32)
+    and ``al_le`` (>= L, 3) are live: None takes the scene's own."""
+    if not o.is_cuda:
+        return mega_grad_path_plain(gs, o, d, keys, tri_rec, al_le)
+    fs = gs.fs
+    dev = o.device
+    n = o.shape[0]
+    sweeps._check("o", o, torch.float32, (n, 3), dev)
+    sweeps._check("d", d, torch.float32, (n, 3), dev)
+    if keys.dtype != torch.int32:
+        sweeps._check("keys", keys, torch.int64, (n,), dev)
+        keys = _i32_bits(keys)
+    sweeps._check("keys", keys, torch.int32, (n,), dev)
+    _check_scene(fs, dev)
+    tri_rec, al_le = _grad_inputs(gs, tri_rec, al_le)
+    t_total = fs.scene.tri_v0.shape[0]
+    sweeps._check("tri_rec", tri_rec, torch.float32, (t_total, 32), dev)
+    if tri_rec.data_ptr() % 16:
+        raise ValueError("tri_rec: must be 16-byte aligned")
+    if al_le.dim() != 2 or al_le.shape[0] < fs.n_lights or al_le.shape[1] != 3:
+        raise ValueError(f"al_le: shape {tuple(al_le.shape)}, expected (>= {fs.n_lights}, 3)")
+    sweeps._check("obj_mat", gs.obj_mat, torch.int32, (gs.obj_mat.shape[0],), dev)
+    if fs.n_lights:
+        # the Le columns of the light table, from this call's emission
+        fs.lights[:fs.n_lights, 13:16].copy_(al_le[:fs.n_lights].detach())
+    out = torch.empty((gs.n_planes, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("mega_grad_path", (
+            o.data_ptr(), d.data_ptr(), keys.data_ptr(), n,
+            *fs.scene_args(tri_rec), gs.obj_mat.data_ptr(),
+            gs.obj_mat.shape[0], gs.n_mats, out.data_ptr(), sweeps._stream(),
+        ))
+    LAUNCHES["mega_grad_path"] += 1
+    return _split_planes(out, gs.n_mats, fs.n_lights)
+
+
+# --------------------------------------------------------------------------
 # factories
 # --------------------------------------------------------------------------
 def try_make_fused_path_integrator(
@@ -482,6 +625,54 @@ def try_make_fused_path_integrator(
         return mega_path(fs, rays.o.contiguous(), rays.d.contiguous(), keys)
 
     return integrate
+
+
+def try_make_fused_grad_path(
+    scene, statics, max_depth, nee=True, le_depth0_only=None,
+    cosine_sampling=False, force=False, nee_mode="all",
+):
+    """Analytic forward-pass gradients through ``mega_grad_path``:
+    ``f(rays, keys, tri_rec=None, al_le=None) -> (img (N,3), galb
+    (N,3,3,M), gle (N,3,L))`` with ``galb[:, c, cc, m] =
+    ∂img_c/∂mat_albedo[m, cc]`` and ``gle[:, c, l] = ∂img_c/∂al_le[l, c]``:
+    the gradient of the same realized estimator that autograd computes on
+    the wavefront route, at forward cost. ``tri_rec`` (e.g. from
+    ``rejoin_appearance`` after an albedo override) and ``al_le`` are live
+    per call. ``f.n_mats`` and ``f.n_lights`` give M and L.
+
+    None for a scene ``_eligible`` refuses or with more than
+    ``MAX_GRAD_MATS`` materials, and for tables on the CPU unless ``force``
+    (``f`` then runs the plain version). A power pick bakes its weights from
+    the base tables, here and in the plain version."""
+    if not force and not scene.tri_v0.is_cuda:
+        return None
+    if le_depth0_only is None:
+        le_depth0_only = nee
+    n_mats = int(scene.mat_albedo.shape[0])
+    if n_mats > MAX_GRAD_MATS:
+        return None
+    pick_w = None
+    if nee and nee_mode == "power" and statics["n_area_lights"] > 0:
+        from ..lights import light_power_weights
+
+        pick_w = light_power_weights(scene)
+    fs = _bake(scene, statics, max_depth, nee, le_depth0_only,
+               cosine_sampling, nee_mode=nee_mode, pick_weights=pick_w)
+    if fs is None:
+        return None
+    gs = GradScene(fs=fs, obj_mat=scene.obj_mat.to(torch.int32).contiguous(),
+                   n_mats=n_mats)
+
+    def f(rays, keys, tri_rec=None, al_le=None):
+        if rays.o.device != fs.device:
+            raise ValueError(f"rays on {rays.o.device}, scene on {fs.device}")
+        return mega_grad_path(gs, rays.o.contiguous(), rays.d.contiguous(),
+                              keys, tri_rec, al_le)
+
+    f.n_mats = n_mats
+    f.n_lights = fs.n_lights
+    f.grad_scene = gs
+    return f
 
 
 def try_make_fused_spp_render(

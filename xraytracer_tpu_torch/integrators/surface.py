@@ -40,6 +40,7 @@ _SITE_RR = 0
 _SITE_BSDF = 1
 _SITE_LOBE = 2
 _SITE_LIGHT0 = 16
+_THIRD = 1.0 / 3.0   # a Python float: rounded to float32 where it multiplies
 
 STAT_KEYS = ("rays", "shadow_rays", "rr_killed", "emitter_hits", "active_out")
 
@@ -224,14 +225,24 @@ def make_path_integrator(
 
             # Russian roulette for depth > 0 (Src/integrator.h:224-231)
             if depth > 0:
-                rr_prob = torch.clamp(torch.mean(throughput, dim=-1), max=1.0)
+                # the mean throughput; order: ((r + g) + b) * f32(1 / 3), as
+                # the kernels and the card's torch.mean compute it (the
+                # CPU's torch.mean divides by 3). minimum / maximum, not
+                # clamp: at an exact tie (a white albedo of 1 keeps the mean
+                # at 1) their derivative is 1/2, as jnp.minimum's and the
+                # analytic-gradient kernel's; clamp's is 1
+                mean_t = (
+                    (throughput[:, 0] + throughput[:, 1]) + throughput[:, 2]
+                ) * _THIRD
+                rr_prob = torch.minimum(mean_t, torch.ones_like(mean_t))
                 u_rr = uniform1(keys, site + _SITE_RR)
                 # active-masked so the stats counter only counts real kills
                 killed = active & (u_rr >= rr_prob)
                 active = active & ~killed
+                floor = torch.full_like(rr_prob, 1e-12)
                 throughput = torch.where(
                     active[:, None],
-                    throughput / torch.clamp(rr_prob, min=1e-12)[:, None],
+                    throughput / torch.maximum(rr_prob, floor)[:, None],
                     throughput,
                 )
             else:

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .constants import PI_MUL_2
-from .math import dot, length, normalize, orthonormal_basis
+from .math import dot, length, normalize, orthonormal_basis, take_rows
 from .sampling import uniform_sphere, uniform_triangle
 from .scene.tables import AL_SPHERE, AL_TRIANGLE
 
@@ -64,7 +64,7 @@ def sample_area_light(
     """
     li = torch.clamp(light_idx, min=0).to(torch.int64)
     ltype = torch.where(light_idx >= 0, scene.al_type[li], -1)
-    le = scene.al_le[li]
+    le = take_rows(scene.al_le, li)
     v0 = scene.al_v0[li]
     e1 = scene.al_e1[li]
     e2 = scene.al_e2[li]
@@ -214,7 +214,7 @@ def area_light_le(scene, light_idx, wo, ns):
     from the surface back along the ray; ``ns``: (N, 3) shading normal.
     """
     li = torch.clamp(light_idx, min=0).to(torch.int64)
-    le = scene.al_le[li]
+    le = take_rows(scene.al_le, li)
     on = (light_idx >= 0) & (dot(wo, ns) > 0.0)
     return torch.where(on[:, None], le, 0.0)
 
