@@ -8,9 +8,11 @@
     python3 chip_smoke.py --profile  # also traces the main path, 2 samples of
                                      # the Cornell wavefront path, the nee
                                      # preset by its default route, 1
-                                     # sample of its wavefront route and one
-                                     # step of each gradient route with
-                                     # torch.profiler (device time by kernel)
+                                     # sample of its wavefront route, one
+                                     # step of each surface gradient route
+                                     # and one analytic volume gradient step
+                                     # with torch.profiler (device time by
+                                     # kernel)
     python3 chip_smoke.py --launch-bounds-ab  # also compiles
                                      # csrc/het_megakernel.cu under other
                                      # __launch_bounds__ caps and times them
@@ -19,10 +21,10 @@ Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
 libraries: the sweeps, the whole-path surface kernels with the
 analytic-gradient kernel, the whole-path homogeneous volume kernels, the
 heterogeneous tracking kernels, the whole-path heterogeneous volume
-kernels), holds each of the fifteen kernels
-against its plain PyTorch version on the card at the shapes its path gives
-it, reproduces the two CPU golden images through the kernels, and then
-drives, through the port's public entry points:
+kernels with the analytic volume-gradient kernel), holds each of the
+sixteen kernels against its plain PyTorch version on the card at the
+shapes its path gives it, reproduces the two CPU golden images through the
+kernels, and then drives, through the port's public entry points:
 
 * ``main_path``: the ``cornellbox_gi`` preset (780x585, depth 3) by its
   default route, the whole-render kernel ``mega_spp_persistent`` (one launch
@@ -57,7 +59,17 @@ drives, through the port's public entry points:
   shadow rays) and by ``diff.try_make_fast_value_and_grad`` (one
   ``mega_grad_path`` launch per step), which must agree;
 * ``fit_path``: ``tools.fit_scene.fit`` at 780x585, depth 3, 20 steps of
-  1 sample through ``mega_grad_path``, whose loss must fall.
+  1 sample through ``mega_grad_path``, whose loss must fall;
+* ``vol_grad_path_analytic`` and ``vol_grad_path_autograd``: the gradient
+  of the L2 image loss w.r.t. the density grid and Le on the nee preset
+  (depth 32), by ``diff.try_make_fast_value_and_grad`` at 780x585 (one
+  ``het_path`` and one ``het_grad_path`` launch per step) and by torch
+  autograd through ``diff.make_radiance_fn(..., score_terms=True,
+  grad_sampling=True)`` on a 96x72 window of the frame (the whole frame's
+  tape does not fit the card);
+* ``fit_volume_path``: ``tools.fit_volume.fit`` at its published 96x72,
+  depth 6, three views, two pairs, 600 steps through ``het_path`` and
+  ``het_grad_path``, whose loss and density error must fall.
 
 Every launch count is set to 0 just before each of these runs and read just
 after it; the script checks that the run went through exactly the kernels
@@ -68,9 +80,9 @@ There is no fallback: without a card, or when any phase fails, the script
 exits non-zero and prints no result line.
 
 Output: one JSON object per line (``device``, ``build``, ``kernel_checks``
-six times (sweeps, whole-path, volume whole-path, tracking, heterogeneous
-whole-path, surface gradient), ``golden`` three times, then one line per
-driven path), then
+seven times (sweeps, whole-path, volume whole-path, tracking, heterogeneous
+whole-path, surface gradient, heterogeneous gradient), ``golden`` three
+times, then one line per driven path), then
 ``{"kernels": [...]}`` with one entry per kernel, the card's name and power
 limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -134,7 +146,18 @@ run's data:
   multiply-add into the lane's sum) and 2 at every scattering; per light
   sample 6 and per emitter hit 3 more for the emission Jacobian. Bytes: 28
   per lane in (ray, key), 4 per lane and output plane out (3 + 9M + 3L
-  planes), the table and the light rows once.
+  planes), the table and the light rows once;
+* the analytic volume-gradient kernel (pass B) needs a replay of the whole
+  heterogeneous path on the same draws (as above, counted by the plain
+  version's forward tallies under the grad-sampling estimator), the shadow
+  rays' transmittance walks a second time (once for tr, once for its
+  events), and per collision candidate the gradient event: 80 flop for a
+  tracking candidate (three channels of d p_s, the pdf's derivative, two
+  score terms, the coefficient; eight corner weights and eight atomic adds)
+  and 45 for a transmittance candidate (three ratios' derivatives, the
+  corners). Bytes: 52 per lane in (ray, key, image, residual), 12 + 12L
+  out (image, Le planes), the grid and the supergrid read once, the
+  gradient grid written once.
 """
 
 import argparse
@@ -190,6 +213,15 @@ EXHAUST_MAX_STEPS = 8  # a step bound the volume lanes run into: weight 0
 GRAD_SAMPLE = 1        # the sample whose camera rays the K5 checks take
 GRAD_STEPS = 8         # timed steps of each gradient route (bench.py:109-117)
 FIT_STEPS, FIT_SPP = 20, 1  # tools.fit_scene.fit on the card
+# the nee pixels held against autograd (K10's plain version) and driven by
+# the autograd route: the centred 96x72 of the 780x585 frame (fit_volume's
+# own frame size). The tape of the whole frame would not fit the card: a
+# step's plain version keeps ~60 lane-sized tensors per tracking step, and
+# the frame's paths take thousands of steps
+HET_GRAD_WINDOW = (96, 72)
+VOL_GRAD_STEPS = 8            # timed analytic steps at the full frame
+VOL_GRAD_AUTOGRAD_STEPS = 2   # timed autograd steps on the window
+FIT_VOL_STEPS = 600           # tools.fit_volume.fit: its own 600 steps
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -203,6 +235,8 @@ FLOPS_HET_SPHERE, FLOPS_HET_SCATTER, FLOPS_HET_CONE, FLOPS_HET_NEE_REST = 30, 45
 # the analytic-gradient kernel's Jacobian updates, per entry of the 9M
 # albedo entries and event (derived in the docstring above)
 FLOPS_JAC_ROULETTE, FLOPS_JAC_EMIT, FLOPS_JAC_NEE, FLOPS_JAC_SCATTER = 3, 2, 4, 2
+# the analytic volume gradient's events (derived in the docstring above)
+FLOPS_SAMPLE_GRAD_EVENT, FLOPS_TR_GRAD_EVENT = 80, 45
 
 # tolerances, kernel vs plain version on the same inputs
 IDX_MISMATCH_SHARE = 1e-4   # idx mismatches outside the tie band / rays
@@ -266,6 +300,17 @@ CLOUD_GOLDEN_HET_GATE = (K1_RTOL, K1_ATOL)
 # package's own tolerances (tests/test_diff.py)
 GRAD_LANE_RTOL, GRAD_LANE_ATOL_REL, GRAD_LANE_SHARE = 1e-4, 1e-5, 2e-4
 GRAD_RTOL, GRAD_ATOL_REL, GRAD_LOSS_RTOL = 2e-3, 2e-4, 2e-4
+# the analytic volume gradient (K10) vs its plain version: the JAX package's
+# own gates (tests/test_het_grad_kernel.py:116): the loss at rtol 1e-4, the
+# grid at rtol 5e-3 / atol 5e-4 x its largest entry (a cell sums thousands
+# of events in another order, and the kernel's in an order the atomics
+# choose, which changes from run to run), Le at rtol 5e-3 / atol 1e-8
+HET_GRAD_LOSS_RTOL = 1e-4
+HET_GRAD_RTOL, HET_GRAD_ATOL_REL = 5e-3, 5e-4
+HET_GRAD_LE_RTOL, HET_GRAD_LE_ATOL = 5e-3, 1e-8
+# pass B recomputes pass A's radiance by the same explicit rounding: lanes
+# beyond this are lanes where a decision went the other way
+HET_REPLAY_RTOL, HET_REPLAY_ATOL = 1e-5, 1e-7
 # full-size mean vs reference-size mean of the volume paths: Monte-Carlo
 # noise at a few samples per pixel; the volume preset has no next-event
 # estimation, so a path finds the light only by chance
@@ -393,7 +438,7 @@ def kernel_modules():
 
 
 def all_counts():
-    """Launch and plain-call counts of all fourteen kernels."""
+    """Launch and plain-call counts of all sixteen kernels."""
     out = {}
     for mod in kernel_modules():
         out.update(mod.counts())
@@ -1915,10 +1960,10 @@ class TrackingTally:
             return out
 
         def transmittance(scene, med, p1, p2, keys, site, max_steps, het_mask,
-                          candidates=None):
+                          candidates=None, **kw):
             cand = []
             out = orig_t(scene, med, p1, p2, keys, site, max_steps, het_mask,
-                         candidates=cand)
+                         candidates=cand, **kw)
             self.tr_lanes += int(het_mask.sum())
             self.tr_candidates += sum(cand)
             return out
@@ -2009,7 +2054,7 @@ def phase_het_kernels(device, nee_scene, volume_scene, reps):
         ("8 lights nee", eight_light_cloud(device), nee_scene[1], ncfg.width,
          ncfg.height, HET_LIGHTS_DEPTH, True),
     ]
-    cases = {k: [] for k in hk.KERNEL_NAMES}
+    cases = {k: [] for k in ("het_path", "het_spp", "het_spp_persistent")}
     for label, tables, camk, w, h, depth, nee in scenes:
         st = scene_statics(tables)
         hc = hk._het_consts(tables, st, depth, nee, None, None)
@@ -2093,7 +2138,7 @@ def phase_het_kernels(device, nee_scene, volume_scene, reps):
     headline = {"het_path": "nee", "het_spp": f"nee, {HET_CHECK_SPP} spp",
                 "het_spp_persistent": f"nee, {HET_CHECK_SPP} spp"}
     entries = []
-    for name in hk.KERNEL_NAMES:
+    for name in headline:
         head = next(c for c in cases[name] if c["case"] == headline[name])
         entries.append(dict(
             name=name, route="cuda",
@@ -2926,6 +2971,45 @@ def phase_profile_grad(device, cornell, cornell_cam, top=12):
                      seconds_traced=traced)
 
 
+def phase_profile_vol_grad(device, nee_scene, top=12):
+    """Trace one analytic step of ``vol_grad_path`` (nee, 780x585, after a
+    warm-up and one untraced step): device busy share, the kernels that
+    take most of the device time, the host operators that take most of the
+    host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xraytracer_tpu_torch import diff
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.renderer import pixel_grid
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    ncfg = get_preset("nee")
+    tables, camk = nee_scene
+    w, h = ncfg.width, ncfg.height
+    cam = PinholeCamera.make(w / h, device=device, **camk)
+    fn = diff.try_make_fast_value_and_grad(tables, scene_statics(tables), cam, w, h,
+                                           max_depth=ncfg.max_depth, nee=True)
+    ids, xy = pixel_grid(w, h, device=device)
+    target = torch.zeros((w * h, 3), device=device)
+    params = {"grid_density": tables.grid_density, "al_le": tables.al_le}
+
+    def step(s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(params, ids, xy, target, s)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    step(0)
+    plain = step(1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = step(2)
+    emit_profile(prof, top, route="volume grad analytic", steps=1,
+                 seconds_untraced=plain, seconds_traced=traced)
+
+
 def phase_fit_path(device):
     """``tools.fit_scene.fit`` at 780x585, depth 3, FIT_STEPS steps of
     FIT_SPP sample through K5: the trainer a user runs, counted from 0.
@@ -2963,6 +3047,411 @@ def phase_fit_path(device):
     return counts
 
 
+HET_GRAD_REPLACES = "xraytracer_tpu/integrators/het_megakernel.py:948"
+
+
+def grad_cloud_scene(device):
+    """The 16^3 cloud of tests/test_het_grad_kernel.py (seeded uniform
+    densities in the inner 10^3 voxels, under one sphere light), its camera
+    and its density as a tensor."""
+    import numpy as np
+    import torch
+
+    from xraytracer_tpu_torch.math import from_rows
+    from xraytracer_tpu_torch.scene.presets import build_volume_scene
+
+    g = np.zeros((16, 16, 16), np.float32)
+    g[3:13, 3:13, 3:13] = np.random.default_rng(7).uniform(0.3, 1.0, (10, 10, 10))
+    tables = build_volume_scene(
+        res=g.shape, density=g, absorption=(0.02, 0.03, 0.04),
+        scattering=(0.10, 0.08, 0.06), le=25.0, light_center=(0.0, 400.0, 0.0),
+    ).build(device)
+    camk = dict(c2w=from_rows(1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0, 0, 60.0, 520.0, 1),
+                fov_deg=60.0)
+    return tables, camk, torch.from_numpy(g).to(device)
+
+
+def window_pixels(w, h, window, device):
+    """Pixel ids and (x, y) of the whole w x h frame, or of the centred
+    ``window`` = (ww, wh) of it."""
+    from xraytracer_tpu_torch.renderer import pixel_grid
+
+    ids, xy = pixel_grid(w, h, device=device)
+    if window is None:
+        return ids, xy
+    ww, wh = window
+    x0, y0 = (w - ww) // 2, (h - wh) // 2
+    sel = (xy[:, 0] >= x0) & (xy[:, 0] < x0 + ww) & (xy[:, 1] >= y0) & (xy[:, 1] < y0 + wh)
+    return ids[sel].contiguous(), xy[sel].contiguous()
+
+
+def het_grad_rays(cam, w, h, ids, xy, seed, sample):
+    """Path keys and camera rays of one sample, as the analytic step makes
+    them."""
+    import torch
+
+    from xraytracer_tpu_torch.renderer import CAMERA_SITE
+    from xraytracer_tpu_torch.sampling import path_keys, uniform2
+
+    keys = path_keys(seed, ids, sample)
+    u = uniform2(keys, CAMERA_SITE)
+    rays = cam.sample_rays((xy + u) / torch.tensor([float(w), float(h)], device=xy.device))
+    return keys, rays.o.contiguous(), rays.d.contiguous()
+
+
+def het_grad_by(plain, hc, cam, w, h, ids, xy, grid, target, samples, seed=0):
+    """The loss and gradients (grid, Le (L, 3)) of ``step`` (one sample) or
+    ``step_pair`` (two samples, streams seed and seed + 7919), by the
+    kernels (K9a + K10) or by their plain versions (autograd), on the same
+    draws. Also returns the pass-A images."""
+    import torch
+
+    from xraytracer_tpu_torch.integrators import het_megakernel as hk
+
+    fwd = hk.het_path_plain if plain else hk.het_path
+    bwd = hk.het_grad_path_plain if plain else hk.het_grad_path
+    runs = []
+    for k, sample in enumerate(samples):
+        keys, o, d = het_grad_rays(cam, w, h, ids, xy, seed + 7919 * k, sample)
+        runs.append((o, d, keys, fwd(hc, o, d, keys, density=grid)))
+    n = ids.shape[0]
+    if len(runs) == 1:
+        img = runs[0][3]
+        loss = torch.mean((img - target) ** 2)
+        rfacs = [2.0 * (img - target) / (n * 3)]
+    else:
+        a, b = runs[0][3], runs[1][3]
+        loss = torch.mean((a - target) * (b - target))
+        rfacs = [(b - target) / (n * 3), (a - target) / (n * 3)]
+    g_grid = g_le = 0.0
+    for (o, d, keys, img), rfac in zip(runs, rfacs):
+        _, gle, gg = bwd(hc, o, d, keys, img, rfac.contiguous(), grid)
+        g_grid = g_grid + gg
+        g_le = g_le + torch.einsum("nc,ncl->lc", rfac, gle)
+    return float(loss), g_grid, g_le, [r[3] for r in runs]
+
+
+def het_grad_bound(tables, n, n_spheres, n_lights, stats, tally):
+    """bound_ms of a K10 launch: a replay of the K9 path on the same draws
+    (het_bound), the transmittance walks a second time, and per candidate
+    the gradient event (coefficient and eight corner weights and atomic
+    adds); bytes: rays, keys, image and residual in, image and 3L planes
+    out, the grid and the supergrid read, the gradient grid written."""
+    rays = int(stats["rays"].sum())
+    scattered = int(stats["scattered"].sum())
+    hit_test = n_spheres * FLOPS_HET_SPHERE + FLOPS_VOL_BOX
+    ops = (rays * (hit_test + FLOPS_VOL_RR)
+           + tally.sample_lanes * FLOPS_DDA
+           + tally.sample_candidates * (FLOPS_TRACK_CANDIDATE + FLOPS_SAMPLE_GRAD_EVENT)
+           + scattered * (FLOPS_HET_SCATTER + FLOPS_HET_CONE + hit_test + FLOPS_HET_NEE_REST)
+           + 2 * (tally.tr_lanes * FLOPS_DDA
+                  + tally.tr_candidates * FLOPS_TRANSMITTANCE_CANDIDATE)
+           + tally.tr_candidates * FLOPS_TR_GRAD_EVENT)
+    n_bytes = (n * (52 + 12 + 12 * n_lights) + tables.grid_super.numel() * 4
+               + 2 * tables.grid_density.numel() * 4)
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                rays=rays, scattered=scattered, tracking_lanes=tally.sample_lanes,
+                candidates=tally.sample_candidates, shadow_lanes=tally.tr_lanes,
+                shadow_candidates=tally.tr_candidates)
+
+
+def phase_het_grad_kernels(device, nee_scene, reps):
+    """Hold K10 (het_grad_path, with K9a het_path as pass A) against its
+    plain version (autograd through the wavefront route on the same draws)
+    for ``step`` and ``step_pair``: (a) the 16^3 cloud of
+    tests/test_het_grad_kernel.py at 16x12, depth 3, max_steps 32; (b)
+    tools.fit_volume's scene, blob density and first camera at 96x72,
+    depth 6; (c) the nee preset (64^3 cloud, depth 32, max_steps 110) on the
+    centred HET_GRAD_WINDOW of its 780x585 frame. Pass B's recomputed
+    radiance is held against pass A's on every lane. Then K10 is timed on
+    the nee preset's full 780x585 camera rays. Returns the ``kernels``
+    entry."""
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import het_megakernel as hk
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.tools import fit_volume
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    ncfg = get_preset("nee")
+    cloud, cloud_cam, cloud_grid = grad_cloud_scene(device)
+    fw, fh = 96, 72
+    fit_tables = fit_volume.build_scene(device)
+    fit_cam = fit_volume._cameras(fw, fh, device)[0]
+    nee_tables, nee_camk = nee_scene
+    scenes = [
+        # label, tables, camera, width, height, window, depth, max_steps, grid
+        ("16^3 cloud", cloud, PinholeCamera.make(16 / 12, device=device, **cloud_cam),
+         16, 12, None, 3, 32, cloud_grid),
+        ("fit_volume scene, first view", fit_tables, fit_cam, fw, fh, None,
+         fit_volume.MAX_DEPTH, None,
+         torch.from_numpy(fit_volume._blob_target()).to(device)),
+        (f"nee, {HET_GRAD_WINDOW[0]}x{HET_GRAD_WINDOW[1]} window", nee_tables,
+         PinholeCamera.make(ncfg.width / ncfg.height, device=device, **nee_camk),
+         ncfg.width, ncfg.height, HET_GRAD_WINDOW, ncfg.max_depth,
+         ncfg.max_steps or None, nee_tables.grid_density.contiguous()),
+    ]
+    cases = []
+    for label, tables, cam, w, h, window, depth, max_steps, grid in scenes:
+        st = scene_statics(tables)
+        step = hk.try_make_fused_het_value_and_grad(tables, st, cam, w, h, depth,
+                                                    nee=True, max_steps=max_steps)
+        check(step is not None, f"{label}: scene not eligible for the het gradient route")
+        hc = step.het_consts
+        ids, xy = window_pixels(w, h, window, device)
+        n = int(ids.shape[0])
+        case = dict(case=label, n=n, max_depth=depth, max_steps=hc.max_steps,
+                    n_lights=int(hc.ic[1]), grid=list(grid.shape))
+        # the targets of tests/test_het_grad_kernel.py
+        keys, o, d = het_grad_rays(cam, w, h, ids, xy, 0, 0)
+        img0 = hk.het_path(hc, o, d, keys, density=grid)
+        for what, samples, target in (("step", (0,), img0 * 0.7 + 0.01),
+                                      ("step_pair", (4, 5), img0 * 0.6 + 0.02)):
+            (pl, pg, pe, _), plain_ms = timed_once(
+                lambda: het_grad_by(True, hc, cam, w, h, ids, xy, grid, target, samples))
+            kl, kg, ke, imgs = het_grad_by(False, hc, cam, w, h, ids, xy, grid, target,
+                                           samples)
+            # the public step functions give the kernels' numbers
+            params = {"grid_density": grid, "al_le": tables.al_le}
+            if what == "step":
+                sl, sg = step(params, ids, xy, target, samples[0])
+            else:
+                sl, sg = step.step_pair(params, ids, xy, target, *samples)
+            torch.cuda.synchronize()
+            scale = float(torch.abs(pg).max())
+            check(scale > 0.0, f"het_grad_path, {label}, {what}: the gradient is zero")
+            grid_err = torch.abs(kg - pg)
+            beyond = int((grid_err > HET_GRAD_RTOL * torch.abs(pg)
+                          + HET_GRAD_ATOL_REL * scale).sum())
+            le_err = torch.abs(ke - pe)
+            le_beyond = int((le_err > HET_GRAD_LE_RTOL * torch.abs(pe) + HET_GRAD_LE_ATOL).sum())
+            r = dict(loss=kl, loss_plain=pl, loss_rel_err=abs(kl - pl) / max(abs(pl), 1e-30),
+                     grid_max_abs_err=float(grid_err.max()), grid_max_abs=scale,
+                     grid_cells_beyond_gate=beyond, grid_cells=int(pg.numel()),
+                     al_le=ke.tolist(), al_le_plain=pe.tolist(),
+                     al_le_max_abs_err=float(le_err.max()), al_le_beyond_gate=le_beyond,
+                     plain_ms=plain_ms,
+                     step_fn_vs_kernels=dict(
+                         loss=abs(float(sl) - kl),
+                         grid=float(torch.abs(sg["grid_density"] - kg).max()) / scale))
+            check(r["loss_rel_err"] <= HET_GRAD_LOSS_RTOL,
+                  f"het_grad_path, {label}, {what}: loss {kl} vs plain {pl}")
+            check(beyond == 0, f"het_grad_path, {label}, {what}: {beyond} grid cells "
+                               f"beyond the gate (max abs err {r['grid_max_abs_err']}, "
+                               f"max |g| {scale})")
+            check(le_beyond == 0, f"het_grad_path, {label}, {what}: d loss / d Le "
+                                  f"{ke.tolist()} vs plain {pe.tolist()}")
+            check(bool(torch.isfinite(kg).all()), f"{label}, {what}: non-finite gradient")
+            # the same step through the public function: the same launches on the
+            # same draws, up to the atomics' order
+            check(r["step_fn_vs_kernels"]["grid"] <= HET_GRAD_ATOL_REL,
+                  f"{label}, {what}: step() differs from its own kernels")
+            case[what] = r
+        # pass B's recomputed radiance against pass A's, every lane
+        img_a = hk.het_path(hc, o, d, keys, density=grid)
+        rfac = (2.0 * (img_a - img0 * 0.7 - 0.01) / (n * 3)).contiguous()
+        img_b, _, _ = hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid)
+        torch.cuda.synchronize()
+        diff = torch.abs(img_b - img_a)
+        lanes_beyond = int((diff > HET_REPLAY_RTOL * torch.abs(img_a) + HET_REPLAY_ATOL)
+                           .any(dim=1).sum())
+        case["replay_vs_pass_a"] = dict(
+            max_abs_err=float(diff.max()), lanes_not_bitwise=int((diff > 0).any(dim=1).sum()),
+            lanes_beyond_gate=lanes_beyond)
+        check(lanes_beyond <= max(2, K1_PIXEL_DIFF_SHARE * n),
+              f"het_grad_path, {label}: pass B's radiance differs from pass A's on "
+              f"{lanes_beyond} of {n} lanes")
+        case["ms"] = median_ms(lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid),
+                               reps, flush)
+        case["max_abs_err"] = max(case[k]["grid_max_abs_err"] for k in ("step", "step_pair"))
+        cases.append(case)
+
+    # K10 on the nee preset's full 780x585 camera rays (sample 0, zero target)
+    st = scene_statics(nee_tables)
+    cam = scenes[2][2]
+    hc = hk._het_consts(nee_tables, st, ncfg.max_depth, True, ncfg.max_steps or None,
+                        None, grad_sampling=True)
+    ids, xy = window_pixels(ncfg.width, ncfg.height, None, device)
+    keys, o, d = het_grad_rays(cam, ncfg.width, ncfg.height, ids, xy, 0, 0)
+    grid = nee_tables.grid_density.contiguous()
+    img_a = hk.het_path(hc, o, d, keys, density=grid)
+    n = int(ids.shape[0])
+    rfac = (2.0 * img_a / (n * 3)).contiguous()
+    img_b, gle, gg = hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid)
+    torch.cuda.synchronize()
+    diff = torch.abs(img_b - img_a)
+    full = dict(case=f"nee {ncfg.width}x{ncfg.height}, zero target", n=n,
+                max_depth=ncfg.max_depth, max_steps=hc.max_steps,
+                replay_vs_pass_a=dict(max_abs_err=float(diff.max()),
+                                      lanes_not_bitwise=int((diff > 0).any(dim=1).sum())),
+                grad_finite=bool(torch.isfinite(gg).all()),
+                grad_max_abs=float(torch.abs(gg).max()))
+    check(full["grad_finite"] and bool(torch.isfinite(gle).all()),
+          "het_grad_path, nee full frame: non-finite gradient")
+    stats = {}
+    with TrackingTally() as tally:
+        hk.het_path_plain(hc, o, d, keys, stats)
+    full.update(ms=median_ms(lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid),
+                             reps, flush),
+                pass_a_ms=median_ms(lambda: hk.het_path(hc, o, d, keys, density=grid),
+                                    reps, flush),
+                **het_grad_bound(nee_tables, n, int(hc.ic[0]), int(hc.ic[1]), stats, tally))
+    emit("kernel_checks", kernels="heterogeneous gradient", cases=cases, full_frame=full,
+         reps=reps, window=list(HET_GRAD_WINDOW),
+         tolerances=dict(loss=HET_GRAD_LOSS_RTOL, grid=[HET_GRAD_RTOL, HET_GRAD_ATOL_REL],
+                         al_le=[HET_GRAD_LE_RTOL, HET_GRAD_LE_ATOL],
+                         replay=[HET_REPLAY_RTOL, HET_REPLAY_ATOL]))
+    head = cases[2]
+    return [dict(
+        name="het_grad_path", route="cuda",
+        source="xraytracer_tpu_torch/csrc/het_megakernel.cu",
+        replaces=HET_GRAD_REPLACES, launches=None, launches_by_path=None,
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        err_of="d loss / d density per grid cell (step and step_pair) against the "
+               "plain version (autograd on the same draws), worst case",
+        ms=full["ms"], plain_ms=head["step"]["plain_ms"],
+        plain_ms_of=f"{head['case']}, step: both passes of the plain version "
+                    f"(the tape of the whole frame does not fit the card)",
+        bound_ms=full["bound_ms"], bound_by=full["bound_by"], library_ms=None,
+        shape=f"{full['case']}: N={full['n']} depth={full['max_depth']} grid=64^3 L=1",
+        cases=[{k: c[k] for k in ("case", "n", "max_depth", "ms")} for c in cases]
+        + [{k: full[k] for k in ("case", "n", "max_depth", "ms", "bound_ms", "bound_by",
+                                 "pass_a_ms")}],
+    )]
+
+
+def phase_vol_grad_path(device, nee_scene):
+    """The gradient of the L2 loss (zero target) w.r.t. the density grid and
+    Le on the nee preset (depth 32, max_steps 110), by both routes a user
+    calls: ``diff.try_make_fast_value_and_grad`` (pass A het_path + pass B
+    het_grad_path per step) at the full 780x585, and autograd through
+    ``diff.make_loss_fn(diff.make_radiance_fn(..., score_terms=True,
+    grad_sampling=True))`` on the HET_GRAD_WINDOW (the whole frame's tape
+    does not fit). One warm-up step at sample 0, then VOL_GRAD_STEPS
+    (analytic) resp. VOL_GRAD_AUTOGRAD_STEPS (autograd) timed steps,
+    counted from 0. Returns the counts of the two timed runs."""
+    import torch
+
+    from xraytracer_tpu_torch import diff
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    ncfg = get_preset("nee")
+    tables, camk = nee_scene
+    st = scene_statics(tables)
+    w, h = ncfg.width, ncfg.height
+    cam = PinholeCamera.make(w / h, device=device, **camk)
+    params = {"grid_density": tables.grid_density, "al_le": tables.al_le}
+    fast = diff.try_make_fast_value_and_grad(tables, st, cam, w, h,
+                                             max_depth=ncfg.max_depth, nee=True)
+    check(fast is not None, "vol_grad_path: nee did not take the analytic route")
+    radiance = diff.make_radiance_fn(tables, st, cam, w, h, max_depth=ncfg.max_depth,
+                                     nee=True, max_steps=ncfg.max_steps or None,
+                                     score_terms=True, grad_sampling=True)
+    routes = (
+        ("analytic", fast, None, VOL_GRAD_STEPS,
+         {"het_path": VOL_GRAD_STEPS, "het_grad_path": VOL_GRAD_STEPS}),
+        ("autograd", diff.value_and_grad(diff.make_loss_fn(radiance)), HET_GRAD_WINDOW,
+         VOL_GRAD_AUTOGRAD_STEPS, None),
+    )
+    out, by_path = {}, {}
+    for route, fn, window, steps, expected in routes:
+        ids, xy = window_pixels(w, h, window, device)
+        target = torch.zeros((ids.shape[0], 3), device=device)
+        val0, g0 = fn(params, ids, xy, target, 0)
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        for s in range(1, 1 + steps):
+            val, g = fn(params, ids, xy, target, s)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = all_counts()
+        for name, c in counts.items():
+            if expected is not None:
+                check(c["launches"] == expected.get(name, 0),
+                      f"vol_grad_path, {route}: {name} launched {c['launches']}x, "
+                      f"expected {expected.get(name, 0)}")
+            check(c["plain_calls"] == 0, f"vol_grad_path, {route}: plain calls of {name}")
+        check(all(bool(torch.isfinite(v).all()) for v in g.values()),
+              f"vol_grad_path, {route}: non-finite gradients")
+        check(float(torch.abs(g["grid_density"]).max()) > 0.0,
+              f"vol_grad_path, {route}: zero density gradient")
+        by_path[f"vol_grad_path_{route}"] = counts
+        n = int(ids.shape[0])
+        out[route] = dict(
+            pixels=n, window=None if window is None else list(window), seconds=secs,
+            steps=steps, rays_per_s=n * steps / secs, loss_sample0=float(val0),
+            launches={k: v["launches"] for k, v in counts.items() if v["launches"]})
+    check(out["analytic"]["launches"].get("het_grad_path", 0) > 0,
+          "vol_grad_path: het_grad_path never launched")
+    emit("vol_grad_path", width=w, height=h, depth=ncfg.max_depth, target="zero",
+         routes=out, analytic_rays_per_s=out["analytic"]["rays_per_s"],
+         autodiff_rays_per_s=out["autograd"]["rays_per_s"])
+    return by_path
+
+
+def phase_fit_volume_path(device):
+    """``tools.fit_volume.fit`` at its published 96x72, depth 6, 3 views, 2
+    pairs, 64 target renders per view, FIT_VOL_STEPS steps through K9a +
+    K10 (and one K9a render per view and step for its eval loss): the
+    trainer a user runs, counted from 0. Its line is printed
+    before the checks. Returns its counts."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.tools.fit_volume import fit
+
+    stats = {}
+    reset_all_counts()
+    t0 = time.perf_counter()
+    hist, fitted, tgt = fit(steps=FIT_VOL_STEPS, device="cuda", stats=stats)
+    secs = time.perf_counter() - t0
+    counts = all_counts()
+    views, pairs, target_pairs = 3, 2, 64
+    # the step losses are product losses on fresh streams each: their noise
+    # (~8 per step here) hides any trend, and at one fixed pair of streams
+    # the loss sits on the target's own noise (~5.19, flat within 0.01 over
+    # 600 steps); the fit's eval loss, the L2 error against the true blob's
+    # render with the same draws, goes to 0 with the density error
+    first, last = float(np.mean(hist[:4])), float(np.mean(hist[-4:]))
+    ev = stats["eval_loss"]
+    ev_first, ev_last = float(np.mean(ev[:4])), float(np.mean(ev[-4:]))
+    mae = stats["mae"]
+    c0, c1 = 4, 12
+    emit("fit_volume_path", width=96, height=72, depth=6, views=views, pairs=pairs,
+         target_pairs=target_pairs, steps=FIT_VOL_STEPS, seconds=secs,
+         seconds_per_step=float(np.median(stats["step_seconds"])),
+         loss_first4=first, loss_last4=last, loss=hist[:: max(1, len(hist) // 60)],
+         eval_loss_first4=ev_first, eval_loss_last4=ev_last,
+         eval_loss=ev[:: max(1, len(ev) // 60)],
+         mae_start=mae[0], mae_end=mae[-1], mae=mae[:: max(1, len(mae) // 60)],
+         center=float(fitted[c0:c1, c0:c1, c0:c1].mean()),
+         outer=float((fitted.sum() - fitted[c0:c1, c0:c1, c0:c1].sum()) / (16 ** 3 - 8 ** 3)),
+         n_rejected=stats["n_rejected"], grads_finite=stats["grads_finite"],
+         launches={k: v["launches"] for k, v in counts.items() if v["launches"]})
+    expected = {"het_path": views * (target_pairs + 1) + FIT_VOL_STEPS * views * (pairs * 2 + 1),
+                "het_grad_path": FIT_VOL_STEPS * views * pairs * 2}
+    for name, c in counts.items():
+        check(c["launches"] == expected.get(name, 0),
+              f"fit_volume_path: {name} launched {c['launches']}x, "
+              f"expected {expected.get(name, 0)}")
+        check(c["plain_calls"] == 0, f"fit_volume_path: plain calls of {name}")
+    check(ev_last < ev_first, f"fit_volume_path: loss did not fall ({ev_first} -> {ev_last} "
+                              f"against the blob's render with the same draws; {first} -> "
+                              f"{last} on the steps' own)")
+    check(mae[-1] < mae[0], f"fit_volume_path: density MAE did not fall ({mae[0]} -> {mae[-1]})")
+    check(stats["grads_finite"] and bool(np.isfinite(hist).all()),
+          "fit_volume_path: non-finite loss or gradient")
+    check(stats["n_rejected"] == 0, f"fit_volume_path: {stats['n_rejected']} rejected samples")
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fmad-ab", action="store_true",
@@ -2970,8 +3459,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also trace the main path, 2 samples of the Cornell "
                          "wavefront route, the nee preset by its default route, "
-                         "1 sample of its wavefront route and one step of each "
-                         "gradient route with torch.profiler")
+                         "1 sample of its wavefront route, one step of each "
+                         "surface gradient route and one analytic volume "
+                         "gradient step with torch.profiler")
     ap.add_argument("--launch-bounds-ab", action="store_true",
                     help="also build the heterogeneous whole-path kernels under "
                          "other __launch_bounds__ caps and time them")
@@ -3025,6 +3515,7 @@ def main():
     entries += phase_track_kernels(device, nee_scene, volume_scene, args.reps)
     entries += phase_het_kernels(device, nee_scene, volume_scene, args.reps)
     entries += phase_grad_kernels(device, cornell, cornell_cam, args.reps)
+    entries += phase_het_grad_kernels(device, nee_scene, args.reps)
     if args.launch_bounds_ab:
         phase_launch_bounds_ab(device, nee_scene, volume_scene, args.reps)
     phase_golden(device)
@@ -3059,6 +3550,9 @@ def main():
     # the surface gradients: both routes of one loss, and the trainer
     by_path.update(phase_grad_path(device, cornell, cornell_cam))
     by_path["fit_path"] = phase_fit_path(device)
+    # the volume gradients: both routes of one loss, and the trainer
+    by_path.update(phase_vol_grad_path(device, nee_scene))
+    by_path["fit_volume_path"] = phase_fit_volume_path(device)
     # the path on which each kernel must have run, by that path's own count
     runs_on = {"mega_spp_persistent": "main_path",
                "mega_path": "fused_entry_points", "mega_spp": "fused_entry_points",
@@ -3068,8 +3562,9 @@ def main():
                "vol_spp": "vol_entry_points", "track_sample": "nee_wavefront_path",
                "track_transmittance": "nee_wavefront_path",
                "het_spp_persistent": "nee_path", "het_path": "het_entry_points",
-               "het_spp": "het_entry_points", "mega_grad_path": "grad_path_analytic"}
-    check(len(entries) == 15, "the kernels line must list fifteen kernels")
+               "het_spp": "het_entry_points", "mega_grad_path": "grad_path_analytic",
+               "het_grad_path": "vol_grad_path_analytic"}
+    check(len(entries) == 16, "the kernels line must list sixteen kernels")
     for e in entries:
         e["runs_on"] = runs_on[e["name"]]
         e["launches_by_path"] = {
@@ -3081,6 +3576,7 @@ def main():
         phase_profile(device, cfg, cornell, cornell_cam)
         phase_profile_nee(device, nee_scene)
         phase_profile_grad(device, cornell, cornell_cam)
+        phase_profile_vol_grad(device, nee_scene)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

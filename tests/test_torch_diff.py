@@ -432,14 +432,21 @@ def test_routing_of_the_analytic_route():
     # more materials than the kernel carries
     many = tt._replace(mat_albedo=torch.rand((mk.MAX_GRAD_MATS + 1, 3)))
     assert mk.try_make_fused_grad_path(many, st, 3, force=True) is None
-    # volume scenes: the volume-gradient slice
+    # volume scenes: a homogeneous box (vpt) has no analytic route; a cloud
+    # lit by a sphere takes the heterogeneous one (K9a + K10), forced here
     from xraytracer_tpu_torch import cli
 
     vt, vcam = cli.build_scene(get_preset("vpt", width=8, height=8), device="cpu")
     vst = tbuilder.scene_statics(vt)
     vc = PinholeCamera.make(1.0, device="cpu", **vcam)
-    with pytest.raises(NotImplementedError, match="volume-gradient"):
-        diff.try_make_fast_value_and_grad(vt, vst, vc, 8, 8, force=True)
+    assert diff.try_make_fast_value_and_grad(vt, vst, vc, 8, 8, force=True) is None
+    ct, ccam = cli.build_scene(get_preset("nee", width=8, height=6), device="cpu")
+    cst = tbuilder.scene_statics(ct)
+    cc = PinholeCamera.make(8 / 6, device="cpu", **ccam)
+    assert diff.try_make_fast_value_and_grad(ct, cst, cc, 8, 6, max_depth=2) is None
+    step = diff.try_make_fast_value_and_grad(ct, cst, cc, 8, 6, max_depth=2, force=True)
+    assert step is not None and step.n_lights == 1 and callable(step.step_pair)
+    assert step.het_consts.grad_sampling and step.het_consts.max_depth == 2
 
 
 def test_jax_tables_converted_give_the_same_gradients():

@@ -299,15 +299,38 @@ def test_eval_phase_and_default_max_steps(scene):
 
 
 def test_gradient_options_wait_for_their_slice(scene, lanes):
+    """The gradient options: ``differentiable`` (the dense grid lookup) and
+    ``score_terms`` (ratios of exactly 1) leave every value of the default
+    route as it is (the same corner values, added in the same order), and
+    ``torch.autograd`` reaches the grid and the cross sections with finite
+    gradients."""
     _, tt = scene
-    tr, tt0, tt1, ttp, tk, tm = _port_lanes(lanes, 8)
-    idx = torch.zeros((8,), dtype=torch.int32)
-    for kw in (dict(differentiable=True), dict(score_terms=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            media.sample_medium(tt, idx, tr, tt0, tt1, ttp, tk, 16, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        media.segment_transmittance(tt, idx, tr.at(tt0), tr.at(tt1), tk, 16,
-                                    differentiable=True)
+    n = 128
+    tr, tt0, tt1, ttp, tk, tm = _port_lanes(lanes, n)
+    idx = torch.where(tm, 0, -1).to(torch.int32)
+    base = media.sample_medium(tt, idx, tr, tt0, tt1, ttp, tk, 16, max_steps=MAX_STEPS)
+    base_tr = media.segment_transmittance(tt, idx, tr.at(tt0), tr.at(tt1), tk, 16,
+                                          max_steps=MAX_STEPS)
+    for kw in (dict(differentiable=True), dict(differentiable=True, score_terms=True),
+               dict(score_terms=True)):
+        leaves = {k: getattr(tt, k).clone().requires_grad_(True)
+                  for k in ("grid_density", "med_sigma_s")}
+        sc = tt._replace(**leaves)
+        got = media.sample_medium(sc, idx, tr, tt0, tt1, ttp, tk, 16,
+                                  max_steps=MAX_STEPS, **kw)
+        for f in got._fields:
+            np.testing.assert_array_equal(getattr(got, f).detach().numpy(),
+                                          getattr(base, f).numpy(), err_msg=f"{kw} {f}")
+        got_tr = media.segment_transmittance(
+            sc, idx, tr.at(tt0), tr.at(tt1), tk, 16, max_steps=MAX_STEPS,
+            differentiable=kw.get("differentiable", False))
+        np.testing.assert_array_equal(got_tr.detach().numpy(), base_tr.numpy())
+        if not kw.get("differentiable"):
+            continue
+        loss = (got.weight * ttp).sum() + got_tr.sum()
+        gs = torch.autograd.grad(loss, list(leaves.values()))
+        for k, g in zip(leaves, gs):
+            assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0.0, (kw, k)
 
 
 def test_kernel_factories_and_input_checks(scene):

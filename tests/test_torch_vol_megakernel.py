@@ -247,3 +247,30 @@ def test_renderer_takes_the_fused_volume_route(vpt, cameras):
     # along a path: at most 2 of the 432 pixels
     assert int(beyond.sum()) <= 2, int(beyond.sum())
     assert abs(a.image.mean() - b.image.mean()) < 1e-3 * b.image.mean()
+
+
+def test_grad_sampling_keeps_the_wavefront_route(vpt, monkeypatch):
+    """The whole-path homogeneous kernel has no grad-sampling estimator (the
+    JAX kernel has no such branch either): under ``grad_sampling`` (and
+    ``differentiable``) a ``vpt`` scene keeps the wavefront loop, which
+    renders that estimator, instead of the default one, on the card as on
+    the CPU."""
+    (_, _), (tt, tst) = vpt
+    orig = vm.try_make_fused_volume_integrator
+    monkeypatch.setattr(vm, "try_make_fused_volume_integrator",
+                        lambda *a, **k: orig(*a, force=True, **k))
+    default = make_volume_integrator(tt, tst, 4, nee=True)
+    assert default.fused_spec["kind"] == "volume"     # the route K6 takes
+    o, d = _rays(256, seed=17)
+    rays = Rays(o=torch.from_numpy(o), d=torch.from_numpy(d))
+    keys = rng.path_keys(3, torch.arange(256), 0)
+    for kw in (dict(grad_sampling=True), dict(differentiable=True)):
+        integ = make_volume_integrator(tt, tst, 4, nee=True, **kw)
+        assert not hasattr(integ, "fused_spec"), kw
+        vm.reset_counts()
+        got = integ(rays, keys)
+        assert all(c["plain_calls"] == 0 for c in vm.counts().values())
+        wave = make_volume_integrator(tt, tst, 4, nee=True, fused="never", **kw)
+        np.testing.assert_array_equal(got.numpy(), wave(rays, keys).numpy())
+    gs = make_volume_integrator(tt, tst, 4, nee=True, grad_sampling=True)(rays, keys)
+    assert not torch.equal(gs, default(rays, keys))

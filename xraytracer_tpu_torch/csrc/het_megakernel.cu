@@ -11,8 +11,11 @@
 //   het_spp_persistent  <- the same with persistent=True
 //                          (_mega_spp_persistent_kernel over
 //                          _make_het_iteration)
-// One device function for an iteration (`het_bounce`), three kernels around
-// it, three extern "C" launchers, as vol_megakernel.cu has for the
+//   het_grad_path       <- the kernel of try_make_fused_het_value_and_grad
+//                          (over _make_het_grad_iteration): pass B of the
+//                          analytic volume gradient, below
+// One device function for an iteration (`het_bounce`), four kernels around
+// it, four extern "C" launchers, as vol_megakernel.cu has for the
 // homogeneous box.
 //
 // The scene such a kernel takes: no triangles, exactly one box carrying the
@@ -72,6 +75,27 @@
 // lane whose path ends starts its next sample at once. Each lane adds its
 // own samples in ascending order, so het_spp and het_spp_persistent give the
 // same sums.
+
+// The analytic volume gradient (het_grad_path). Pass A is het_path under
+// grad_sampling (roulette off, uniform channel pick): the image img of the
+// rays. Pass B replays the same draws through the same het_bounce with a
+// Replay hook that carries, per lane, the residual rfac_c = d loss / d img_c
+// and the SUFFIX s_c = img_c minus the contributions emitted so far. Every
+// factor of a tracking event multiplies exactly the contributions still to
+// come, so the event's share of d loss / d density is sum_c rfac_c s_c
+// d log(factor_c) / d density (media.cuh's SampleGrad, added into a dense
+// float32 gradient grid by atomicAdd of the eight trilinear corners); a
+// next-event contribution's transmittance events carry rfac_c x that
+// contribution (TransGrad, on a second walk of the same candidates once tr
+// is known); and d img_c / d Le_l sums T_c at an emission and
+// T_c w_c tr_c f / pdf at a light sample, in the lane's column of 3L
+// plane-major outputs (no atomics). The grad-sampling estimator is what
+// makes the suffix form exact: a roulette or a throughput-weighted channel
+// pick would make every later probability depend on the whole history.
+// The replay takes every decision pass A took, by the same explicit
+// rounding; chip_smoke.py holds pass B's recomputed radiance against pass
+// A's on every lane. The grid is summed with atomics, so its last bits
+// vary from run to run.
 
 #include "media.cuh"
 
@@ -212,10 +236,42 @@ __device__ __forceinline__ float3 cone_sample(const HetLight& Lt, float3 mp,
   return make_float3(dv.x / ts, dv.y / ts, dv.z / ts);
 }
 
+// The replay hook of het_bounce that computes nothing (het_path, het_spp,
+// het_spp_persistent).
+struct NoReplay {
+  static constexpr bool on = false;
+};
+
+// Pass B's per-lane state (see the top of this file): residual, suffix,
+// the lane's column of the d img / d Le planes, the gradient grid.
+struct Replay {
+  static constexpr bool on = true;
+  float rfac[3], suffix[3];
+  float* dE;  // plane (c * n_lights + l) at dE + (c * n_lights + l) * n
+  size_t n;
+  int n_lights;
+  float* grad;
+
+  __device__ __forceinline__ void add_dE(int l, const float v[3]) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) dE[(size_t)(c * n_lights + l) * n] += v[c];
+  }
+  __device__ __forceinline__ SampleGrad sample_hook() const {
+    SampleGrad h;
+    h.grad = grad;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) h.rs[c] = rfac[c] * suffix[c];
+    return h;
+  }
+};
+
 // One iteration of an active path. Ends the path (act = false) at the depth
-// bound, on a miss, a roulette kill, an emitter, or zero throughput.
+// bound, on a miss, a roulette kill, an emitter, or zero throughput. ``rep``
+// is NoReplay for the forward kernels and Replay for het_grad_path.
+template <class Rep>
 __device__ __forceinline__ void het_bounce(const HetScene& S,
-                                           const MediaGrid& G, HetPath& p) {
+                                           const MediaGrid& G, HetPath& p,
+                                           Rep& rep) {
   const uint32_t site = (uint32_t)p.it * SITES_PER_BOUNCE;
   p.it += 1;
   if (p.depth >= S.max_depth) {
@@ -258,6 +314,13 @@ __device__ __forceinline__ void het_bounce(const HetScene& S,
       p.L = make_float3(XA(p.L.x, XM(p.T.x, le[0])),
                         XA(p.L.y, XM(p.T.y, le[1])),
                         XA(p.L.z, XM(p.T.z, le[2])));
+      if constexpr (Rep::on) {  // emitted: T Le leaves the suffix
+        const float T3[3] = {p.T.x, p.T.y, p.T.z};
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          rep.suffix[c] = XS(rep.suffix[c], XM(T3[c], le[c]));
+        rep.add_dE(sp.lrow, T3);
+      }
     }
     p.act = false;
     return;
@@ -265,8 +328,12 @@ __device__ __forceinline__ void het_bounce(const HetScene& S,
 
   // the box: weighted delta tracking from its entry to its exit
   const float T3[3] = {p.T.x, p.T.y, p.T.z};
-  const TrackResult R =
-      track_sample(G, o, d, h.t, h.t1, T3, p.key, site + HSITE_MEDIUM);
+  TrackResult R;
+  if constexpr (Rep::on)
+    R = track_sample(G, o, d, h.t, h.t1, T3, p.key, site + HSITE_MEDIUM,
+                     rep.sample_hook());
+  else
+    R = track_sample(G, o, d, h.t, h.t1, T3, p.key, site + HSITE_MEDIUM);
   float w[3] = {R.w[0], R.w[1], R.w[2]};
   if (isnan(w[0]) | isnan(w[1]) | isnan(w[2])) w[0] = w[1] = w[2] = 0.f;
   const bool scattered = R.scattered != 0;
@@ -289,14 +356,34 @@ __device__ __forceinline__ void het_bounce(const HetScene& S,
       // multiplies its ratio-tracked transmittance from entry to exit
       const HetHit sh = het_intersect(S, mp, wi);
       float tr[3] = {1.0f, 1.0f, 1.0f};
+      const float3 q1 = ray_at(mp, wi, sh.t), q2 = ray_at(mp, wi, sh.t1);
       if (sh.box_win)
-        track_transmittance(G, ray_at(mp, wi, sh.t), ray_at(mp, wi, sh.t1),
-                            p.key, site + S.tr_site, tr);
+        track_transmittance(G, q1, q2, p.key, site + S.tr_site, tr);
       const float f = hg_phase(S.g, dot3x(d, wi));
       // radiance += (T * w) * (((tr * f) * Le) / pdf)
-      p.L.x = XA(p.L.x, XM(XM(p.T.x, w[0]), XM(XM(tr[0], f), Lt.le[0]) / pdf));
-      p.L.y = XA(p.L.y, XM(XM(p.T.y, w[1]), XM(XM(tr[1], f), Lt.le[1]) / pdf));
-      p.L.z = XA(p.L.z, XM(XM(p.T.z, w[2]), XM(XM(tr[2], f), Lt.le[2]) / pdf));
+      const float tw[3] = {XM(p.T.x, w[0]), XM(p.T.y, w[1]), XM(p.T.z, w[2])};
+      float contrib[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        contrib[c] = XM(tw[c], XM(XM(tr[c], f), Lt.le[c]) / pdf);
+      p.L = make_float3(XA(p.L.x, contrib[0]), XA(p.L.y, contrib[1]),
+                        XA(p.L.z, contrib[2]));
+      if constexpr (Rep::on) {
+        float dle[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) dle[c] = tw[c] * (tr[c] * f / pdf);
+        rep.add_dE(lidx, dle);
+        if (sh.box_win) {  // the transmittance's events, on the same walk
+          TransGrad th;
+          th.grad = rep.grad;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) th.pend[c] = rep.rfac[c] * contrib[c];
+          float tr2[3];
+          track_transmittance(G, q1, q2, p.key, site + S.tr_site, tr2, th);
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) rep.suffix[c] = XS(rep.suffix[c], contrib[c]);
+      }
     }
   }
 
@@ -313,6 +400,12 @@ __device__ __forceinline__ void het_bounce(const HetScene& S,
   }
   p.T = make_float3(XM(p.T.x, w[0]), XM(p.T.y, w[1]), XM(p.T.z, w[2]));
   if (!((p.T.x > 0.f) | (p.T.y > 0.f) | (p.T.z > 0.f))) p.act = false;
+}
+
+__device__ __forceinline__ void het_bounce(const HetScene& S,
+                                           const MediaGrid& G, HetPath& p) {
+  NoReplay none;
+  het_bounce(S, G, p, none);
 }
 
 __device__ __forceinline__ void start_path(HetPath& p) {
@@ -400,6 +493,43 @@ het_spp_persistent_kernel(HetScene S, MediaGrid G, MegaCamera C, int s0,
   out_sum[3 * i + 1] = acc.y;
   out_sum[3 * i + 2] = acc.z;
   out_rej[i] = rej;
+}
+
+// Pass B of the analytic volume gradient: one path per ray, replayed from
+// pass A's radiance ``img`` with the residual ``rfac`` (both (n, 3)); writes
+// the recomputed radiance, the lane's column of the (3 n_lights, n)
+// d img / d Le planes and adds into ``grad`` (the grid's shape, zeroed by
+// the caller).
+__global__ void __launch_bounds__(HET_BLOCK, HET_MIN_BLOCKS)
+het_grad_path_kernel(HetScene S, MediaGrid G, const float* __restrict__ o,
+                     const float* __restrict__ d,
+                     const int32_t* __restrict__ keys,
+                     const float* __restrict__ img,
+                     const float* __restrict__ rfac, int n,
+                     float* __restrict__ out, float* __restrict__ dE,
+                     float* __restrict__ grad) {
+  const int i = blockIdx.x * HET_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  Replay rep;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    rep.rfac[c] = rfac[3 * i + c];
+    rep.suffix[c] = img[3 * i + c];
+  }
+  rep.dE = dE + i;
+  rep.n = (size_t)n;
+  rep.n_lights = S.n_lights;
+  rep.grad = grad;
+  for (int k = 0; k < 3 * S.n_lights; ++k) rep.dE[(size_t)k * n] = 0.f;
+  HetPath p;
+  start_path(p);
+  p.key = (uint32_t)keys[i];
+  p.o = load3(o, i);
+  p.d = load3(d, i);
+  while (p.act && p.it < S.n_iterations) het_bounce(S, G, p, rep);
+  out[3 * i + 0] = p.L.x;
+  out[3 * i + 1] = p.L.y;
+  out[3 * i + 2] = p.L.z;
 }
 
 // The scene from the host arrays of integrators/het_megakernel.py:
@@ -496,6 +626,22 @@ int het_spp_persistent(int s0, int n_spp, const int32_t* pixfold,
   xrt::het_spp_persistent_kernel<<<grid, xrt::HET_BLOCK, 0,
                                    (cudaStream_t)stream>>>(
       S, G, C, s0, n_spp, pixfold, px, py, n, out_sum, out_rej);
+  return (int)cudaGetLastError();
+}
+
+int het_grad_path(const float* o, const float* d, const int32_t* keys,
+                  const float* img, const float* rfac, int n, const float* fc,
+                  const int* ic, const float* mfc, const int* mic,
+                  const float* density, const float* packed,
+                  const float* super, float* out, float* dE, float* grad,
+                  void* stream) {
+  if (n <= 0) return 0;
+  const xrt::HetScene S = xrt::het_scene_from(fc, ic);
+  const xrt::MediaGrid G = xrt::grid_from(mfc, mic, density, packed, super);
+  const int grid = (n + xrt::HET_BLOCK - 1) / xrt::HET_BLOCK;
+  xrt::het_grad_path_kernel<<<grid, xrt::HET_BLOCK, 0,
+                              (cudaStream_t)stream>>>(
+      S, G, o, d, keys, img, rfac, n, out, dE, grad);
   return (int)cudaGetLastError();
 }
 

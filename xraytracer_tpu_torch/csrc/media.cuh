@@ -27,6 +27,17 @@
 // Divisions, logf, expf, sqrtf and floorf are the accurate ones (no
 // fast-math). The weights only follow the decisions; they take the same
 // care where it is free and are compared at a tolerance.
+//
+// Both tracking loops are templates over a per-event hook. NoTrackGrad's
+// hook is empty and compiles away (K7, K8 and K9 instantiate it); the
+// gradient hooks of the analytic volume gradient (het_megakernel.cu's
+// het_grad_path) add, at every collision candidate, the event's closed-form
+// d log(factor) / d density times a per-channel coefficient into a dense
+// float32 gradient grid, by atomicAdd of the eight trilinear corners. They
+// replace, in xraytracer_tpu/media_pallas.py: track_sample_grad,
+// track_transmittance_grad, _dps_channels and _scatter_rows (the one-hot
+// matmul scatter into a brick accumulator, unbricked afterwards: here one
+// atomic add per corner into the grid itself).
 #pragma once
 
 #include "path_common.cuh"
@@ -187,6 +198,120 @@ __device__ __forceinline__ float3 ray_at(float3 o, float3 d, float t) {
                      XA(o.z, XM(t, d.z)));
 }
 
+// The hook of a tracking loop that computes no gradient.
+struct NoTrackGrad {
+  static constexpr bool on = false;
+};
+
+// grad[corner] += trilinear weight x coeff for the eight corners of the
+// lookup at p (density()'s corners and weights); nothing outside the grid.
+__device__ __forceinline__ void scatter_corners(const MediaGrid& G,
+                                                float* __restrict__ grad,
+                                                float3 p, float coeff) {
+  const bool inside = (p.x >= G.gmin[0]) & (p.x <= G.gmax[0]) &
+                      (p.y >= G.gmin[1]) & (p.y <= G.gmax[1]) &
+                      (p.z >= G.gmin[2]) & (p.z <= G.gmax[2]);
+  if (!inside || coeff == 0.f) return;
+  int ix, iy, iz;
+  const float fx = grid_axis(G, 0, p.x, ix);
+  const float fy = grid_axis(G, 1, p.y, iy);
+  const float fz = grid_axis(G, 2, p.z, iz);
+  const int jx = min(ix + 1, G.res[0] - 1);
+  const int jy = min(iy + 1, G.res[1] - 1);
+  const int jz = min(iz + 1, G.res[2] - 1);
+  const float wx[2] = {1.0f - fx, fx};
+  const float wy[2] = {1.0f - fy, fy};
+  const float wz[2] = {1.0f - fz, fz};
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    const int x = (d & 4) ? jx : ix, y = (d & 2) ? jy : iy,
+              z = (d & 1) ? jz : iz;
+    const float w = XM(XM(wx[(d >> 2) & 1], wy[(d >> 1) & 1]), wz[d & 1]);
+    atomicAdd(grad + ((size_t)x * G.res[1] + y) * G.res[2] + z, w * coeff);
+  }
+}
+
+// The gradient hook of track_sample (media_pallas.py::track_sample_grad):
+// rs[c] = residual_c x suffix_c, the loss's weight on every contribution
+// this event's factor multiplies. At a scatter or null collision at p with
+// picked channel c*, coeff = sum_c rs[c] * slog_c, the derivative w.r.t.
+// the raw trilinear value (dens = value x D) of
+//   scatter: log(sig_s_c / pdf_sc) + log ratio(p_s_c*)
+//   null:    log(sig_n_c / pdf_nl) + log ratio(1 - p_s_c*)
+// where ratio is media.py::_score_ratio (no score at or below 1e-5) and the
+// derivatives follow the clamp sig_n = max(., 0) (0 where it clamps; the
+// plain version's torch.maximum gives 1/2 at an exact tie, sig_n == 0).
+// Escapes depend on the majorants alone and add nothing.
+struct SampleGrad {
+  static constexpr bool on = true;
+  float* grad;
+  float rs[3];
+
+  __device__ __forceinline__ void event(const MediaGrid& G, float3 p,
+                                        bool scat, int channel,
+                                        const float base[3],
+                                        const float sig_s[3],
+                                        const float sig_n[3],
+                                        const float q[3], float p_s_c,
+                                        float pdf_safe) const {
+    const float D = G.dm;
+    float dps[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dps[k] = sig_n[k] > 0.f
+                   ? (G.sigma_s[k] * D * q[k] + G.sigma_a[k] * D * sig_s[k]) /
+                         (q[k] * q[k])
+                   : 0.f;
+    const float dpdf_sc = base[0] * dps[0] + base[1] * dps[1] + base[2] * dps[2];
+    const float dps_c = channel == 0 ? dps[0] : (channel == 1 ? dps[1] : dps[2]);
+    float coeff = 0.f;
+    if (scat) {
+      const float score = p_s_c > 1e-5f ? dps_c / p_s_c : 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float dlog = (sig_s[k] > 0.f ? G.sigma_s[k] * D / sig_s[k] : 0.f) -
+                           dpdf_sc / pdf_safe + score;
+        coeff += rs[k] * dlog;
+      }
+    } else {
+      const float one_m = 1.0f - p_s_c;
+      const float score = one_m > 1e-5f ? -dps_c / one_m : 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float dlog =
+            (sig_n[k] > 0.f ? -(G.sigma_t[k] * D) / sig_n[k] : 0.f) +
+            dpdf_sc / pdf_safe + score;
+        coeff += rs[k] * dlog;
+      }
+    }
+    scatter_corners(G, grad, p, coeff);
+  }
+};
+
+// The gradient hook of track_transmittance
+// (media_pallas.py::track_transmittance_grad): pend[c] = residual_c x the
+// whole contribution this transmittance multiplies (tr included). Per
+// candidate that does not escape, coeff = sum_c pend[c] * d log
+// max(m - sigma_t_c dens, 0) / d value = -sigma_t_c D / sig_n_c where
+// sig_n_c > 0, else 0 (the factor, and so the contribution, is 0 there).
+// Ratio tracking samples from the majorant alone: no score terms.
+struct TransGrad {
+  static constexpr bool on = true;
+  float* grad;
+  float pend[3];
+
+  __device__ __forceinline__ void event(const MediaGrid& G, float3 p,
+                                        float m_loc, float dens) const {
+    float coeff = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float sig_n = m_loc - XM(G.sigma_t[k], dens);
+      coeff += pend[k] * (sig_n > 0.f ? -(G.sigma_t[k] * G.dm) / sig_n : 0.f);
+    }
+    scatter_corners(G, grad, p, coeff);
+  }
+};
+
 struct TrackResult {
   float t;        // scatter point, or t1 + RAY_EPS after an escape
   float w[3];     // throughput multiplier, 0 for an exhausted lane
@@ -196,13 +321,16 @@ struct TrackResult {
 
 // media.py::_track_sample for one lane: weighted delta tracking with
 // spectral MIS over collision candidates in optical-depth space. Draws:
-// site + step * 4 + {0 wavelength, 1 distance, 2 event}.
+// site + step * 4 + {0 wavelength, 1 distance, 2 event}. ``hook.event``
+// sees every scatter and null collision (SampleGrad).
+template <class Hook>
 __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
                                                     float3 o, float3 d,
                                                     float t0, float t1,
                                                     const float tp[3],
                                                     uint32_t key,
-                                                    uint32_t site) {
+                                                    uint32_t site,
+                                                    const Hook& hook) {
   const float t0f = isfinite(t0) ? t0 : 0.f;
   const float t1f = isfinite(t1) ? fmaxf(t1, t0f) : t0f;
   Segments S;
@@ -256,16 +384,17 @@ __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
     float m_loc;
     const float t_new = tau_to_t(S, tau_new, m_loc);
     const float m_safe = m_loc <= 0.f ? 1.0f : m_loc;
-    const float dens = density(G, ray_at(o, d, t_new)) * G.dm;
-    float sig_s[3], sig_n[3], p_s[3], p_n[3];
+    const float3 pt = ray_at(o, d, t_new);
+    const float dens = density(G, pt) * G.dm;
+    float sig_s[3], sig_n[3], p_s[3], p_n[3], q[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       sig_s[c] = XM(G.sigma_s[c], dens);
       sig_a[c] = XM(G.sigma_a[c], dens);
       sig_n[c] = fmaxf((m_loc - sig_a[c]) - sig_s[c], 0.f);
-      const float denom = safe1(XA(sig_s[c], sig_n[c]));
-      p_s[c] = sig_s[c] / denom;
-      p_n[c] = sig_n[c] / denom;
+      q[c] = safe1(XA(sig_s[c], sig_n[c]));
+      p_s[c] = sig_s[c] / q[c];
+      p_n[c] = sig_n[c] / q[c];
     }
     const float p_s_c = channel == 0 ? p_s[0] : (channel == 1 ? p_s[1] : p_s[2]);
     const float tr_s = expf(-dtau);
@@ -281,6 +410,8 @@ __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
     } else if (scat) {
       const float pdf_sc = safe1(XA(XA(XM(base[0], p_s[0]), XM(base[1], p_s[1])),
                                     XM(base[2], p_s[2])));
+      if constexpr (Hook::on)
+        hook.event(G, pt, true, channel, base, sig_s, sig_n, q, p_s_c, pdf_sc);
       R.t = t_new;
       R.scattered = 1;
       R.scat_step = step;
@@ -291,6 +422,8 @@ __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
     } else {
       const float pdf_nl = safe1(XA(XA(XM(base[0], p_n[0]), XM(base[1], p_n[1])),
                                     XM(base[2], p_n[2])));
+      if constexpr (Hook::on)
+        hook.event(G, pt, false, channel, base, sig_s, sig_n, q, p_s_c, pdf_nl);
 #pragma unroll
       for (int c = 0; c < 3; ++c)
         R.w[c] = XM(XM(R.w[c], tr_s), sig_n[c]) / pdf_nl;
@@ -303,13 +436,25 @@ __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
   return R;
 }
 
+__device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
+                                                    float3 o, float3 d,
+                                                    float t0, float t1,
+                                                    const float tp[3],
+                                                    uint32_t key,
+                                                    uint32_t site) {
+  return track_sample(G, o, d, t0, t1, tp, key, site, NoTrackGrad{});
+}
+
 // media.py::_track_transmittance for one lane: ratio tracking from p1 to
-// p2. Draws: site + step.
+// p2. Draws: site + step. ``hook.event`` sees every candidate that does
+// not escape (TransGrad).
+template <class Hook>
 __device__ __forceinline__ void track_transmittance(const MediaGrid& G,
                                                     float3 p1, float3 p2,
                                                     uint32_t key,
                                                     uint32_t site,
-                                                    float tr[3]) {
+                                                    float tr[3],
+                                                    const Hook& hook) {
   const float3 dv = sub3(p2, p1);
   const float dist =
       sqrtf(XA(XA(XM(dv.x, dv.x), XM(dv.y, dv.y)), XM(dv.z, dv.z)));
@@ -331,7 +476,9 @@ __device__ __forceinline__ void track_transmittance(const MediaGrid& G,
     }
     float m_loc;
     const float t_new = tau_to_t(S, tau_new, m_loc);
-    const float dens = density(G, ray_at(p1, d, t_new)) * G.dm;
+    const float3 pt = ray_at(p1, d, t_new);
+    const float dens = density(G, pt) * G.dm;
+    if constexpr (Hook::on) hook.event(G, pt, m_loc, dens);
     const float m_safe = m_loc <= 0.f ? 1.0f : m_loc;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -342,6 +489,14 @@ __device__ __forceinline__ void track_transmittance(const MediaGrid& G,
   }
   // exhausted lanes: 0 (never biased bright)
   if (active) tr[0] = tr[1] = tr[2] = 0.f;
+}
+
+__device__ __forceinline__ void track_transmittance(const MediaGrid& G,
+                                                    float3 p1, float3 p2,
+                                                    uint32_t key,
+                                                    uint32_t site,
+                                                    float tr[3]) {
+  track_transmittance(G, p1, p2, key, site, tr, NoTrackGrad{});
 }
 
 // The medium and its grid from the host arrays of media_kernels.py (host

@@ -17,15 +17,19 @@ Two routes to ``(loss, grads)``:
   (``detached_ok``); ``geometry_grads=True`` and CPU tables take the matmul
   sweep ``intersect_triangles_mm``, which differentiates w.r.t. vertices.
 * ``try_make_fast_value_and_grad``: the analytic forward-pass gradient, one
-  launch of ``megakernel.mega_grad_path`` (K5) per sample.
+  launch of ``megakernel.mega_grad_path`` (K5) per sample; for a cloud box
+  lit by emissive spheres, two launches per sample
+  (``het_megakernel.try_make_fused_het_value_and_grad``: pass A ``het_path``,
+  pass B ``het_grad_path``).
 
-Volume gradients (``differentiable=`` / ``score_terms=`` and the
-heterogeneous analytic kernel) are the next slice of the port.
+For scenes with media, ``make_radiance_fn`` differentiates the volume
+integrator (``make_volume_integrator(differentiable=True)``) w.r.t.
+``med_sigma_a`` / ``med_sigma_s`` / ``al_le`` / ``grid_density``.
 """
 
 import torch
 
-from .integrators import make_path_integrator
+from .integrators import make_path_integrator, make_volume_integrator
 from .renderer import CAMERA_SITE
 from .sampling import path_keys, uniform2
 
@@ -46,14 +50,17 @@ def _diff_tri_fn(geometry_grads=False, device=None):
 def make_radiance_fn(
     tables, statics, camera, width, height, max_depth=3, nee=True,
     cosine_sampling=True, seed=0, geometry_grads=False, tri_fn=None,
-    nee_mode="all",
+    nee_mode="all", max_steps=None, score_terms=False, grad_sampling=False,
 ):
     """Returns ``radiance(params, pixel_ids, pixel_xy, sample_idx) -> (N,3)``
     where ``params`` is a dict of SceneTables overrides (e.g.
     ``{"mat_albedo": ..., "al_le": ...}``), the differentiable inputs.
 
     A ``tri_fn`` is always passed to the integrator, so it never takes the
-    whole-path kernel K1, which has no gradient."""
+    whole-path kernel K1, which has no gradient. A scene with media renders
+    through ``make_volume_integrator(differentiable=True)`` with ``nee``,
+    ``max_steps``, ``score_terms`` and ``grad_sampling`` (the surface options
+    do not apply there)."""
     dev = tables.tri_v0.device
     wh = torch.tensor([float(width), float(height)], device=dev)
     if tri_fn is None:
@@ -73,11 +80,18 @@ def make_radiance_fn(
         # re-derive the denormalized per-triangle appearance columns from
         # the overridden relational params so gradients reach them
         scene = rejoin_appearance(tables._replace(**params))
-        integrate = make_path_integrator(
-            scene, statics, max_depth, nee=nee,
-            cosine_sampling=cosine_sampling, tri_fn=tri_fn,
-            nee_mode=nee_mode, pick_weights=pick_w,
-        )
+        if statics["has_media"]:
+            integrate = make_volume_integrator(
+                scene, statics, max_depth, nee=nee, max_steps=max_steps,
+                tri_fn=tri_fn, differentiable=True, score_terms=score_terms,
+                grad_sampling=grad_sampling,
+            )
+        else:
+            integrate = make_path_integrator(
+                scene, statics, max_depth, nee=nee,
+                cosine_sampling=cosine_sampling, tri_fn=tri_fn,
+                nee_mode=nee_mode, pick_weights=pick_w,
+            )
         keys = path_keys(seed, pixel_ids, sample_idx)
         u = uniform2(keys, CAMERA_SITE)
         rays = camera.sample_rays((pixel_xy + u) / wh)
@@ -141,23 +155,27 @@ def try_make_fast_value_and_grad(
     without a rebake. ``le_grads=True`` also returns ``grads["al_le"]`` when
     al_le is not among ``params``. Returns None when the scene is not
     eligible, and for tables on the CPU unless ``force`` (which runs the
-    plain version). Scenes with media raise ``NotImplementedError``: their
-    analytic gradient is the volume-gradient slice of the port."""
+    plain version). A scene K5 refuses falls through to the heterogeneous
+    analytic route (``het_megakernel.try_make_fused_het_value_and_grad``,
+    grads for "grid_density" and "al_le", and ``step.step_pair``), which
+    returns None for scenes it does not serve either (``vpt``, a
+    homogeneous box)."""
     from .integrators.megakernel import try_make_fused_grad_path
     from .scene.tables import rejoin_appearance
 
-    if statics.get("has_media"):
-        raise NotImplementedError(
-            "analytic gradients of scenes with media (the heterogeneous "
-            "density-gradient kernel) belong to the volume-gradient slice "
-            "of the port"
-        )
     fg = try_make_fused_grad_path(
         tables, statics, max_depth, nee=nee,
         cosine_sampling=cosine_sampling, force=force, nee_mode=nee_mode,
     )
     if fg is None:
-        return None
+        from .integrators.het_megakernel import (
+            try_make_fused_het_value_and_grad,
+        )
+
+        return try_make_fused_het_value_and_grad(
+            tables, statics, camera, width, height, max_depth, nee=nee,
+            seed=seed, force=force,
+        )
     dev = tables.tri_v0.device
     wh = torch.tensor([float(width), float(height)], device=dev)
 

@@ -49,6 +49,22 @@ The plain versions are the port's own wavefront volume integrator
 loops of ``media.py``) over the plain matmul-form sweep, with a host loop
 over samples and the camera ray of the kernels' formulas, so they reach no
 kernel on either device.
+
+The analytic volume gradient (the backward half of the JAX module):
+
+* ``het_grad_path`` replaces the kernel of
+  ``try_make_fused_het_value_and_grad`` (over ``_make_het_grad_iteration``
+  and ``media_pallas.py::track_sample_grad`` / ``track_transmittance_grad``):
+  pass B of a two-pass gradient. Pass A is ``het_path`` under
+  ``grad_sampling`` (roulette off, uniform channel pick); pass B replays
+  the same draws and adds, per tracking event, residual x the lane's
+  contribution suffix x the closed-form ∂log factor / ∂density into a dense
+  float32 gradient grid by ``atomicAdd`` of the eight trilinear corners,
+  and writes the per-lane ∂img/∂Le planes. Its plain version is
+  ``torch.autograd`` through the wavefront route with ``differentiable``,
+  ``score_terms`` and ``grad_sampling`` on the same rays and keys.
+* ``try_make_fused_het_value_and_grad`` builds ``step`` and
+  ``step.step_pair`` (the two-sample product loss) over the two passes.
 """
 
 import ctypes
@@ -59,13 +75,14 @@ import torch
 
 from .. import media_kernels
 from ..camera import PinholeCamera
+from ..geometry import Rays
 from ..geometry import kernels as sweeps
 from ..media import default_max_steps
 from ..scene.tables import AL_SPHERE, MED_HETEROGENEOUS
 from . import megakernel as mk
 from .vol_megakernel import _plain_paths, _spp_plain
 
-KERNEL_NAMES = ("het_path", "het_spp", "het_spp_persistent")
+KERNEL_NAMES = ("het_path", "het_spp", "het_spp_persistent", "het_grad_path")
 
 # launches of each kernel, and calls of each plain version, since the last
 # ``reset_counts()``: plain ints, bumped exactly where a wrapper launches
@@ -91,6 +108,9 @@ _ARGTYPES = {
     # stream
     "het_spp": _SPP_ARGTYPES,
     "het_spp_persistent": _SPP_ARGTYPES,
+    # o, d, keys, img, rfac, n, scene (fc, ic), grid, out img, out dE, grad
+    # grid, stream
+    "het_grad_path": [_P] * 5 + [_I, _FC, _IC] + _GRID + [_P] * 4,
 }
 
 
@@ -205,15 +225,8 @@ class HetConsts:
         if self._plain is None:
             self._plain = {}
         if with_stats not in self._plain:
-            from ..geometry.intersect import intersect_triangles_mm
-            from .volume import make_volume_integrator
-
-            self._plain[with_stats] = make_volume_integrator(
-                self.scene, self.statics, self.max_depth, nee=self.nee,
-                max_steps=self.max_steps, tri_fn=intersect_triangles_mm,
-                n_iterations=self.n_iterations, fused="never",
-                with_stats=with_stats, grad_sampling=self.grad_sampling,
-            )
+            self._plain[with_stats] = _wavefront_integrator(
+                self, self.scene, with_stats=with_stats)
         return self._plain[with_stats]
 
 
@@ -261,31 +274,63 @@ def _het_consts(scene, statics, max_depth, nee, max_steps, n_iterations,
 # --------------------------------------------------------------------------
 # K9a: rays and keys in, radiance out
 # --------------------------------------------------------------------------
-def het_path_plain(hc, o, d, keys, stats=None):
+def _live_scene(hc, density):
+    """The scene with a live density grid: ``grid_density`` replaced and the
+    corner table by a one-row sentinel, so that every lookup reads the live
+    grid (``media.density_lookup``)."""
+    s = hc.scene
+    return s._replace(grid_density=density,
+                      grid_packed=torch.zeros((1, 8), dtype=torch.float32,
+                                              device=density.device))
+
+
+def _wavefront_integrator(hc, scene, **kw):
+    """The wavefront volume integrator of ``hc``'s options on ``scene``, host
+    tracking loops over the matmul-form sweep."""
+    from ..geometry.intersect import intersect_triangles_mm
+    from .volume import make_volume_integrator
+
+    return make_volume_integrator(
+        scene, hc.statics, hc.max_depth, nee=hc.nee, max_steps=hc.max_steps,
+        tri_fn=intersect_triangles_mm, n_iterations=hc.n_iterations,
+        fused="never", grad_sampling=hc.grad_sampling, **kw,
+    )
+
+
+def het_path_plain(hc, o, d, keys, stats=None, density=None):
     """Plain PyTorch version of ``het_path``: the wavefront volume
     integrator of the same options. Returns (N, 3). A dict passed as
     ``stats`` receives the per-iteration counters of these paths."""
     PLAIN_CALLS["het_path"] += 1
-    return _plain_paths(hc, o, d, keys.to(torch.int64) & _MASK, stats)
+    keys = keys.to(torch.int64) & _MASK
+    if density is None:
+        return _plain_paths(hc, o, d, keys, stats)
+    if stats is not None:
+        raise ValueError("het_path_plain: no counters with a live grid")
+    return _wavefront_integrator(hc, _live_scene(hc, density))(Rays(o=o, d=d), keys)
 
 
-def het_path(hc, o, d, keys):
+def het_path(hc, o, d, keys, density=None):
     """Radiance of one whole heterogeneous volume path per ray. ``o, d``
     (N, 3) f32; ``keys`` (N,) path keys (uint32 values held in int64, or
-    their bits as int32). Returns (N, 3) f32."""
+    their bits as int32). ``density``: a live (nx, ny, nz) f32 grid read in
+    place of the scene's (the gradient route's pass A). Returns (N, 3)
+    f32."""
     if not o.is_cuda:
-        return het_path_plain(hc, o, d, keys)
+        return het_path_plain(hc, o, d, keys, density=density)
     dev = o.device
     n = o.shape[0]
     sweeps._check("o", o, torch.float32, (n, 3), dev)
     sweeps._check("d", d, torch.float32, (n, 3), dev)
     keys = media_kernels._key_bits(keys, n, dev)
     media_kernels._check_grid(hc.hm, dev)
+    if density is not None:
+        media_kernels._check_live_grid(hc.hm, density, dev)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("het_path", (
             o.data_ptr(), d.data_ptr(), keys.data_ptr(), n, hc.fc, hc.ic,
-            *hc.hm.grid_args(), out.data_ptr(), sweeps._stream(),
+            *hc.hm.grid_args(density), out.data_ptr(), sweeps._stream(),
         ))
     LAUNCHES["het_path"] += 1
     return out
@@ -403,3 +448,212 @@ def try_make_fused_het_spp_render(
         lambda view, s0, n_spp: kernel(hc, view, s0, n_spp),
         camera, width, height, seed, pixel_order=pixel_order,
     )
+
+
+# --------------------------------------------------------------------------
+# K10: the analytic volume gradient, pass B
+# --------------------------------------------------------------------------
+def _n_lights(hc):
+    return int(hc.ic[1])
+
+
+def het_grad_path_plain(hc, o, d, keys, img, rfac, density, le_planes=True):
+    """Plain PyTorch version of ``het_grad_path``: ``torch.autograd``
+    through the wavefront route with ``differentiable``, ``score_terms`` and
+    ``grad_sampling`` on the same rays and keys. The gradient grid is the
+    backward pass of sum(rfac * img) w.r.t. the grid; the Le planes are
+    forward-mode derivatives along each light's emission (radiance is
+    linear in Le and channel by channel, so one direction per light gives
+    its three planes). ``img`` (pass A's image) is not read: autograd keeps
+    its own. Returns (img (N, 3), gle (N, 3, L), grad grid) as the kernel
+    does; gle is None unless ``le_planes`` (which costs one forward-mode
+    pass per light)."""
+    PLAIN_CALLS["het_grad_path"] += 1
+    keys = keys.to(torch.int64) & _MASK
+    rays = Rays(o=o, d=d)
+    base = hc.scene.al_le
+
+    def render(grid, le):
+        scene = _live_scene(hc, grid)._replace(al_le=le)
+        integrate = _wavefront_integrator(hc, scene, differentiable=True,
+                                          score_terms=True)
+        return integrate(rays, keys)
+
+    with torch.enable_grad():
+        leaf = density.detach().clone().requires_grad_(True)
+        img_b = render(leaf, base)
+        grad = None
+        if img_b.requires_grad:   # else no lane reached the grid
+            (grad,) = torch.autograd.grad((rfac.detach() * img_b).sum(), leaf,
+                                          allow_unused=True)
+    if grad is None:
+        grad = torch.zeros_like(leaf)
+    if not le_planes:
+        return img_b.detach(), None, grad
+    n, n_l = o.shape[0], _n_lights(hc)
+    gle = torch.zeros((n, 3, n_l), dtype=torch.float32, device=o.device)
+    grid = density.detach()
+    for li in range(n_l):
+        t = torch.zeros_like(base)
+        t[li] = 1.0
+        _, tan = torch.func.jvp(lambda le: render(grid, le), (base,), (t,))
+        gle[:, :, li] = tan
+    return img_b.detach(), gle, grad
+
+
+def het_grad_path(hc, o, d, keys, img, rfac, density, le_planes=True):
+    """Pass B of the analytic gradient of a loss of the radiance of one
+    whole path per ray: replays ``het_path``'s draws under
+    ``grad_sampling`` (``hc`` must be built with it) on the live grid
+    ``density`` and accumulates sum over lanes and channels of
+    ``rfac * ∂img/∂density`` into a gradient grid of the grid's shape.
+    ``img`` (N, 3) is pass A's radiance of the same rays, keys and grid (the
+    suffix the replay starts from); ``rfac`` (N, 3) the loss's derivative
+    w.r.t. it. Returns (img (N, 3), the radiance pass B recomputed;
+    gle (N, 3, L), gle[:, c, l] = ∂img_c/∂al_le[l, c] at the build-time
+    emission, or None unless ``le_planes``; the gradient grid (nx, ny,
+    nz)). The grid is summed with atomic adds, so its last bits vary from
+    run to run."""
+    if not hc.grad_sampling:
+        raise ValueError("het_grad_path: the constants must be built with grad_sampling")
+    if not o.is_cuda:
+        return het_grad_path_plain(hc, o, d, keys, img, rfac, density, le_planes)
+    dev = o.device
+    n = o.shape[0]
+    f32 = torch.float32
+    sweeps._check("o", o, f32, (n, 3), dev)
+    sweeps._check("d", d, f32, (n, 3), dev)
+    sweeps._check("img", img, f32, (n, 3), dev)
+    sweeps._check("rfac", rfac, f32, (n, 3), dev)
+    keys = media_kernels._key_bits(keys, n, dev)
+    media_kernels._check_grid(hc.hm, dev)
+    media_kernels._check_live_grid(hc.hm, density, dev)
+    n_l = _n_lights(hc)
+    out_img = torch.empty((n, 3), dtype=f32, device=dev)
+    planes = torch.empty((3 * n_l, n), dtype=f32, device=dev)
+    grad = torch.zeros(density.shape, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("het_grad_path", (
+            o.data_ptr(), d.data_ptr(), keys.data_ptr(), img.data_ptr(),
+            rfac.data_ptr(), n, hc.fc, hc.ic, *hc.hm.grid_args(density),
+            out_img.data_ptr(), planes.data_ptr(), grad.data_ptr(),
+            sweeps._stream(),
+        ))
+    LAUNCHES["het_grad_path"] += 1
+    gle = planes.view(3, n_l, n).permute(2, 0, 1) if le_planes else None
+    return out_img, gle, grad
+
+
+def try_make_fused_het_value_and_grad(
+    tables, statics, camera, width, height, max_depth, nee=True,
+    max_steps=None, n_iterations=None, seed=0, force=False,
+):
+    """ANALYTIC value and gradient of the L2 image loss for the
+    heterogeneous whole path (the volume counterpart of
+    ``diff.try_make_fast_value_and_grad``), two launches per step: pass A
+    renders the image with the grad-sampling estimator (``het_path``,
+    roulette off, uniform channel pick), pass B (``het_grad_path``) replays
+    the same draws and accumulates the density gradient and the per-lane
+    ∂img/∂Le. The gradients are those of ``torch.autograd`` through
+    ``make_volume_integrator(differentiable=True, score_terms=True,
+    grad_sampling=True)`` on the same draws, up to float32 summation order.
+
+    Returns ``step(params, pixel_ids, pixel_xy, target, sample_idx) ->
+    (loss, grads)`` for ``params`` keys "grid_density" and "al_le", and
+    ``step.step_pair(params, pixel_ids, pixel_xy, target, sample_a,
+    sample_b)``: the two-sample product loss mean((a - t) (b - t)) over two
+    independent renders (streams ``seed`` and ``seed + 7919``), an unbiased
+    surrogate for (E img - t)^2 that lacks the Var(img) term a plain L2 on
+    one noisy render drives down by emptying the grid; its gradients sum
+    two replays with crossed residuals; ``step.render(grid, pixel_ids,
+    pixel_xy, sample_idx)`` is pass A alone. A dict passed as ``aux``
+    receives the rendered images ("img", and "img_b" of the second stream).
+    ``grid_density`` is LIVE: each call
+    reads the tensor it is given. Le is the build-time value: "al_le"
+    gradients are taken there, and a new Le needs a new step. The active
+    set and the majorants stay as built (keep the densities below the grid
+    the scene was built with). Returns None when ``_het_consts(...,
+    grad_sampling=True)`` refuses the scene or the camera is not a pinhole,
+    and for tables on the CPU unless ``force`` (which runs the plain
+    versions)."""
+    from ..renderer import CAMERA_SITE
+    from ..sampling import path_keys, uniform2
+
+    if not force and not tables.tri_v0.is_cuda:
+        return None
+    if not isinstance(camera, PinholeCamera):
+        return None
+    hc = _het_consts(tables, statics, max_depth, nee, max_steps, n_iterations,
+                     grad_sampling=True)
+    if hc is None:
+        return None
+    n_l = _n_lights(hc)
+    dev = tables.tri_v0.device
+    wh = torch.tensor([float(width), float(height)], device=dev)
+
+    def render(grid, seed_, pixel_ids, pixel_xy, sample):
+        keys = path_keys(seed_, pixel_ids, sample)
+        u = uniform2(keys, CAMERA_SITE)
+        rays = camera.sample_rays((pixel_xy + u) / wh)
+        o, d = rays.o.contiguous(), rays.d.contiguous()
+        return o, d, keys, het_path(hc, o, d, keys, density=grid)
+
+    def grads(params, grid, replays):
+        """The gradients of ``params`` summed over the replays, each
+        (o, d, keys, img, rfac)."""
+        g_grid = g_le = 0.0
+        le = "al_le" in params
+        for o, d, keys, img, rfac in replays:
+            _, gle, gg = het_grad_path(hc, o, d, keys, img, rfac, grid, le_planes=le)
+            g_grid = g_grid + gg
+            if le:
+                g_le = g_le + torch.einsum("nc,ncl->lc", rfac, gle)
+        out = {}
+        if "grid_density" in params:
+            out["grid_density"] = g_grid
+        if "al_le" in params:
+            out["al_le"] = torch.zeros_like(params["al_le"])
+            out["al_le"][:n_l] = g_le
+        return out
+
+    def live_grid(params):
+        return params.get("grid_density", tables.grid_density).detach().contiguous()
+
+    @torch.no_grad()
+    def step(params, pixel_ids, pixel_xy, target, sample_idx, aux=None):
+        grid = live_grid(params)
+        o, d, keys, img = render(grid, seed, pixel_ids, pixel_xy, sample_idx)
+        n = img.shape[0]
+        loss = torch.mean((img - target) ** 2)
+        rfac = 2.0 * (img - target) / (n * 3)
+        if aux is not None:
+            aux["img"] = img
+        return loss, grads(params, grid, [(o, d, keys, img, rfac)])
+
+    @torch.no_grad()
+    def step_pair(params, pixel_ids, pixel_xy, target, sample_a, sample_b,
+                  aux=None):
+        grid = live_grid(params)
+        a = render(grid, seed, pixel_ids, pixel_xy, sample_a)
+        b = render(grid, seed + 7919, pixel_ids, pixel_xy, sample_b)
+        img_a, img_b = a[3], b[3]
+        n = img_a.shape[0]
+        loss = torch.mean((img_a - target) * (img_b - target))
+        rfac_a = (img_b - target) / (n * 3)
+        rfac_b = (img_a - target) / (n * 3)
+        if aux is not None:
+            aux["img"], aux["img_b"] = img_a, img_b
+        return loss, grads(params, grid, [(*a, rfac_a), (*b, rfac_b)])
+
+    @torch.no_grad()
+    def render_image(grid, pixel_ids, pixel_xy, sample_idx):
+        """Pass A alone: the grad-sampling image of ``grid`` (stream
+        ``seed``), as ``step`` renders it."""
+        return render(grid.detach().contiguous(), seed, pixel_ids, pixel_xy,
+                      sample_idx)[3]
+
+    step.n_lights = n_l
+    step.het_consts = hc
+    step.step_pair = step_pair
+    step.render = render_image
+    return step

@@ -28,8 +28,10 @@ a few flat triangles goes to the whole-path kernel of ``vol_megakernel.py``
 ``het_megakernel.py`` (``kind="het_volume"``). Any other scene with a
 heterogeneous medium, and any scene under ``tri_fn`` or ``with_stats``,
 keeps the wavefront loop below with the tracking kernels of
-``media_kernels.py`` in place of the host-side tracking loops.
-``differentiable`` / ``score_terms`` are not ported yet (ROADMAP.md).
+``media_kernels.py`` in place of the host-side tracking loops. Under
+``differentiable`` every scene keeps the wavefront loop with the host-side
+tracking loops (no kernel has a reverse mode), and under ``grad_sampling``
+the homogeneous box does too (its kernel has no such estimator).
 """
 
 import warnings
@@ -41,7 +43,7 @@ from ..geometry.intersect import tables_present
 from ..lights import area_light_le, pick_uniform_light, sample_area_light
 from ..media import (
     SITES_PER_STEP,
-    _no_gradients,
+    _score_ratio,
     default_max_steps,
     eval_phase,
     sample_medium,
@@ -83,11 +85,29 @@ def make_volume_integrator(
 ):
     """Factory for both volume integrators (``nee`` selects the variant).
 
+    ``differentiable``: the whole integrator is differentiable by
+    ``torch.autograd`` w.r.t. ``med_sigma_a`` / ``med_sigma_s`` / ``al_le`` /
+    ``grid_density`` (the tracking loops read the dense grid; the discrete
+    decisions are detached through their boolean masks). It keeps the
+    wavefront loop and, without a ``tri_fn``, takes the matmul-form triangle
+    sweep, which has a gradient.
+
+    ``score_terms`` (with ``differentiable``): multiply the path weights by
+    ``p / p.detach()`` for every sampled parameter-dependent decision (the
+    tracking's channel pick and scatter-or-null split, the roulette;
+    ``media._score_ratio``): the same values, and the gradient of the full
+    score-corrected estimator d/dθ E[F] = E[dF + F ∂log p], which detached
+    sampling drops. The majorant tables (``grid_super``, ``med_majorant``)
+    stay fixed: keep optimised densities below the majorants baked at build
+    time, or the null-collision clamp biases.
+
     ``grad_sampling``: the gradient-friendly estimator variant: Russian
     roulette OFF and a uniform channel pick (the reference's own noMIS
     strategy, Src/medium.h:234-277). Both changes keep the estimator
     unbiased; they remove the two decisions whose probabilities depend on
-    the whole throughput history.
+    the whole throughput history. The analytic volume gradient
+    (``het_megakernel.try_make_fused_het_value_and_grad``) differentiates
+    this estimator.
 
     ``with_stats`` (SURVEY.md §5 metrics): ``integrate`` returns
     ``(radiance, stats)`` with per-iteration int32 counters ("rays",
@@ -99,17 +119,16 @@ def make_volume_integrator(
     CPU. ``tri_fn`` and ``with_stats`` keep the wavefront loop but, like the
     JAX package, still take the tracking kernels. The heterogeneous
     whole-path kernel takes ``grad_sampling`` as a launch flag (the JAX
-    package does not pass it to its fused route).
-
-    ``differentiable`` and ``score_terms`` raise ``NotImplementedError``
-    until the volume-gradient slice.
+    package does not pass it to its fused route); the homogeneous one has
+    no such estimator, so ``grad_sampling`` keeps such a scene on the
+    wavefront loop.
     """
-    _no_gradients(differentiable, score_terms)
     # single-kernel route (vol_megakernel.py): on the card, for eligible
     # scenes (one homogeneous box + a few flat triangles + flat area lights
     # — the reference vpt workload), the whole volume path runs in ONE
     # launch; everything else keeps the wavefront loop
-    if fused == "auto" and tri_fn is None and not with_stats:
+    if (fused == "auto" and tri_fn is None and not with_stats
+            and not differentiable and not grad_sampling):
         from .vol_megakernel import try_make_fused_volume_integrator
 
         spec = dict(
@@ -127,7 +146,7 @@ def make_volume_integrator(
     # cloud box with emissive sphere lights (the reference's volume.cpp /
     # nee.cpp workloads) runs its whole path in ONE launch
     if (fused == "auto" and tri_fn is None and not with_stats
-            and statics["has_heterogeneous"]):
+            and not differentiable and statics["has_heterogeneous"]):
         from .het_megakernel import try_make_fused_het_path_integrator
 
         spec = dict(
@@ -143,7 +162,7 @@ def make_volume_integrator(
     # sample and the NEE ratio-tracking transmittance each run as ONE launch
     # per wavefront instead of a host loop over candidate steps
     het_fn = het_tr_fn = None
-    if fused == "auto" and statics["has_heterogeneous"]:
+    if fused == "auto" and not differentiable and statics["has_heterogeneous"]:
         from ..media_kernels import (
             try_make_fused_het_sampler,
             try_make_fused_het_transmittance,
@@ -161,6 +180,11 @@ def make_volume_integrator(
                 "run as host-side loops of tensor operations on the card",
                 stacklevel=2,
             )
+    if differentiable and tri_fn is None:
+        # the sweep kernels have no reverse mode: the matmul-form sweep
+        from ..geometry.intersect import intersect_triangles_mm
+
+        tri_fn = intersect_triangles_mm
     if n_iterations is None:
         n_iterations = 2 * max_depth + 2
     site_pick, site_light, site_tr = _nee_site_layout(max_steps)
@@ -194,18 +218,21 @@ def make_volume_integrator(
             # Russian roulette for depth > 0 (Src/integrator.h:431-438)
             # the mean throughput; order: ((r + g) + b) * f32(1 / 3), as the
             # kernels and the card's torch.mean compute it (the CPU's
-            # torch.mean divides by 3)
-            rr_prob = torch.clamp(
-                ((throughput[:, 0] + throughput[:, 1]) + throughput[:, 2]) * _THIRD,
-                max=1.0,
-            )
+            # torch.mean divides by 3); torch.minimum / torch.maximum, whose
+            # derivative at a tie is 1/2 as JAX's (torch.clamp's is 1)
+            mean_t = ((throughput[:, 0] + throughput[:, 1]) + throughput[:, 2]) * _THIRD
+            rr_prob = torch.minimum(mean_t, torch.ones_like(mean_t))
             u_rr = uniform1(keys, site + _SITE_RR)
             do_rr = active & (depth > 0)
             if grad_sampling:
                 do_rr = torch.zeros_like(do_rr)   # RR off (see docstring)
             killed = do_rr & (u_rr >= rr_prob)
             active = active & ~killed
-            boost = 1.0 / torch.clamp(rr_prob, min=1e-12)
+            boost = 1.0 / torch.maximum(rr_prob, torch.full_like(rr_prob, 1e-12))
+            if score_terms:
+                # the survival probability depends on the parameters through
+                # the throughput: its score (lanes clamped at 1 carry none)
+                boost = boost * _score_ratio(rr_prob)
             throughput = torch.where(
                 (do_rr & active)[:, None],
                 throughput * boost[:, None],
@@ -230,7 +257,8 @@ def make_volume_integrator(
                 scene, torch.where(has_med, med_idx, neg1), cur, hit.t, hit.t1,
                 throughput, keys, site + _SITE_MEDIUM, max_steps=max_steps,
                 has_heterogeneous=statics["has_heterogeneous"],
-                het_fn=het_fn, chan_uniform=grad_sampling,
+                differentiable=differentiable, het_fn=het_fn,
+                score_terms=score_terms, chan_uniform=grad_sampling,
             )
             scattered = has_med & ms.scattered
 
@@ -255,7 +283,7 @@ def make_volume_integrator(
                     torch.where(ok & (s_med >= 0), s_med, neg1),
                     srays.at(shit.t), srays.at(t1_fin),
                     keys, site + site_tr, max_steps=max_steps,
-                    het_tr_fn=het_tr_fn,
+                    differentiable=differentiable, het_tr_fn=het_tr_fn,
                 )
                 visible = ok & ~s_has_surface
                 f = eval_phase(

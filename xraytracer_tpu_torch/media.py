@@ -20,9 +20,18 @@ discrete decision (escape, scatter-or-null, channel pick, DDA step) hangs on
 a sum, the ORDER of its additions is written out below and the kernels
 follow it term by term; the comments marked "order:" say which.
 
-The gradient options (``differentiable``, ``score_terms``) wait for the
-volume-gradient slice (ROADMAP.md queue 1 items 8-9): the arguments exist
-and raise ``NotImplementedError``.
+Gradients (``differentiable=True``): the tracking loops are Python loops of
+out-of-place tensor operations, so ``torch.autograd`` differentiates them
+w.r.t. ``med_sigma_a`` / ``med_sigma_s`` / ``grid_density`` directly; the
+discrete decisions enter only through boolean masks and are detached. A
+differentiable lookup reads the dense ``grid_density`` (the corner table
+``grid_packed`` is a build-time copy that a live grid would leave stale).
+The loops still stop when no lane is active: the same values and
+gradients as the reference's fixed-trip loop, with a shorter tape.
+``score_terms=True`` adds ``_score_ratio`` factors for the sampled
+decisions (see there). Every clamp a gradient passes through is
+``torch.maximum`` (derivative 1/2 at a tie, as JAX's), never
+``torch.clamp`` (1).
 """
 
 from typing import NamedTuple
@@ -32,7 +41,7 @@ import torch
 
 from .constants import RAY_EPS
 from .geometry.types import Rays
-from .math import dot
+from .math import dot, take_rows
 from .sampling import (
     hg_phase,
     hg_sample_direction,
@@ -51,19 +60,6 @@ from .scene.tables import (
 # ``max_steps * SITES_PER_STEP`` sites for each sampleMedium call.
 SITES_PER_STEP = 4
 
-_GRADIENTS_WAIT = (
-    "{what} is not ported yet (ROADMAP.md queue 1 items 8-9: volume "
-    "gradients, `differentiable` / `score_terms`)"
-)
-
-
-def _no_gradients(differentiable, score_terms):
-    if differentiable:
-        raise NotImplementedError(_GRADIENTS_WAIT.format(what="differentiable=True"))
-    if score_terms:
-        raise NotImplementedError(_GRADIENTS_WAIT.format(what="score_terms=True"))
-
-
 class MediumSample(NamedTuple):
     """Result of one ``sampleMedium`` over the wavefront."""
 
@@ -78,17 +74,18 @@ def _ix(i):
 
 
 def gather_medium(scene, med_idx):
-    """Medium-table row gather with -1 guarded to row 0."""
+    """Medium-table row gather with -1 guarded to row 0 (``take_rows``: every
+    lane reads one of a few rows, whose gradient is then a scatter-add)."""
     m = _ix(med_idx)
     return dict(
         mtype=torch.where(
             med_idx >= 0, scene.med_type[m], torch.full_like(scene.med_type[m], -1)
         ),
-        g=scene.med_g[m],
-        sigma_a=scene.med_sigma_a[m],
-        sigma_s=scene.med_sigma_s[m],
-        majorant=scene.med_majorant[m],
-        density_mult=scene.med_density_mult[m],
+        g=take_rows(scene.med_g, m),
+        sigma_a=take_rows(scene.med_sigma_a, m),
+        sigma_s=take_rows(scene.med_sigma_s, m),
+        majorant=take_rows(scene.med_majorant, m),
+        density_mult=take_rows(scene.med_density_mult, m),
     )
 
 
@@ -120,6 +117,8 @@ def density_lookup(scene, p, use_packed=True):
     ``use_packed``: one row of the corner-packed (Nx*Ny*Nz, 8) table instead
     of eight gathers from ``grid_density``; both hold the same corner
     values. Corner d = dx*4 + dy*2 + dz has weight (wx[dx] * wy[dy]) * wz[dz].
+    The dense gathers go through ``take_rows`` on the flat grid, so the
+    gradient w.r.t. ``grid_density`` is a scatter-add of the eight weights.
 
     order: the eight products corner * weight are added one after the other
     for d = 0, 1, ..., 7, starting from the first product."""
@@ -142,12 +141,13 @@ def density_lookup(scene, p, use_packed=True):
     else:
         lim = torch.tensor([nx - 1, ny - 1, nz - 1], device=g.device)
         i1 = torch.minimum(i0 + 1, lim[None, :])
+        flat_g = g.reshape(-1)
         cs = []
         for d in range(8):
             ix = i1[:, 0] if (d >> 2) & 1 else i0[:, 0]
             iy = i1[:, 1] if (d >> 1) & 1 else i0[:, 1]
             iz = i1[:, 2] if d & 1 else i0[:, 2]
-            cs.append(g[ix, iy, iz])
+            cs.append(take_rows(flat_g, (ix * ny + iy) * nz + iz))
     val = None
     for d in range(8):
         w = (wx[(d >> 2) & 1] * wy[(d >> 1) & 1]) * wz[d & 1]
@@ -209,8 +209,14 @@ def _majorant_segments(scene, med, rays, t0, t1):
     scale = (res - 1.0) / torch.where(ext == 0.0, torch.ones_like(ext), ext)
     a = (rays.o - scene.grid_min[None, :]) * scale[None, :]   # index space
     v = rays.d * scale[None, :]
-    sigma_t_max = torch.amax(med["sigma_a"] + med["sigma_s"], dim=-1)
-    dm = med["density_mult"]
+    # the majorants are a sampling choice (any upper bound keeps the
+    # estimators unbiased) and are held fixed under differentiation, as
+    # the majorant tables are: detached, so that no tracked point moves
+    # with sigma. The JAX package differentiates through them, and its
+    # d/d sigma is then NaN with next-event estimation (square roots of 0
+    # in the light sample at moved points)
+    sigma_t_max = torch.amax(med["sigma_a"] + med["sigma_s"], dim=-1).detach()
+    dm = med["density_mult"].detach()
 
     zero = torch.zeros_like(t0)
     t0f = torch.where(torch.isfinite(t0), t0, zero)
@@ -369,9 +375,26 @@ def _by_channel(channel, v):
     return torch.where(channel == 0, v[0], torch.where(channel == 1, v[1], v[2]))
 
 
+def _score_ratio(p, p_min=1e-5):
+    """``p / p.detach()`` with guards: value exactly 1, gradient the score
+    term ∂log p. Multiplying a path weight by this for every SAMPLED
+    discrete event whose probability depends on the differentiated
+    parameters turns the detached-sampling gradient into the full
+    score-corrected estimator d/dθ E[F] = E[dF + F·∂log p]; the forward value
+    is untouched, and later contributions inherit the factor through the
+    throughput product. Events with probability at most ``p_min`` carry no
+    score (∂p/p explodes as p -> 0 when a near-impossible branch is drawn):
+    the clipped estimator's bias is O(p_min), its variance bounded."""
+    ps = p.detach()
+    safe = ps > p_min
+    one = torch.ones_like(ps)
+    return torch.where(safe, p, one) / torch.where(safe, ps, one)
+
+
 def _track_sample(
     scene, med, rays, t0, t1, path_throughput, keys, site, max_steps,
     het_mask=None, chan_uniform=False, candidates=None,
+    differentiable=False, score_terms=False,
 ):
     """The tracking loop of ``_sample_heterogeneous``: weighted delta
     tracking over COLLISION CANDIDATES in optical-depth space. Returns what
@@ -383,7 +406,11 @@ def _track_sample(
 
     Per-channel values are kept as tuples of (N,) tensors, and every sum
     that feeds a decision is written left to right; ``csrc/media.cuh``
-    follows these lines."""
+    follows these lines. ``differentiable`` reads the dense grid;
+    ``score_terms`` multiplies the weights by the score ratios of the
+    channel pick and of the scatter-or-null split (``_score_ratio``); the
+    distance draws and the escape are sampled from the majorant tables,
+    which hold no parameter, and carry none."""
     n = rays.o.shape[0]
     dev = rays.o.device
     dm = med["density_mult"]
@@ -396,11 +423,12 @@ def _track_sample(
 
     # initial sigma_a at the entry point, for the first channel pick
     # (Src/medium.cpp:52-54)
-    dens0 = density_lookup(scene, rays.at(t0)) * dm
+    use_packed = not differentiable
+    dens0 = density_lookup(scene, rays.at(t0), use_packed=use_packed) * dm
     sig_a = tuple(sa[c] * dens0 for c in range(3))
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
     _, m_entry = _tau_to_t(seg_t, seg_m, tau_edges, zero)
-    m_prev = torch.clamp(m_entry, min=0.0)
+    m_prev = torch.maximum(m_entry, zero)
 
     # lanes outside the heterogeneous medium (masked out by the caller) must
     # not drive the loop: a surface-hit lane carries t1 = INF (finite!),
@@ -438,7 +466,7 @@ def _track_sample(
         else:
             m_prev_s = torch.where(m_prev <= 0.0, torch.ones_like(m_prev), m_prev)
             pick_w = tuple(
-                (tp[c] * w[c]) * torch.clamp((m_prev - sig_a[c]) / m_prev_s, min=0.0)
+                (tp[c] * w[c]) * torch.maximum((m_prev - sig_a[c]) / m_prev_s, zero)
                 for c in range(3)
             )
         channel, pmf = _pick_channel(pick_w, u_wl)
@@ -454,11 +482,10 @@ def _track_sample(
         tr_esc = torch.exp(-(tau_total - tau))
         pdf_esc = (pmf[0] * tr_esc + pmf[1] * tr_esc) + pmf[2] * tr_esc
         pe = _safe(pdf_esc)
-        w_esc = tuple(w[c] * tr_esc / pe for c in range(3))
 
         t_new, m_loc = _tau_to_t(seg_t, seg_m, tau_edges, tau_new)
         m_safe = torch.where(m_loc <= 0.0, torch.ones_like(m_loc), m_loc)
-        dens = density_lookup(scene, rays.at(t_new)) * dm
+        dens = density_lookup(scene, rays.at(t_new), use_packed=use_packed) * dm
         sig_s = tuple(ss[c] * dens for c in range(3))
         sig_a = tuple(sa[c] * dens for c in range(3))
         # clamped at 0: the supergrid majorant bounds the trilinear field by
@@ -466,7 +493,7 @@ def _track_sample(
         # undershoot, which must bias (slightly) rather than go negative.
         # order: (m_loc - sig_a) - sig_s
         sig_n = tuple(
-            torch.clamp((m_loc - sig_a[c]) - sig_s[c], min=0.0) for c in range(3)
+            torch.maximum((m_loc - sig_a[c]) - sig_s[c], zero) for c in range(3)
         )
         denom = tuple(_safe(sig_s[c] + sig_n[c]) for c in range(3))
         p_s = tuple(sig_s[c] / denom[c] for c in range(3))
@@ -479,16 +506,34 @@ def _track_sample(
         # added left to right
         base = tuple((pmf[c] * m_safe) * tr_s for c in range(3))
         scat = ~esc & (u_ev < p_s_c)
-        pdf_sc = (base[0] * p_s[0] + base[1] * p_s[1]) + base[2] * p_s[2]
-        ps_safe = _safe(pdf_sc)
-        w_scat = tuple((w[c] * tr_s) * sig_s[c] / ps_safe for c in range(3))
-        pdf_nl = (base[0] * p_n[0] + base[1] * p_n[1]) + base[2] * p_n[2]
-        pn_safe = _safe(pdf_nl)
-        w_null = tuple((w[c] * tr_s) * sig_n[c] / pn_safe for c in range(3))
-
         a_esc = active & esc
         a_scat = active & scat
         cont = active & ~esc & ~scat
+        # each weight is kept only on its own lanes: elsewhere its
+        # denominator is set to 1 (a tiny pdf there would make its
+        # derivative 0 * inf = NaN in the gradient, values unchanged)
+        one = torch.ones_like(pe)
+        pe = torch.where(a_esc, pe, one)
+        w_esc = tuple(w[c] * tr_esc / pe for c in range(3))
+        pdf_sc = (base[0] * p_s[0] + base[1] * p_s[1]) + base[2] * p_s[2]
+        ps_safe = torch.where(a_scat, _safe(pdf_sc), one)
+        w_scat = tuple((w[c] * tr_s) * sig_s[c] / ps_safe for c in range(3))
+        pdf_nl = (base[0] * p_n[0] + base[1] * p_n[1]) + base[2] * p_n[2]
+        pn_safe = torch.where(cont, _safe(pdf_nl), one)
+        w_null = tuple((w[c] * tr_s) * sig_n[c] / pn_safe for c in range(3))
+        if score_terms:
+            # the sampled decisions whose probabilities depend on the
+            # parameters: the channel pick (pmf of the picked channel, a
+            # function of the albedo proxy unless picks are uniform) and the
+            # scatter-or-null split (p_s_c resp. 1 - p_s_c, functions of the
+            # density); each ratio is exactly 1 in value
+            r_pick = _score_ratio(_by_channel(channel, pmf))
+            r_scat = r_pick * _score_ratio(p_s_c)
+            r_null = r_pick * _score_ratio(1.0 - p_s_c)
+            w_esc = tuple(v * r_pick for v in w_esc)
+            w_scat = tuple(v * r_scat for v in w_scat)
+            w_null = tuple(v * r_null for v in w_null)
+
         t_res = torch.where(a_esc, t1 + RAY_EPS, t_res)
         t_res = torch.where(a_scat, t_new, t_res)
         # the phase-direction draw is hoisted out of the loop: record the
@@ -547,10 +592,10 @@ def _sample_heterogeneous(
     majorant * bbox diagonal (a valid upper bound on expected candidates,
     loose for sparse grids where the local majorants dominate).
     """
-    _no_gradients(differentiable, score_terms)
     t_res, weight, scattered, scat_step = _track_sample(
         scene, med, rays, t0, t1, path_throughput, keys, site, max_steps,
         het_mask=het_mask, chan_uniform=chan_uniform,
+        differentiable=differentiable, score_terms=score_terms,
     )
     d = scatter_direction(rays, keys, site, scat_step, scattered, med["g"])
     return MediumSample(
@@ -571,9 +616,10 @@ def sample_medium(
     with weight 1). The static ``has_*`` flags (from ``scene_statics``) let
     integrators skip the unused branch entirely. ``het_fn``
     (``media_kernels.try_make_fused_het_sampler``) replaces the host-side
-    heterogeneous tracking loop with the tracking kernel.
+    heterogeneous tracking loop with the tracking kernel. ``differentiable``
+    and ``score_terms``: see ``_track_sample``; the homogeneous variants are
+    closed forms that autograd differentiates as they are.
     """
-    _no_gradients(differentiable, score_terms)
     med = gather_medium(scene, med_idx)
     n = rays.o.shape[0]
     dev = rays.o.device
@@ -586,8 +632,15 @@ def sample_medium(
     parts = [none]
     masks = [med["mtype"] < 0]
     if has_homogeneous:
-        parts.append(_sample_homogeneous(med, rays, t0, t1, path_throughput, keys, site))
-        masks.append((med["mtype"] >= 0) & (med["mtype"] != MED_HETEROGENEOUS))
+        # lanes without a homogeneous medium get a zero span: their values
+        # are discarded, and an infinite or long span would put
+        # exp(-sigma * t)'s 0 * inf = NaN into the gradient of sigma
+        hmask = (med["mtype"] >= 0) & (med["mtype"] != MED_HETEROGENEOUS)
+        zero = torch.zeros_like(t0)
+        parts.append(_sample_homogeneous(
+            med, rays, torch.where(hmask, t0, zero), torch.where(hmask, t1, zero),
+            path_throughput, keys, site))
+        masks.append(hmask)
     if has_heterogeneous:
         het_mask = med["mtype"] == MED_HETEROGENEOUS
         if het_fn is not None:
@@ -598,7 +651,9 @@ def sample_medium(
             parts.append(
                 _sample_heterogeneous(
                     scene, med, rays, t0, t1, path_throughput, keys, site,
-                    max_steps, het_mask=het_mask, chan_uniform=chan_uniform,
+                    max_steps, differentiable=differentiable,
+                    het_mask=het_mask, score_terms=score_terms,
+                    chan_uniform=chan_uniform,
                 )
             )
         masks.append(het_mask)
@@ -625,13 +680,15 @@ def _segment_dir(p1, p2):
 
 def _track_transmittance(
     scene, med, p1, p2, keys, site, max_steps, het_mask, candidates=None,
+    differentiable=False,
 ):
     """The ratio-tracking loop of ``segment_transmittance``: (N, 3)
     transmittance over collision candidates in optical-depth space with
     piecewise block majorants — unbiased: E[prod(sig_n / m)] over Poisson(m)
     arrivals = exp(-int sigma_t). Lanes outside ``het_mask`` return 1,
-    exhausted lanes 0 (never biased bright). ``candidates`` as in
-    ``_track_sample``."""
+    exhausted lanes 0 (never biased bright). ``candidates`` and
+    ``differentiable`` as in ``_track_sample``; ratio tracking samples from
+    the majorant alone, so it has no score terms."""
     n = p1.shape[0]
     dev = p1.device
     dm = med["density_mult"]
@@ -656,13 +713,15 @@ def _track_transmittance(
         tau_new = tau - torch.log(torch.clamp(1.0 - u, min=1e-38))
         esc = tau_new > tau_total
         t_new, m_loc = _tau_to_t(seg_t, seg_m, tau_edges, tau_new)
-        dens = density_lookup(scene, srays.at(t_new)) * dm
+        dens = density_lookup(
+            scene, srays.at(t_new), use_packed=not differentiable
+        ) * dm
         m_safe = torch.where(m_loc <= 0.0, torch.ones_like(m_loc), m_loc)
         upd = active & ~esc
         tr = tuple(
             torch.where(
                 upd,
-                (tr[c] * torch.clamp(m_loc - st[c] * dens, min=0.0)) / m_safe,
+                (tr[c] * torch.maximum(m_loc - st[c] * dens, zero)) / m_safe,
                 tr[c],
             )
             for c in range(3)
@@ -686,21 +745,26 @@ def segment_transmittance(
     ``med_idx`` < 0 lanes return 1. ``het_tr_fn``
     (``media_kernels.try_make_fused_het_transmittance``) replaces the
     host-side ratio-tracking loop with the transmittance kernel.
+    ``differentiable``: see ``_track_sample``.
     """
-    _no_gradients(differentiable, False)
     med = gather_medium(scene, med_idx)
     dist, _ = _segment_dir(p1, p2)
 
-    # homogeneous: analytic
+    # homogeneous: analytic; lanes without a homogeneous medium (whose
+    # values are discarded) take it over 0: an infinite segment (a shadow
+    # ray that left no box) would put exp(-sigma * inf)'s 0 * inf = NaN into
+    # the gradient of sigma
     sigma_t = med["sigma_a"] + med["sigma_s"]
-    tr_h = _analytic_tr(dist, sigma_t)
-
     is_het = med["mtype"] == MED_HETEROGENEOUS
+    homog = (med["mtype"] >= 0) & ~is_het
+    tr_h = _analytic_tr(torch.where(homog, dist, torch.zeros_like(dist)), sigma_t)
+
     if het_tr_fn is not None:
         tr_r = het_tr_fn(p1, p2, keys, site, is_het)
     else:
         tr_r = _track_transmittance(
-            scene, med, p1, p2, keys, site, max_steps, is_het
+            scene, med, p1, p2, keys, site, max_steps, is_het,
+            differentiable=differentiable,
         )
     tr = torch.where(is_het[:, None], tr_r, tr_h)
     return torch.where((med["mtype"] >= 0)[:, None], tr, torch.ones_like(tr))

@@ -124,10 +124,18 @@ class HetMedium:
     def device(self):
         return self.scene.grid_density.device
 
-    def grid_args(self):
+    def grid_args(self, density=None):
+        """The grid's launch arguments. ``density``: a live (nx, ny, nz)
+        grid on the device, read by eight corner loads in place of the
+        scene's corner table (which would be stale)."""
         s = self.scene
-        return (self.fc, self.ic, s.grid_density.data_ptr(),
-                s.grid_packed.data_ptr(), s.grid_super.data_ptr())
+        if density is None:
+            return (self.fc, self.ic, s.grid_density.data_ptr(),
+                    s.grid_packed.data_ptr(), s.grid_super.data_ptr())
+        ic = (ctypes.c_int * len(self.ic))(*self.ic)
+        ic[8] = 0   # use_packed
+        return (self.fc, ic, density.data_ptr(), density.data_ptr(),
+                s.grid_super.data_ptr())
 
     def med(self, n):
         """The medium's row gathered for ``n`` lanes, as ``media`` takes it."""
@@ -183,6 +191,13 @@ def _check_grid(hm, dev):
         raise ValueError("grid_packed: must be 32-byte aligned")
     if s.grid_density.numel() >= 2 ** 28:
         raise ValueError("grid_density: too many cells for the kernels' indexing")
+
+
+def _check_live_grid(hm, density, dev):
+    """A live density grid: float32, the scene grid's shape, contiguous, on
+    ``dev``."""
+    g = hm.scene.grid_density
+    sweeps._check("grid_density (live)", density, torch.float32, g.shape, dev)
 
 
 def _key_bits(keys, n, dev):
