@@ -16,6 +16,13 @@
     python3 chip_smoke.py --launch-bounds-ab  # also compiles
                                      # csrc/het_megakernel.cu under other
                                      # __launch_bounds__ caps and times them
+    python3 chip_smoke.py --ab-csrc parent=DIR [--ab-only]
+                                     # also builds media.cu and
+                                     # het_megakernel.cu from DIR (another
+                                     # copy of csrc/, e.g. the parent
+                                     # commit's) and holds K7-K10 of that
+                                     # build against the package's, bitwise,
+                                     # timing both in turns
 
 Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
 libraries: the sweeps, the whole-path surface kernels with the
@@ -110,15 +117,17 @@ run's data:
   transmittance, phase value and sum (50). An exponential, logarithm, sine,
   cosine, square root or division counts as one operation, which makes the
   bound a low one;
-* a tracking kernel needs, per lane that tracks, the supergrid walk (800:
-  24 segments of three exit times, a minimum and a majorant, plus the
-  running optical depth) and per collision candidate (the plain version's
-  count of active lanes at every step of its loop) 170 flop for
-  ``track_sample`` (three draws' conversions, logarithm, two exponentials,
-  the 25-way segment search, the trilinear value 45, channel pick 15, three
-  channels of cross sections, probabilities and weights 60) resp. 90 for
-  ``track_transmittance`` (draw, logarithm, search, trilinear value, three
-  ratios). Bytes: a lane that tracks reads its inputs, every lane reads
+* a tracking kernel needs, per lane that tracks, the supergrid walk over
+  its span (32 per segment the span crosses: three exit times, a minimum,
+  a majorant and the running optical depth; counted from the plain
+  version's segments, those that start before the span's end) and per
+  collision candidate (the plain version's count of active lanes at every
+  step of its loop) 150 flop for ``track_sample`` (three draws'
+  conversions, logarithm, two exponentials, the candidate's segment by a
+  forward cursor and the inversion to t 4, the trilinear value 45, channel
+  pick 15, three channels of cross sections, probabilities and weights 60)
+  resp. 70 for ``track_transmittance`` (draw, logarithm, segment, trilinear
+  value, three ratios). Bytes: a lane that tracks reads its inputs, every lane reads
   its mask byte and writes its outputs; the 64^3 density grid (1 MB) counts
   once when any candidate was drawn, the supergrid once when any lane
   tracks. The 8 MB corner table the kernels read instead of the grid is the
@@ -230,7 +239,7 @@ FLOPS_PER_ANYHIT_TEST = 39
 # volume whole-path and tracking kernels; derived in the docstring above
 FLOPS_VOL_TRI_TEST, FLOPS_VOL_BOX, FLOPS_VOL_RR = 45, 30, 8
 FLOPS_VOL_MEDIUM, FLOPS_VOL_LIGHT, FLOPS_VOL_NEE_REST = 110, 40, 50
-FLOPS_DDA, FLOPS_TRACK_CANDIDATE, FLOPS_TRANSMITTANCE_CANDIDATE = 800, 170, 90
+FLOPS_DDA_SEGMENT, FLOPS_TRACK_CANDIDATE, FLOPS_TRANSMITTANCE_CANDIDATE = 32, 150, 70
 FLOPS_HET_SPHERE, FLOPS_HET_SCATTER, FLOPS_HET_CONE, FLOPS_HET_NEE_REST = 30, 45, 75, 30
 # the analytic-gradient kernel's Jacobian updates, per entry of the 9M
 # albedo entries and event (derived in the docstring above)
@@ -1747,10 +1756,11 @@ def compare_track_sample(what, got, ref, mask):
     return out
 
 
-def track_bound(tables, n, in_bytes, out_bytes, lanes, candidates,
+def track_bound(tables, n, in_bytes, out_bytes, lanes, segments, candidates,
                 flops_per_candidate):
     """bound_ms of a tracking launch over ``n`` lanes of which ``lanes``
-    track and draw ``candidates`` collision candidates in all (see the
+    track, their spans crossing ``segments`` supergrid segments and their
+    loops drawing ``candidates`` collision candidates in all (see the
     docstring for what counts as bytes and operations)."""
     n_bytes = n * (1 + out_bytes) + lanes * (in_bytes - 1)
     if lanes:
@@ -1758,10 +1768,11 @@ def track_bound(tables, n, in_bytes, out_bytes, lanes, candidates,
     if candidates:
         n_bytes += tables.grid_density.numel() * 4
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = (lanes * FLOPS_DDA + candidates * flops_per_candidate) / PEAK_F32_FLOPS * 1e3
+    by_ops = (segments * FLOPS_DDA_SEGMENT
+              + candidates * flops_per_candidate) / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
-                candidates=candidates)
+                segments=segments, candidates=candidates)
 
 
 def phase_track_kernels(device, nee_scene, volume_scene, reps):
@@ -1802,8 +1813,9 @@ def phase_track_kernels(device, nee_scene, volume_scene, reps):
 
     def sample_case(label, hm, o, d, t0, t1, tp, keys, site, mask):
         cand = []
-        ref, plain_ms = timed_once(lambda: mkk.track_sample_plain(
-            hm, o, d, t0, t1, tp, keys, site, mask, candidates=cand))
+        with TrackingTally() as tally:
+            ref, plain_ms = timed_once(lambda: mkk.track_sample_plain(
+                hm, o, d, t0, t1, tp, keys, site, mask, candidates=cand))
         run = lambda: mkk.track_sample(hm, o, d, t0, t1, tp, keys, site, mask)
         out = run()
         torch.cuda.synchronize()
@@ -1811,14 +1823,16 @@ def phase_track_kernels(device, nee_scene, volume_scene, reps):
         n = o.shape[0]
         case.update(case=label, site=site, max_steps=hm.max_steps, plain_ms=plain_ms,
                     plain_loop_steps=len(cand), ms=median_ms(run, reps, flush),
-                    **track_bound(hm.scene, n, 49, 21, int(mask.sum()), sum(cand),
+                    **track_bound(hm.scene, n, 49, 21, int(mask.sum()),
+                                  tally.sample_segments, sum(cand),
                                   FLOPS_TRACK_CANDIDATE))
         cases["track_sample"].append(case)
 
     def transmittance_case(label, hm, p1, p2, keys, site, mask):
         cand = []
-        ref, plain_ms = timed_once(lambda: mkk.track_transmittance_plain(
-            hm, p1, p2, keys, site, mask, candidates=cand))
+        with TrackingTally() as tally:
+            ref, plain_ms = timed_once(lambda: mkk.track_transmittance_plain(
+                hm, p1, p2, keys, site, mask, candidates=cand))
         run = lambda: mkk.track_transmittance(hm, p1, p2, keys, site, mask)
         out = run()
         torch.cuda.synchronize()
@@ -1842,8 +1856,8 @@ def phase_track_kernels(device, nee_scene, volume_scene, reps):
             mean_transmittance=float(ref[mask].mean()) if bool(mask.any()) else 1.0,
             plain_ms=plain_ms, plain_loop_steps=len(cand),
             ms=median_ms(run, reps, flush),
-            **track_bound(hm.scene, n, 29, 12, int(mask.sum()), sum(cand),
-                          FLOPS_TRANSMITTANCE_CANDIDATE)))
+            **track_bound(hm.scene, n, 29, 12, int(mask.sum()), tally.tr_segments,
+                          sum(cand), FLOPS_TRANSMITTANCE_CANDIDATE)))
 
     for it, args in zip(CAPTURE_ITERATIONS, got["track_sample"]):
         sample_case(f"nee iteration {it}", *args)
@@ -1939,43 +1953,78 @@ HET_REPLACES = {
 
 class TrackingTally:
     """Counts, over a plain render, the lanes that enter each host-side
-    tracking loop of ``media.py`` and the collision candidates they draw:
-    the work a whole-path heterogeneous kernel does in its tracking."""
+    tracking loop of ``media.py``, the supergrid segments their spans cross
+    (the segments of the plain walk that start before the span's end) and
+    the collision candidates they draw: the work a whole-path heterogeneous
+    kernel does in its tracking."""
 
     def __init__(self):
-        self.sample_lanes = self.sample_candidates = 0
-        self.tr_lanes = self.tr_candidates = 0
+        self.sample_lanes = self.sample_candidates = self.sample_segments = 0
+        self.tr_lanes = self.tr_candidates = self.tr_segments = 0
 
     def __enter__(self):
+        import torch
+
         from xraytracer_tpu_torch import media
 
-        self._orig = media._track_sample, media._track_transmittance
-        orig_s, orig_t = self._orig
+        self._orig = (media._track_sample, media._track_transmittance,
+                      media._majorant_segments)
+        orig_s, orig_t, orig_walk = self._orig
+        crossed = []
+
+        def walk(scene, med, rays, t0, t1):
+            out = orig_walk(scene, med, rays, t0, t1)
+            t0f = torch.where(torch.isfinite(t0), t0, torch.zeros_like(t0))
+            t1f = torch.where(torch.isfinite(t1), torch.maximum(t1, t0f), t0f)
+            crossed.append((out[0][:, :-1] < t1f[:, None]).sum(dim=1))
+            return out
 
         def sample(*args, het_mask=None, candidates=None, **kw):
-            cand = []
+            cand = [] if candidates is None else candidates
+            n0 = len(cand)
+            crossed.clear()
             out = orig_s(*args, het_mask=het_mask, candidates=cand, **kw)
             self.sample_lanes += int(het_mask.sum())
-            self.sample_candidates += sum(cand)
+            self.sample_segments += int(crossed[0][het_mask].sum())
+            self.sample_candidates += sum(cand[n0:])
             return out
 
         def transmittance(scene, med, p1, p2, keys, site, max_steps, het_mask,
                           candidates=None, **kw):
-            cand = []
+            cand = [] if candidates is None else candidates
+            n0 = len(cand)
+            crossed.clear()
             out = orig_t(scene, med, p1, p2, keys, site, max_steps, het_mask,
                          candidates=cand, **kw)
             self.tr_lanes += int(het_mask.sum())
-            self.tr_candidates += sum(cand)
+            self.tr_segments += int(crossed[0][het_mask].sum())
+            self.tr_candidates += sum(cand[n0:])
             return out
 
-        media._track_sample, media._track_transmittance = sample, transmittance
+        (media._track_sample, media._track_transmittance,
+         media._majorant_segments) = sample, transmittance, walk
         return self
 
     def __exit__(self, *exc):
         from xraytracer_tpu_torch import media
 
-        media._track_sample, media._track_transmittance = self._orig
+        (media._track_sample, media._track_transmittance,
+         media._majorant_segments) = self._orig
         return False
+
+
+def live_grid_tally(hc, o, d, keys, grid):
+    """The plain version's per-iteration counters and tracking tally of
+    ``het_path`` on a live density grid (the gradient route's pass A)."""
+    import dataclasses
+
+    from xraytracer_tpu_torch.integrators import het_megakernel as hk
+
+    live = dataclasses.replace(hc, scene=hk._live_scene(hc, grid))
+    stats = {}
+    with TrackingTally() as tally:
+        hk.het_path_plain(live, o, d, keys, stats)
+    return stats, tally
 
 
 def het_bound(tables, n, n_spheres, nee, stats, tally, bytes_in, bytes_out):
@@ -1986,12 +2035,12 @@ def het_bound(tables, n, n_spheres, nee, stats, tally, bytes_in, bytes_out):
     scattered = int(stats["scattered"].sum())
     hit_test = n_spheres * FLOPS_HET_SPHERE + FLOPS_VOL_BOX
     ops = (rays * (hit_test + FLOPS_VOL_RR)
-           + tally.sample_lanes * FLOPS_DDA
+           + tally.sample_segments * FLOPS_DDA_SEGMENT
            + tally.sample_candidates * FLOPS_TRACK_CANDIDATE
            + scattered * FLOPS_HET_SCATTER)
     if nee:
         ops += (scattered * (FLOPS_HET_CONE + hit_test + FLOPS_HET_NEE_REST)
-                + tally.tr_lanes * FLOPS_DDA
+                + tally.tr_segments * FLOPS_DDA_SEGMENT
                 + tally.tr_candidates * FLOPS_TRANSMITTANCE_CANDIDATE)
     n_bytes = n * (bytes_in + bytes_out)
     if tally.sample_lanes or tally.tr_lanes:
@@ -2003,7 +2052,8 @@ def het_bound(tables, n, n_spheres, nee, stats, tally, bytes_in, bytes_out):
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
                 rays=rays, scattered=scattered, tracking_lanes=tally.sample_lanes,
-                candidates=tally.sample_candidates, shadow_lanes=tally.tr_lanes,
+                segments=tally.sample_segments, candidates=tally.sample_candidates,
+                shadow_lanes=tally.tr_lanes, shadow_segments=tally.tr_segments,
                 shadow_candidates=tally.tr_candidates)
 
 
@@ -2115,6 +2165,36 @@ def phase_het_kernels(device, nee_scene, volume_scene, reps):
                                                 morton_bitwise_equal=True)
         del got_c, got_b, ref, back
 
+    # K9a at tools.fit_volume's shape: pass A of its gradient steps (grad
+    # sampling, the live grid: eight corner loads per lookup), first view
+    from xraytracer_tpu_torch.tools import fit_volume
+
+    fw, fh = 96, 72
+    ftables = fit_volume.build_scene(device)
+    fst = scene_statics(ftables)
+    fcam = fit_volume._cameras(fw, fh, device)[0]
+    fstep = hk.try_make_fused_het_value_and_grad(ftables, fst, fcam, fw, fh,
+                                                 fit_volume.MAX_DEPTH, nee=True)
+    check(fstep is not None, "fit_volume scene: not eligible for the het gradient route")
+    fhc = fstep.het_consts
+    fgrid = torch.from_numpy(fit_volume._blob_target()).to(device)
+    ids, xy = window_pixels(fw, fh, None, device)
+    keys, o, d = het_grad_rays(fcam, fw, fh, ids, xy, 0, 0)
+    ref, plain_ms = timed_once(lambda: hk.het_path_plain(fhc, o, d, keys, density=fgrid))
+    stats, tally = live_grid_tally(fhc, o, d, keys, fgrid)
+    got = hk.het_path(fhc, o, d, keys, density=fgrid)
+    torch.cuda.synchronize()
+    label = f"fit_volume view 0, {fw}x{fh}"
+    case = compare_radiance(f"het_path, {label}", got, ref)
+    case.update(case=label, n_spp=1, plain_ms=plain_ms,
+                ms=median_ms(lambda: hk.het_path(fhc, o, d, keys, density=fgrid),
+                             reps, flush),
+                **het_bound(ftables, fw * fh, int(fhc.ic[0]), True, stats, tally, 28, 12),
+                n_spheres=int(fhc.ic[0]), n_lights=int(fhc.ic[1]), nee=True,
+                max_depth=fit_volume.MAX_DEPTH, n_iterations=fhc.n_iterations,
+                max_steps=fhc.max_steps, grid="16^3, live (grad sampling)")
+    cases["het_path"].append(case)
+
     # a resumed chunk continues the stream: (0, 2) + (2, 1) == (0, 3)
     tables, camk = nee_scene
     st = scene_statics(tables)
@@ -2130,8 +2210,12 @@ def phase_het_kernels(device, nee_scene, volume_scene, reps):
                                            hk.MAX_DEPTH + 1) is None,
           "depth 129 must route to the wavefront volume integrator")
 
+    attrs = het_kernel_attrs(hk._lib())
+    for name, kcases in cases.items():
+        for c in kcases:
+            c.update(attrs[name])
     emit("kernel_checks", kernels="heterogeneous whole-path", cases=cases, reps=reps,
-         resumed_chunk_max_abs_diff=resumed_diff,
+         resumed_chunk_max_abs_diff=resumed_diff, kernel_attrs=attrs,
          tolerances=dict(pixel=[K1_RTOL, K1_ATOL], pixel_share=K1_PIXEL_DIFF_SHARE,
                          loose=[K1_LOOSE_RTOL, K1_LOOSE_ATOL],
                          mean=MEAN_BAND_KERNEL_VS_PLAIN, loop_ab="bitwise"))
@@ -2155,46 +2239,112 @@ def phase_het_kernels(device, nee_scene, volume_scene, reps):
                   f"n_spp={head['n_spp']} grid=64^3",
             cases=[{k: c.get(k) for k in ("case", "n", "n_spp", "max_depth", "ms",
                                           "plain_ms", "bound_ms", "bound_by",
-                                          "candidates", "shadow_candidates",
-                                          "pixels_beyond_gate")}
+                                          "segments", "candidates", "shadow_segments",
+                                          "shadow_candidates", "pixels_beyond_gate",
+                                          "registers", "stack_bytes",
+                                          "smem_bytes_per_block")}
                    for c in cases[name]],
         ))
     return entries
 
 
-def load_het_with_bounds(min_blocks):
-    """Compile ``csrc/het_megakernel.cu`` once more with another
-    ``__launch_bounds__`` block count next to the package's own library;
-    return (ctypes handle, ptxas register / stack / spill lines)."""
+PTXAS_KERNELS = ("het_path_kernel", "het_spp_kernel", "het_spp_persistent_kernel",
+                 "het_grad_path_kernel", "track_sample_kernel",
+                 "track_transmittance_kernel")
+
+
+def ptxas_table(text):
+    """Registers, stack frame, spill stores / loads and static shared
+    memory per kernel, from ``-Xptxas -v``'s report (nvcc's stderr)."""
+    import re
+
+    table, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            cur = next((k[:-len("_kernel")] for k in PTXAS_KERNELS
+                        if f"{len(k)}{k}" in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            table.setdefault(cur, {}).update(
+                stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            table.setdefault(cur, {}).update(
+                registers=int(m.group(1)),
+                smem_bytes_per_block=int(smem.group(1)) if smem else 0)
+    return table
+
+
+def het_kernel_attrs(lib):
+    """What the loaded heterogeneous library's kernels were compiled to
+    (cudaFuncGetAttributes): registers, stack (local memory) bytes per
+    thread and shared bytes per block (static; the launches add none)."""
     import ctypes
 
-    from xraytracer_tpu_torch import _build
     from xraytracer_tpu_torch.integrators import het_megakernel as hk
 
+    fn = lib.het_kernel_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = {}
+    for which, name in enumerate(hk.KERNEL_NAMES):
+        v = (ctypes.c_int * 4)()
+        check(fn(which, v) == 0, f"cudaFuncGetAttributes failed for {name}")
+        out[name] = dict(registers=v[0], stack_bytes=v[1], smem_bytes_per_block=v[2],
+                         max_threads_per_block=v[3])
+    return out
+
+
+def build_sources(jobs):
+    """Compile other builds of sources beside the package's libraries, one
+    nvcc per (tag, source, extra flags) job, all started together; returns
+    {tag: (library path, ptxas table)}."""
+    from xraytracer_tpu_torch import _build
+
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, f"libhet_megakernel_mb{min_blocks}.so")
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-DHET_MIN_BLOCKS={min_blocks}",
-           "-o", out, os.path.join(_build.CSRC_DIR, "het_megakernel.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    check(proc.returncode == 0, f"HET_MIN_BLOCKS={min_blocks} build failed:\n{proc.stderr}")
-    ptxas = [ln.strip() for ln in proc.stderr.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    return hk._bind(ctypes.CDLL(out)), ptxas
+    procs = {}
+    for tag, src, flags in jobs:
+        out = os.path.join(_build.BUILD_DIR, f"lib_{tag}.so")
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-o", out, src]
+        procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True), out)
+    built = {}
+    for tag, (proc, out) in procs.items():
+        so, se = proc.communicate()
+        check(proc.returncode == 0, f"{tag}: build failed:\n{se}")
+        built[tag] = (out, ptxas_table(so + se))
+    return built
 
 
 def phase_launch_bounds_ab(device, nee_scene, volume_scene, reps):
     """K9b and K9c at AB_SPP samples per pixel on the nee and volume presets,
     compiled with __launch_bounds__(128, m) for m = 1, 2, 4 (the package's
-    own) and 8: registers, spills and times in one call, on one card."""
+    own), 5 (the most blocks the 38,912-byte segment frames leave room for
+    in an SM's shared memory) and 8: registers, stack, spills, shared bytes
+    per block (ptxas) and times in one call, on one card."""
+    import ctypes
+
     import torch
 
+    from xraytracer_tpu_torch import _build
     from xraytracer_tpu_torch.camera import PinholeCamera
     from xraytracer_tpu_torch.config import get_preset
     from xraytracer_tpu_torch.integrators import het_megakernel as hk
     from xraytracer_tpu_torch.scene.builder import scene_statics
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
-    libs = {m: load_het_with_bounds(m) for m in (1, 2, 4, 8)}
+    src = os.path.join(_build.CSRC_DIR, "het_megakernel.cu")
+    caps = (1, 2, 4, 5, 8)
+    built = build_sources([(f"het_megakernel_mb{m}", src, [f"-DHET_MIN_BLOCKS={m}"])
+                           for m in caps])
+    libs = {m: hk._bind(ctypes.CDLL(built[f"het_megakernel_mb{m}"][0])) for m in caps}
     package_lib = hk._lib
     rows = []
     try:
@@ -2207,7 +2357,7 @@ def phase_launch_bounds_ab(device, nee_scene, volume_scene, reps):
             view = hk.try_make_fused_het_spp_render(
                 tables, st, cam, cfg.width, cfg.height, 0, cfg.max_depth, nee=nee).view
             ref = None
-            for m, (lib, _) in libs.items():
+            for m, lib in libs.items():
                 hk._lib = lambda lib=lib: lib
                 out, _ = hk.het_spp_persistent(hc, view, 0, AB_SPP)
                 torch.cuda.synchronize()
@@ -2223,7 +2373,166 @@ def phase_launch_bounds_ab(device, nee_scene, volume_scene, reps):
     finally:
         hk._lib = package_lib
     emit("launch_bounds_ab", block=128, rows=rows,
-         ptxas={m: p for m, (_, p) in libs.items()})
+         ptxas={m: built[f"het_megakernel_mb{m}"][1] for m in libs})
+
+
+def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
+    """The tracking kernels (K7, K8) and the heterogeneous whole-path and
+    gradient kernels (K9a-c, K10) of other builds of the sources (``others``:
+    {name: a directory holding another copy of csrc/, e.g. the parent
+    commit's}) against the package's own, in one call on one card: outputs
+    compared lane by lane (bitwise; K10's grid, summed by atomics, by its
+    largest difference), and every build timed in turns (the builds in
+    order, then in reverse) on the nee and volume presets at AB_SPP samples
+    per pixel, at their main paths' full spp chunks, on the camera rays of
+    sample 0 (K9a, also at tools.fit_volume's shape), on the nee preset's
+    captured tracking inputs (K7, K8) and on its full frame (K10)."""
+    import ctypes
+
+    import torch
+
+    from xraytracer_tpu_torch import _build
+    from xraytracer_tpu_torch import media_kernels as mkk
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import het_megakernel as hk
+    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.tools import fit_volume
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    dirs = {"package": _build.CSRC_DIR, **others}
+    built = build_sources([(f"ab_{name}_{lib}", os.path.join(d, f"{lib}.cu"), [])
+                           for name, d in dirs.items()
+                           for lib in ("media", "het_megakernel")])
+    libs = {name: (mkk._bind(ctypes.CDLL(built[f"ab_{name}_media"][0])),
+                   hk._bind(ctypes.CDLL(built[f"ab_{name}_het_megakernel"][0])))
+            for name in dirs}
+    ptxas = {name: {**built[f"ab_{name}_media"][1], **built[f"ab_{name}_het_megakernel"][1]}
+             for name in dirs}
+    names = list(dirs)
+    package_libs = mkk._lib, hk._lib
+    rows = []
+
+    def use(name):
+        mkk._lib = lambda lib=libs[name][0]: lib
+        hk._lib = lambda lib=libs[name][1]: lib
+
+    def ab(kernel, case, run, exact=True, time_it=True, builds=None, reps_=None):
+        """Run ``run`` on every build (or on ``builds``): outputs vs the
+        package's (lanes that differ, or the largest difference), then
+        times in two turns."""
+        row = dict(kernel=kernel, case=case)
+        ref = None
+        differ = {}
+        order = builds or names
+        for name in order:
+            use(name)
+            out = run()
+            torch.cuda.synchronize()
+            out = [o.reshape(o.shape[0], -1) for o in (out if isinstance(out, tuple) else (out,))]
+            if ref is None:
+                ref = out
+                continue
+            if exact:
+                bad = torch.zeros(out[0].shape[0], dtype=torch.bool, device=device)
+                for a, b in zip(out, ref):
+                    bad |= (a != b).any(dim=1)
+                idx = torch.nonzero(bad)[:8, 0].tolist()
+                differ[name] = dict(lanes=int(bad.sum()), first=idx,
+                                    max_abs=max(float(torch.abs(a.float() - b.float()).max())
+                                                for a, b in zip(out, ref)))
+            else:
+                differ[name] = dict(max_abs=max(float(torch.abs(a - b).max())
+                                                for a, b in zip(out, ref)),
+                                    scale=float(torch.abs(ref[-1]).max()))
+        row["vs_package"] = differ
+        if time_it:
+            ms = {name: [] for name in order}
+            for turn in (order, order[::-1]):
+                for name in turn:
+                    use(name)
+                    ms[name].append(median_ms(run, reps_ or reps, flush))
+            row["ms"] = ms
+        rows.append(row)
+        emit("csrc_ab_case", **row)
+
+    try:
+        ncfg = get_preset("nee")
+        for label, (tables, camk), cfg, depth in (
+                ("nee", nee_scene, ncfg, ncfg.max_depth),
+                ("volume", volume_scene, get_preset("volume"), get_preset("volume").max_depth),
+                ("8 lights nee", (eight_light_cloud(device), nee_scene[1]), ncfg,
+                 HET_LIGHTS_DEPTH)):
+            nee = label != "volume"
+            st = scene_statics(tables)
+            hc = hk._het_consts(tables, st, depth, nee, None, None)
+            cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+            view = hk.try_make_fused_het_spp_render(
+                tables, st, cam, cfg.width, cfg.height, 0, depth, nee=nee).view
+            keys, o, d = mk._camera_rays_plain(view, 0)
+            ab("het_path", f"{label}, camera rays", lambda: hk.het_path(hc, o, d, keys))
+            for name in ("het_spp", "het_spp_persistent"):
+                fn = getattr(hk, name)
+                ab(name, f"{label}, {HET_CHECK_SPP} spp",
+                   lambda fn=fn: fn(hc, view, 0, HET_CHECK_SPP), time_it=False)
+                if label != "8 lights nee":
+                    ab(name, f"{label}, {AB_SPP} spp", lambda fn=fn: fn(hc, view, 0, AB_SPP))
+            if label != "8 lights nee":
+                # the main path's whole chunk: the package and the first
+                # other build only, one timed launch per turn
+                full = cfg.spp
+                ab("het_spp_persistent", f"{label}, {full} spp (main path's chunk)",
+                   lambda: hk.het_spp_persistent(hc, view, 0, full),
+                   builds=names[:2], reps_=1)
+
+        # K9a at tools.fit_volume's shape (grad sampling, live grid)
+        fw, fh = 96, 72
+        ftables = fit_volume.build_scene(device)
+        fcam = fit_volume._cameras(fw, fh, device)[0]
+        fstep = hk.try_make_fused_het_value_and_grad(
+            ftables, scene_statics(ftables), fcam, fw, fh, fit_volume.MAX_DEPTH, nee=True)
+        fgrid = torch.from_numpy(fit_volume._blob_target()).to(device)
+        ids, xy = window_pixels(fw, fh, None, device)
+        fkeys, fo, fd = het_grad_rays(fcam, fw, fh, ids, xy, 0, 0)
+        ab("het_path", f"fit_volume view 0, {fw}x{fh}",
+           lambda: hk.het_path(fstep.het_consts, fo, fd, fkeys, density=fgrid))
+
+        # K10 on the nee frame (zero target): radiance and Le planes exact,
+        # the grid to its atomics' order
+        tables, camk = nee_scene
+        st = scene_statics(tables)
+        cam = PinholeCamera.make(ncfg.width / ncfg.height, device=device, **camk)
+        hg = hk._het_consts(tables, st, ncfg.max_depth, True, None, None, grad_sampling=True)
+        ids, xy = window_pixels(ncfg.width, ncfg.height, None, device)
+        gkeys, go, gd = het_grad_rays(cam, ncfg.width, ncfg.height, ids, xy, 0, 0)
+        grid = tables.grid_density.contiguous()
+        use("package")
+        img_a = hk.het_path(hg, go, gd, gkeys, density=grid)
+        rfac = (2.0 * img_a / (int(ids.shape[0]) * 3)).contiguous()
+        ab("het_grad_path", f"nee {ncfg.width}x{ncfg.height}, zero target: image, Le planes",
+           lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid)[:2])
+        ab("het_grad_path", "the same: gradient grid",
+           lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid)[2],
+           exact=False, time_it=False)
+
+        # K7, K8 on the nee preset's captured tracking inputs
+        use("package")
+        integ = make_volume_integrator(tables, st, ncfg.max_depth, nee=True, with_stats=True)
+        got = capture_tracking_inputs(
+            WavefrontRenderer(tables, cam, integ, ncfg.width, ncfg.height, seed=0),
+            CAPTURE_ITERATIONS)
+        for it, args in zip(CAPTURE_ITERATIONS, got["track_sample"]):
+            ab("track_sample", f"nee iteration {it}",
+               lambda args=args: tuple(x.float() for x in mkk.track_sample(*args)))
+        for it, args in zip(CAPTURE_ITERATIONS, got["track_transmittance"]):
+            ab("track_transmittance", f"nee iteration {it} NEE segments",
+               lambda args=args: mkk.track_transmittance(*args))
+    finally:
+        mkk._lib, hk._lib = package_libs
+    emit("csrc_ab", builds=dirs, ptxas=ptxas, reps=reps, cases=len(rows))
 
 
 def phase_het_entry_points(device, nee_scene, main_image_mean):
@@ -3141,10 +3450,10 @@ def het_grad_bound(tables, n, n_spheres, n_lights, stats, tally):
     scattered = int(stats["scattered"].sum())
     hit_test = n_spheres * FLOPS_HET_SPHERE + FLOPS_VOL_BOX
     ops = (rays * (hit_test + FLOPS_VOL_RR)
-           + tally.sample_lanes * FLOPS_DDA
+           + tally.sample_segments * FLOPS_DDA_SEGMENT
            + tally.sample_candidates * (FLOPS_TRACK_CANDIDATE + FLOPS_SAMPLE_GRAD_EVENT)
            + scattered * (FLOPS_HET_SCATTER + FLOPS_HET_CONE + hit_test + FLOPS_HET_NEE_REST)
-           + 2 * (tally.tr_lanes * FLOPS_DDA
+           + 2 * (tally.tr_segments * FLOPS_DDA_SEGMENT
                   + tally.tr_candidates * FLOPS_TRANSMITTANCE_CANDIDATE)
            + tally.tr_candidates * FLOPS_TR_GRAD_EVENT)
     n_bytes = (n * (52 + 12 + 12 * n_lights) + tables.grid_super.numel() * 4
@@ -3154,7 +3463,8 @@ def het_grad_bound(tables, n, n_spheres, n_lights, stats, tally):
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
                 rays=rays, scattered=scattered, tracking_lanes=tally.sample_lanes,
-                candidates=tally.sample_candidates, shadow_lanes=tally.tr_lanes,
+                segments=tally.sample_segments, candidates=tally.sample_candidates,
+                shadow_lanes=tally.tr_lanes, shadow_segments=tally.tr_segments,
                 shadow_candidates=tally.tr_candidates)
 
 
@@ -3268,6 +3578,8 @@ def phase_het_grad_kernels(device, nee_scene, reps):
               f"{lanes_beyond} of {n} lanes")
         case["ms"] = median_ms(lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid),
                                reps, flush)
+        stats, tally = live_grid_tally(hc, o, d, keys, grid)
+        case.update(het_grad_bound(tables, n, int(hc.ic[0]), int(hc.ic[1]), stats, tally))
         case["max_abs_err"] = max(case[k]["grid_max_abs_err"] for k in ("step", "step_pair"))
         cases.append(case)
 
@@ -3319,7 +3631,8 @@ def phase_het_grad_kernels(device, nee_scene, reps):
                     f"(the tape of the whole frame does not fit the card)",
         bound_ms=full["bound_ms"], bound_by=full["bound_by"], library_ms=None,
         shape=f"{full['case']}: N={full['n']} depth={full['max_depth']} grid=64^3 L=1",
-        cases=[{k: c[k] for k in ("case", "n", "max_depth", "ms")} for c in cases]
+        cases=[{k: c[k] for k in ("case", "n", "max_depth", "ms", "bound_ms", "bound_by")}
+               for c in cases]
         + [{k: full[k] for k in ("case", "n", "max_depth", "ms", "bound_ms", "bound_by",
                                  "pass_a_ms")}],
     )]
@@ -3465,6 +3778,14 @@ def main():
     ap.add_argument("--launch-bounds-ab", action="store_true",
                     help="also build the heterogeneous whole-path kernels under "
                          "other __launch_bounds__ caps and time them")
+    ap.add_argument("--ab-csrc", action="append", default=[], metavar="NAME=DIR",
+                    help="also build media.cu and het_megakernel.cu from DIR (another "
+                         "copy of xraytracer_tpu_torch/csrc, e.g. the parent commit's) "
+                         "and hold K7-K10 of that build against the package's own, "
+                         "bitwise, timing both in turns; repeatable")
+    ap.add_argument("--ab-only", action="store_true",
+                    help="with --ab-csrc: run that comparison alone and stop "
+                         "(no result line)")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per kernel and case (median)")
     args = ap.parse_args()
@@ -3497,6 +3818,17 @@ def main():
     emit("build", seconds=build_s, libraries=sorted(
         os.path.relpath(p, _HERE) for p in paths.values()),
         flags=" ".join(_build.NVCC_FLAGS))
+
+    others = dict(a.split("=", 1) for a in args.ab_csrc)
+    check(all(os.path.isdir(d) for d in others.values()), "--ab-csrc: no such directory")
+    if others:
+        phase_csrc_ab(device, cli.build_scene(get_preset("nee"), device=device),
+                      cli.build_scene(get_preset("volume"), device=device), others,
+                      args.reps)
+        if args.ab_only:
+            emit("total", seconds=time.perf_counter() - t_start)
+            return 0
+    check(not args.ab_only, "--ab-only needs --ab-csrc")
 
     cfg = get_preset("cornellbox_gi", width=WIDTH, height=HEIGHT, spp=MAIN_SPP)
     check((cfg.width, cfg.height, cfg.max_depth, cfg.integrator) ==

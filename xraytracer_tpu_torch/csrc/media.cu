@@ -18,23 +18,26 @@
 // What bounds them on an H100: of the two roofline bounds the float32
 // operations one (a lane moves 49 B in and 21 B out, resp. 29 B and 12 B;
 // the 64^3 grid is 1 MB, its corner rows 8 MB, both resident in the 50 MB
-// L2; a lane that tracks costs ~800 flop for the supergrid walk and ~170
-// resp. ~90 per collision candidate). What keeps them away from that bound
-// is latency: every candidate is a dependent chain of logf, a 25-way search
-// in local memory, one scattered 32-byte row load and expf, and the lanes of
-// a warp leave the loop at different candidates. The design does the obvious
-// things about that and no more: segments live in a per-thread local array
-// (75 floats; the DDA fills them once per call), a density fetch is ONE
-// 32-byte row of the corner-packed table (two float4 loads) instead of eight
-// scattered loads, nothing is staged in shared memory and there is no
-// barrier, so a lane that is done costs nothing but its slot in the warp.
-// Times against the operations bound are in PERF.md.
+// L2; a lane that tracks costs ~32 flop per supergrid cell its span
+// crosses and ~150 resp. ~70 per collision candidate). What keeps them away from that
+// bound is latency: every candidate is a dependent chain of logf, its
+// segment, one scattered 32-byte row load and expf, and the lanes of a warp
+// leave the loop at different candidates. The design does the obvious
+// things about that and no more: the supergrid walk stops where the ray
+// leaves the span and its segments sit in the thread's column of a
+// block-wide frame in shared memory, where a candidate finds its segment by
+// a forward cursor (media.cuh's Walk; no frame in local memory), a density
+// fetch is ONE 32-byte row of the corner-packed table (two float4 loads)
+// instead of eight scattered loads, and there is no barrier, so a lane that
+// is done costs nothing but its slot in the warp. Times against the
+// operations bound are in PERF.md.
 
 #include "media.cuh"
 
 namespace xrt {
 
 constexpr int MEDIA_BLOCK = 128;
+static_assert(MEDIA_BLOCK == SEG_BLOCK, "the segment frames are laid out per block");
 
 __global__ void __launch_bounds__(MEDIA_BLOCK)
 track_sample_kernel(MediaGrid G, const float* __restrict__ o,

@@ -10,8 +10,10 @@
 // track_transmittance. What those did only for the TPU has no counterpart
 // here: the bf16 brick table and its one-hot matmul extraction (a corner is
 // a load from the float32 grid), the one-hot selects over the 25 segments
-// (a segment is an element of a local array), (8, 512) planes and
-// tile-uniform loop exits (a lane is a thread and leaves when it is done).
+// and their fixed-length walk (here the walk stops where the ray leaves the
+// span, and a candidate finds its segment by a forward cursor: Walk below),
+// (8, 512) planes and tile-uniform loop exits (a lane is a thread and
+// leaves when it is done).
 //
 // Parity with the plain version (xraytracer_tpu_torch/media.py) is by
 // construction, not by tolerance, wherever a DISCRETE decision hangs on the
@@ -27,6 +29,15 @@
 // Divisions, logf, expf, sqrtf and floorf are the accurate ones (no
 // fast-math). The weights only follow the decisions; they take the same
 // care where it is free and are compared at a tolerance.
+//
+// Both tracking loops are cut into a set-up and one collision candidate per
+// call (sample_begin / sample_step, trans_begin / trans_step), so that a
+// whole-path kernel can hold a lane's chain between two candidates and take
+// it up later; track_sample and track_transmittance run the whole loop. What bounds a loop on an H100 is
+// the dependent chain of each candidate (logf, the segment, a 32-byte row
+// load, expf) and the lanes' different chain lengths, not bytes or
+// operations. The walk's segments (76 floats a thread) are a column of a
+// block-wide frame in shared memory; the loops' state lives in registers.
 //
 // Both tracking loops are templates over a per-event hook. NoTrackGrad's
 // hook is empty and compiles away (K7, K8 and K9 instantiate it); the
@@ -69,12 +80,6 @@ struct MediaGrid {
   float dm;  // density multiplier
   int chan_uniform;
   int max_steps;
-};
-
-struct Segments {
-  float t[DDA_SEGMENTS + 1];    // segment start times
-  float m[DDA_SEGMENTS + 1];    // local majorants
-  float tau[DDA_SEGMENTS + 2];  // optical depth at segment starts + the end
 };
 
 __device__ __forceinline__ float grid_axis(const MediaGrid& G, int k, float p,
@@ -135,63 +140,110 @@ __device__ __forceinline__ float exit_time(float v, float v_safe, float lo,
   return INFINITY;
 }
 
-// media.py::_majorant_segments: the integer-walk DDA through the supergrid
-// over [t0f, t1f]; 24 segments and a global-majorant tail; tau is the
-// left-to-right running sum of majorant x length.
-__device__ __forceinline__ void dda_segments(const MediaGrid& G, float3 o,
-                                             float3 d, float t0f, float t1f,
-                                             Segments& S) {
-  const float oo[3] = {o.x, o.y, o.z}, dd[3] = {d.x, d.y, d.z};
-  float a[3], v[3], v_safe[3], b[3], sgn[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    a[k] = XM(oo[k] - G.gmin[k], G.scale[k]);
-    v[k] = XM(dd[k], G.scale[k]);
-    v_safe[k] = fabsf(v[k]) < 1e-20f ? 1e-20f : v[k];
-    sgn[k] = v[k] >= 0.f ? 1.0f : -1.0f;
-    const float x0 = XA(a[k], XM(t0f, v[k]));
-    b[k] = fminf(fmaxf(floorf(x0 / G.bs[k]), 0.f), G.nbf_m1[k]);
-  }
-  float t_cur = t0f;
-  for (int s = 0; s < DDA_SEGMENTS; ++s) {
-    const int flat = ((int)b[0] * G.nb[1] + (int)b[1]) * G.nb[2] + (int)b[2];
-    const float m_loc = XM(XM(__ldg(G.super + flat), G.dm), G.sigma_t_max);
-    float e[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      e[k] = exit_time(v[k], v_safe[k], XM(b[k], G.bs[k]),
-                       XM(b[k] + 1.0f, G.bs[k]), a[k]);
-    const float t_hi = fminf(fminf(e[0], e[1]), e[2]);
-    // exit axis: the first minimum (x, then y, then z)
-    const bool step_x = (e[0] <= e[1]) & (e[0] <= e[2]);
-    const bool step_y = !step_x & (e[1] <= e[2]);
-    const int ax = step_x ? 0 : (step_y ? 1 : 2);
-    S.t[s] = t_cur;
-    S.m[s] = t_cur < t1f ? m_loc : 0.f;
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      if (k == ax) b[k] = fminf(fmaxf(b[k] + sgn[k], 0.f), G.nbf_m1[k]);
-    t_cur = fminf(fmaxf(t_hi, t_cur), t1f);
-  }
-  const float t_tail = fminf(t_cur, t1f);
-  S.t[DDA_SEGMENTS] = t_tail;
-  S.m[DDA_SEGMENTS] = t_tail < t1f ? G.majorant : 0.f;
-  S.tau[0] = 0.f;
-  for (int k = 0; k <= DDA_SEGMENTS; ++k) {
-    const float end = k == DDA_SEGMENTS ? t1f : S.t[k + 1];
-    S.tau[k + 1] = XA(S.tau[k], XM(S.m[k], fmaxf(end - S.t[k], 0.f)));
-  }
+// Threads per block of every kernel that tracks (media.cu, het_megakernel.cu
+// assert it): the segment frames are laid out by it.
+constexpr int SEG_BLOCK = 128;
+constexpr int SEG_FLOATS = 3 * (DDA_SEGMENTS + 1) + 1;  // t, m: 25; tau: 26
+
+// This thread's segment frame: a column of a block-wide array in shared
+// memory, element j at [j][threadIdx.x], so that a warp's 32 lanes hit 32
+// banks (38,912 bytes per block). One frame serves all of a thread's walks,
+// one walk at a time.
+__device__ __forceinline__ float* seg_frame() {
+  __shared__ float frame[SEG_FLOATS * SEG_BLOCK];
+  return frame + threadIdx.x;
 }
 
-// media.py::_tau_to_t: the segment whose start is the last edge <= tau.
-__device__ __forceinline__ float tau_to_t(const Segments& S, float tau,
-                                          float& m_loc) {
-  int k = -1;
-  for (int j = 0; j <= DDA_SEGMENTS; ++j) k += S.tau[j] <= tau ? 1 : 0;
-  k = min(max(k, 0), DDA_SEGMENTS);
-  m_loc = S.m[k];
-  return S.t[k] + (tau - S.tau[k]) / (m_loc <= 0.f ? 1.0f : m_loc);
-}
+// media.py::_majorant_segments and _tau_to_t: the integer-walk DDA through
+// the supergrid over [t0f, t1f] (24 segments and a global-majorant tail;
+// tau is the left-to-right running sum of majorant x length) into the
+// thread's frame, and a cursor over it.
+//
+// The walk stops where the ray leaves the span: once a segment starts at
+// t1f, it and every later one (the tail included) has length 0 and
+// majorant 0, so the plain version's later edges all equal this one's tau,
+// and its segment search, "the last edge <= tau", gives this segment's t,
+// m and tau for any tau at or past it; segment n is the walk's last. Within
+// one tracking loop the queried tau never decreases (a candidate adds
+// -log(1 - u) >= 0), so the search is a cursor that only moves forward,
+// across runs of equal edges too (empty supercells, m = 0).
+struct Walk {
+  float* f;  // the frame
+  int k;     // the cursor: the segment of the last query
+  int n;     // the last segment (its end is t1f)
+
+  __device__ __forceinline__ float& t(int j) const { return f[j * SEG_BLOCK]; }
+  __device__ __forceinline__ float& m(int j) const {
+    return f[(DDA_SEGMENTS + 1 + j) * SEG_BLOCK];
+  }
+  __device__ __forceinline__ float& tau(int j) const {
+    return f[(2 * (DDA_SEGMENTS + 1) + j) * SEG_BLOCK];
+  }
+
+  // Returns the walk's whole optical depth.
+  __device__ __forceinline__ float begin(const MediaGrid& G, float3 o,
+                                         float3 d, float t0f, float t1f) {
+    f = seg_frame();
+    const float oo[3] = {o.x, o.y, o.z}, dd[3] = {d.x, d.y, d.z};
+    float a[3], v[3], v_safe[3], b[3], sgn[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      a[c] = XM(oo[c] - G.gmin[c], G.scale[c]);
+      v[c] = XM(dd[c], G.scale[c]);
+      v_safe[c] = fabsf(v[c]) < 1e-20f ? 1e-20f : v[c];
+      sgn[c] = v[c] >= 0.f ? 1.0f : -1.0f;
+      const float x0 = XA(a[c], XM(t0f, v[c]));
+      b[c] = fminf(fmaxf(floorf(x0 / G.bs[c]), 0.f), G.nbf_m1[c]);
+    }
+    float t_cur = t0f, tau_cur = 0.f;
+    tau(0) = 0.f;
+    n = DDA_SEGMENTS;
+    for (int s = 0; s < DDA_SEGMENTS; ++s) {
+      if (!(t_cur < t1f)) {  // the ray has left the span: the rest is empty
+        n = s;
+        break;
+      }
+      const int flat = ((int)b[0] * G.nb[1] + (int)b[1]) * G.nb[2] + (int)b[2];
+      const float m_loc = XM(XM(__ldg(G.super + flat), G.dm), G.sigma_t_max);
+      float e[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        e[c] = exit_time(v[c], v_safe[c], XM(b[c], G.bs[c]),
+                         XM(b[c] + 1.0f, G.bs[c]), a[c]);
+      const float t_hi = fminf(fminf(e[0], e[1]), e[2]);
+      // exit axis: the first minimum (x, then y, then z)
+      const bool step_x = (e[0] <= e[1]) & (e[0] <= e[2]);
+      const bool step_y = !step_x & (e[1] <= e[2]);
+      const int ax = step_x ? 0 : (step_y ? 1 : 2);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        if (c == ax) b[c] = fminf(fmaxf(b[c] + sgn[c], 0.f), G.nbf_m1[c]);
+      const float t_nxt = fminf(fmaxf(t_hi, t_cur), t1f);
+      t(s) = t_cur;
+      m(s) = m_loc;
+      tau_cur = XA(tau_cur, XM(m_loc, fmaxf(t_nxt - t_cur, 0.f)));
+      tau(s + 1) = tau_cur;
+      t_cur = t_nxt;
+    }
+    // the last segment: the global-majorant tail over what the 24 left,
+    // or the empty rest of the span
+    const float m_last = (n == DDA_SEGMENTS && t_cur < t1f) ? G.majorant : 0.f;
+    t(n) = t_cur;
+    m(n) = m_last;
+    tau_cur = XA(tau_cur, XM(m_last, fmaxf(t1f - t_cur, 0.f)));
+    tau(n + 1) = tau_cur;
+    k = 0;
+    return tau_cur;
+  }
+
+  // The point of optical depth tau_q (>= every earlier query of this walk)
+  // and its segment's majorant.
+  __device__ __forceinline__ float locate(float tau_q, float& m_loc) {
+    while (k < n && tau(k + 1) <= tau_q) ++k;
+    m_loc = m(k);
+    return t(k) + (tau_q - tau(k)) / (m_loc <= 0.f ? 1.0f : m_loc);
+  }
+};
 
 __device__ __forceinline__ float3 ray_at(float3 o, float3 d, float t) {
   return make_float3(XA(o.x, XM(t, d.x)), XA(o.y, XM(t, d.y)),
@@ -323,6 +375,131 @@ struct TrackResult {
 // spectral MIS over collision candidates in optical-depth space. Draws:
 // site + step * 4 + {0 wavelength, 1 distance, 2 event}. ``hook.event``
 // sees every scatter and null collision (SampleGrad).
+//
+// The loop is cut into a set-up (sample_begin) and one collision candidate
+// per call (sample_step); track_sample below runs the loop. The walk is
+// passed beside the loop's state, so that one walk (one frame) serves the
+// tracking and then the shadow ray's transmittance.
+struct SampleLoop {
+  float sig_a[3];  // at the last candidate, for the channel pick
+  float m_prev;    // majorant at the last candidate
+  float tau_total;  // the walk's optical depth less RAY_EPS x majorant
+  float tau;
+  int step;
+  uint32_t site;
+  TrackResult R;
+};
+
+__device__ __forceinline__ void sample_begin(const MediaGrid& G, Walk& W,
+                                             SampleLoop& K, float3 o,
+                                             float3 d, float t0, float t1,
+                                             uint32_t site) {
+  const float t0f = isfinite(t0) ? t0 : 0.f;
+  const float t1f = isfinite(t1) ? fmaxf(t1, t0f) : t0f;
+  K.tau_total = W.begin(G, o, d, t0f, t1f) - XM(RAY_EPS_F, G.majorant);
+  // sigma_a at the entry point, for the first channel pick
+  const float dens0 = density(G, ray_at(o, d, t0)) * G.dm;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) K.sig_a[c] = XM(G.sigma_a[c], dens0);
+  W.locate(0.f, K.m_prev);
+  K.m_prev = fmaxf(K.m_prev, 0.f);
+  K.tau = 0.f;
+  K.step = 0;
+  K.site = site;
+  K.R.t = t1 + RAY_EPS_F;
+  K.R.w[0] = K.R.w[1] = K.R.w[2] = 1.0f;
+  K.R.scattered = 0;
+  K.R.scat_step = 0;
+}
+
+// One collision candidate of the loop (``tp``: the path throughput, o and
+// d the ray given to sample_begin). Returns false once the lane is done:
+// escaped, scattered, or exhausted (weight 0, the bounded-loop policy).
+template <class Hook>
+__device__ __forceinline__ bool sample_step(const MediaGrid& G, Walk& W,
+                                            SampleLoop& K, float3 o, float3 d,
+                                            const float tp[3], uint32_t key,
+                                            const Hook& hook) {
+  TrackResult& R = K.R;
+  if (K.step >= G.max_steps) {
+    R.w[0] = R.w[1] = R.w[2] = 0.f;
+    return false;
+  }
+  const uint32_t offs = K.site + (uint32_t)(K.step * SITES_PER_STEP);
+  const float u_wl = u1(key, offs);
+  const float u_dist = u1(key, offs + 1u);
+  const float u_ev = u1(key, offs + 2u);
+
+  float pmf[3];
+  int channel;
+  if (G.chan_uniform) {
+    channel = pick_channel(1.0f, 1.0f, 1.0f, u_wl, pmf);
+  } else {
+    const float m_prev_s = K.m_prev <= 0.f ? 1.0f : K.m_prev;
+    float pw[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      pw[c] = XM(XM(tp[c], R.w[c]),
+                 fmaxf((K.m_prev - K.sig_a[c]) / m_prev_s, 0.f));
+    channel = pick_channel(pw[0], pw[1], pw[2], u_wl, pmf);
+  }
+
+  const float dtau = -logf(fmaxf(1.0f - u_dist, TINY));
+  const float tau_new = K.tau + dtau;
+  if (tau_new > K.tau_total) {  // escape
+    const float tr_esc = expf(-(K.tau_total - K.tau));
+    const float pdf_esc =
+        XA(XA(XM(pmf[0], tr_esc), XM(pmf[1], tr_esc)), XM(pmf[2], tr_esc));
+    const float pe = safe1(pdf_esc);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) R.w[c] = XM(R.w[c], tr_esc) / pe;
+    return false;
+  }
+  float m_loc;
+  const float t_new = W.locate(tau_new, m_loc);
+  const float m_safe = m_loc <= 0.f ? 1.0f : m_loc;
+  const float3 pt = ray_at(o, d, t_new);
+  const float dens = density(G, pt) * G.dm;
+  float sig_s[3], sig_n[3], p_s[3], p_n[3], q[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    sig_s[c] = XM(G.sigma_s[c], dens);
+    K.sig_a[c] = XM(G.sigma_a[c], dens);
+    sig_n[c] = fmaxf((m_loc - K.sig_a[c]) - sig_s[c], 0.f);
+    q[c] = safe1(XA(sig_s[c], sig_n[c]));
+    p_s[c] = sig_s[c] / q[c];
+    p_n[c] = sig_n[c] / q[c];
+  }
+  const float p_s_c = channel == 0 ? p_s[0] : (channel == 1 ? p_s[1] : p_s[2]);
+  const float tr_s = expf(-dtau);
+  const float base[3] = {XM(XM(pmf[0], m_safe), tr_s),
+                         XM(XM(pmf[1], m_safe), tr_s),
+                         XM(XM(pmf[2], m_safe), tr_s)};
+  if (u_ev < p_s_c) {  // a real scatter
+    const float pdf_sc = safe1(XA(XA(XM(base[0], p_s[0]), XM(base[1], p_s[1])),
+                                  XM(base[2], p_s[2])));
+    if constexpr (Hook::on)
+      hook.event(G, pt, true, channel, base, sig_s, sig_n, q, p_s_c, pdf_sc);
+    R.t = t_new;
+    R.scattered = 1;
+    R.scat_step = K.step;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      R.w[c] = XM(XM(R.w[c], tr_s), sig_s[c]) / pdf_sc;
+    return false;
+  }
+  const float pdf_nl = safe1(XA(XA(XM(base[0], p_n[0]), XM(base[1], p_n[1])),
+                                XM(base[2], p_n[2])));
+  if constexpr (Hook::on)
+    hook.event(G, pt, false, channel, base, sig_s, sig_n, q, p_s_c, pdf_nl);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) R.w[c] = XM(XM(R.w[c], tr_s), sig_n[c]) / pdf_nl;
+  K.tau = tau_new;
+  K.m_prev = m_loc;
+  K.step += 1;
+  return true;
+}
+
 template <class Hook>
 __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
                                                     float3 o, float3 d,
@@ -331,109 +508,12 @@ __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
                                                     uint32_t key,
                                                     uint32_t site,
                                                     const Hook& hook) {
-  const float t0f = isfinite(t0) ? t0 : 0.f;
-  const float t1f = isfinite(t1) ? fmaxf(t1, t0f) : t0f;
-  Segments S;
-  dda_segments(G, o, d, t0f, t1f, S);
-  const float tau_total = S.tau[DDA_SEGMENTS + 1] - XM(RAY_EPS_F, G.majorant);
-
-  // sigma_a at the entry point, for the first channel pick
-  const float dens0 = density(G, ray_at(o, d, t0)) * G.dm;
-  float sig_a[3] = {XM(G.sigma_a[0], dens0), XM(G.sigma_a[1], dens0),
-                    XM(G.sigma_a[2], dens0)};
-  float m_prev;
-  tau_to_t(S, 0.f, m_prev);
-  m_prev = fmaxf(m_prev, 0.f);
-
-  TrackResult R;
-  R.t = t1 + RAY_EPS_F;
-  R.w[0] = R.w[1] = R.w[2] = 1.0f;
-  R.scattered = 0;
-  R.scat_step = 0;
-  float tau = 0.f;
-  bool active = true;
-  for (int step = 0; step < G.max_steps && active; ++step) {
-    const uint32_t offs = site + (uint32_t)(step * SITES_PER_STEP);
-    const float u_wl = u1(key, offs);
-    const float u_dist = u1(key, offs + 1u);
-    const float u_ev = u1(key, offs + 2u);
-
-    float pmf[3];
-    int channel;
-    if (G.chan_uniform) {
-      channel = pick_channel(1.0f, 1.0f, 1.0f, u_wl, pmf);
-    } else {
-      const float m_prev_s = m_prev <= 0.f ? 1.0f : m_prev;
-      float pw[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        pw[c] = XM(XM(tp[c], R.w[c]),
-                   fmaxf((m_prev - sig_a[c]) / m_prev_s, 0.f));
-      channel = pick_channel(pw[0], pw[1], pw[2], u_wl, pmf);
-    }
-
-    const float dtau = -logf(fmaxf(1.0f - u_dist, TINY));
-    const float tau_new = tau + dtau;
-
-    const bool esc = tau_new > tau_total;
-    const float tr_esc = expf(-(tau_total - tau));
-    const float pdf_esc =
-        XA(XA(XM(pmf[0], tr_esc), XM(pmf[1], tr_esc)), XM(pmf[2], tr_esc));
-    const float pe = safe1(pdf_esc);
-
-    float m_loc;
-    const float t_new = tau_to_t(S, tau_new, m_loc);
-    const float m_safe = m_loc <= 0.f ? 1.0f : m_loc;
-    const float3 pt = ray_at(o, d, t_new);
-    const float dens = density(G, pt) * G.dm;
-    float sig_s[3], sig_n[3], p_s[3], p_n[3], q[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      sig_s[c] = XM(G.sigma_s[c], dens);
-      sig_a[c] = XM(G.sigma_a[c], dens);
-      sig_n[c] = fmaxf((m_loc - sig_a[c]) - sig_s[c], 0.f);
-      q[c] = safe1(XA(sig_s[c], sig_n[c]));
-      p_s[c] = sig_s[c] / q[c];
-      p_n[c] = sig_n[c] / q[c];
-    }
-    const float p_s_c = channel == 0 ? p_s[0] : (channel == 1 ? p_s[1] : p_s[2]);
-    const float tr_s = expf(-dtau);
-    const float base[3] = {XM(XM(pmf[0], m_safe), tr_s),
-                           XM(XM(pmf[1], m_safe), tr_s),
-                           XM(XM(pmf[2], m_safe), tr_s)};
-    const bool scat = !esc & (u_ev < p_s_c);
-    if (esc) {
-      R.t = t1 + RAY_EPS_F;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) R.w[c] = XM(R.w[c], tr_esc) / pe;
-      active = false;
-    } else if (scat) {
-      const float pdf_sc = safe1(XA(XA(XM(base[0], p_s[0]), XM(base[1], p_s[1])),
-                                    XM(base[2], p_s[2])));
-      if constexpr (Hook::on)
-        hook.event(G, pt, true, channel, base, sig_s, sig_n, q, p_s_c, pdf_sc);
-      R.t = t_new;
-      R.scattered = 1;
-      R.scat_step = step;
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        R.w[c] = XM(XM(R.w[c], tr_s), sig_s[c]) / pdf_sc;
-      active = false;
-    } else {
-      const float pdf_nl = safe1(XA(XA(XM(base[0], p_n[0]), XM(base[1], p_n[1])),
-                                    XM(base[2], p_n[2])));
-      if constexpr (Hook::on)
-        hook.event(G, pt, false, channel, base, sig_s, sig_n, q, p_s_c, pdf_nl);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        R.w[c] = XM(XM(R.w[c], tr_s), sig_n[c]) / pdf_nl;
-      tau = tau_new;
-      m_prev = m_loc;
-    }
+  Walk W;
+  SampleLoop K;
+  sample_begin(G, W, K, o, d, t0, t1, site);
+  while (sample_step(G, W, K, o, d, tp, key, hook)) {
   }
-  // exhausted lanes: weight 0 (bounded-loop policy)
-  if (active) R.w[0] = R.w[1] = R.w[2] = 0.f;
-  return R;
+  return K.R;
 }
 
 __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
@@ -447,7 +527,63 @@ __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
 
 // media.py::_track_transmittance for one lane: ratio tracking from p1 to
 // p2. Draws: site + step. ``hook.event`` sees every candidate that does
-// not escape (TransGrad).
+// not escape (TransGrad). Cut like the sample loop: trans_begin, then one
+// candidate per trans_step.
+struct TransLoop {
+  float3 p1, d;
+  float tau_total;
+  float tau;
+  int step;
+  uint32_t site;
+  float tr[3];
+};
+
+__device__ __forceinline__ void trans_begin(const MediaGrid& G, Walk& W,
+                                            TransLoop& K, float3 p1, float3 p2,
+                                            uint32_t site) {
+  const float3 dv = sub3(p2, p1);
+  const float dist =
+      sqrtf(XA(XA(XM(dv.x, dv.x), XM(dv.y, dv.y)), XM(dv.z, dv.z)));
+  const float sd = safe1(dist);
+  K.d = make_float3(dv.x / sd, dv.y / sd, dv.z / sd);
+  K.p1 = p1;
+  const float t1f = isfinite(dist) ? fmaxf(dist, 0.f) : 0.f;
+  K.tau_total = W.begin(G, p1, K.d, 0.f, t1f);
+  K.tr[0] = K.tr[1] = K.tr[2] = 1.0f;
+  K.tau = 0.f;
+  K.step = 0;
+  K.site = site;
+}
+
+// One candidate; false once the lane is done: escaped (tr final) or
+// exhausted (tr = 0, never biased bright).
+template <class Hook>
+__device__ __forceinline__ bool trans_step(const MediaGrid& G, Walk& W,
+                                           TransLoop& K, uint32_t key,
+                                           const Hook& hook) {
+  if (K.step >= G.max_steps) {
+    K.tr[0] = K.tr[1] = K.tr[2] = 0.f;
+    return false;
+  }
+  const float u = u1(key, K.site + (uint32_t)K.step);
+  const float tau_new = K.tau - logf(fmaxf(1.0f - u, TINY));
+  if (tau_new > K.tau_total) return false;  // escaped: tr is final
+  float m_loc;
+  const float t_new = W.locate(tau_new, m_loc);
+  const float3 pt = ray_at(K.p1, K.d, t_new);
+  const float dens = density(G, pt) * G.dm;
+  if constexpr (Hook::on) hook.event(G, pt, m_loc, dens);
+  const float m_safe = m_loc <= 0.f ? 1.0f : m_loc;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float sig_n = fmaxf(m_loc - XM(G.sigma_t[c], dens), 0.f);
+    K.tr[c] = XM(K.tr[c], sig_n) / m_safe;
+  }
+  K.tau = tau_new;
+  K.step += 1;
+  return true;
+}
+
 template <class Hook>
 __device__ __forceinline__ void track_transmittance(const MediaGrid& G,
                                                     float3 p1, float3 p2,
@@ -455,40 +591,13 @@ __device__ __forceinline__ void track_transmittance(const MediaGrid& G,
                                                     uint32_t site,
                                                     float tr[3],
                                                     const Hook& hook) {
-  const float3 dv = sub3(p2, p1);
-  const float dist =
-      sqrtf(XA(XA(XM(dv.x, dv.x), XM(dv.y, dv.y)), XM(dv.z, dv.z)));
-  const float sd = safe1(dist);
-  const float3 d = make_float3(dv.x / sd, dv.y / sd, dv.z / sd);
-  const float t1f = isfinite(dist) ? fmaxf(dist, 0.f) : 0.f;
-  Segments S;
-  dda_segments(G, p1, d, 0.f, t1f, S);
-  const float tau_total = S.tau[DDA_SEGMENTS + 1];
-  tr[0] = tr[1] = tr[2] = 1.0f;
-  float tau = 0.f;
-  bool active = true;
-  for (int step = 0; step < G.max_steps && active; ++step) {
-    const float u = u1(key, site + (uint32_t)step);
-    const float tau_new = tau - logf(fmaxf(1.0f - u, TINY));
-    if (tau_new > tau_total) {
-      active = false;
-      continue;
-    }
-    float m_loc;
-    const float t_new = tau_to_t(S, tau_new, m_loc);
-    const float3 pt = ray_at(p1, d, t_new);
-    const float dens = density(G, pt) * G.dm;
-    if constexpr (Hook::on) hook.event(G, pt, m_loc, dens);
-    const float m_safe = m_loc <= 0.f ? 1.0f : m_loc;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float sig_n = fmaxf(m_loc - XM(G.sigma_t[c], dens), 0.f);
-      tr[c] = XM(tr[c], sig_n) / m_safe;
-    }
-    tau = tau_new;
+  Walk W;
+  TransLoop K;
+  trans_begin(G, W, K, p1, p2, site);
+  while (trans_step(G, W, K, key, hook)) {
   }
-  // exhausted lanes: 0 (never biased bright)
-  if (active) tr[0] = tr[1] = tr[2] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) tr[c] = K.tr[c];
 }
 
 __device__ __forceinline__ void track_transmittance(const MediaGrid& G,
@@ -498,6 +607,7 @@ __device__ __forceinline__ void track_transmittance(const MediaGrid& G,
                                                     float tr[3]) {
   track_transmittance(G, p1, p2, key, site, tr, NoTrackGrad{});
 }
+
 
 // The medium and its grid from the host arrays of media_kernels.py (host
 // code, shared by the launchers of media.cu and het_megakernel.cu):
