@@ -29,7 +29,8 @@ libraries: the sweeps, the whole-path surface kernels with the
 analytic-gradient kernel, the whole-path homogeneous volume kernels, the
 heterogeneous tracking kernels, the whole-path heterogeneous volume
 kernels with the analytic volume-gradient kernel), holds each of the
-sixteen kernels against its plain PyTorch version on the card at the
+sixteen kernels (and the corner-table helper of the volume gradient's
+route) against its plain PyTorch version on the card at the
 shapes its path gives it, reproduces the two CPU golden images through the
 kernels, and then drives, through the port's public entry points:
 
@@ -70,13 +71,16 @@ kernels, and then drives, through the port's public entry points:
 * ``vol_grad_path_analytic`` and ``vol_grad_path_autograd``: the gradient
   of the L2 image loss w.r.t. the density grid and Le on the nee preset
   (depth 32), by ``diff.try_make_fast_value_and_grad`` at 780x585 (one
-  ``het_path`` and one ``het_grad_path`` launch per step) and by torch
+  ``pack_corners``, one ``het_path`` and one ``het_grad_path`` launch per
+  step) and by torch
   autograd through ``diff.make_radiance_fn(..., score_terms=True,
   grad_sampling=True)`` on a 96x72 window of the frame (the whole frame's
   tape does not fit the card);
 * ``fit_volume_path``: ``tools.fit_volume.fit`` at its published 96x72,
   depth 6, three views, two pairs, 600 steps through ``het_path`` and
-  ``het_grad_path``, whose loss and density error must fall.
+  ``het_grad_path`` (per view and pair one launch of each pass over both
+  streams; its 16^3 grid is read by corner loads, not packed), whose loss
+  and density error must fall.
 
 Every launch count is set to 0 just before each of these runs and read just
 after it; the script checks that the run went through exactly the kernels
@@ -158,18 +162,23 @@ run's data:
   planes), the table and the light rows once;
 * the analytic volume-gradient kernel (pass B) needs a replay of the whole
   heterogeneous path on the same draws (as above, counted by the plain
-  version's forward tallies under the grad-sampling estimator), the shadow
-  rays' transmittance walks a second time (once for tr, once for its
-  events), and per collision candidate the gradient event: 80 flop for a
+  version's forward tallies under the grad-sampling estimator; each shadow
+  ray's walk once, since a walk's events can be kept until its
+  transmittance is known), and per collision candidate the gradient
+  event: 80 flop for a
   tracking candidate (three channels of d p_s, the pdf's derivative, two
   score terms, the coefficient; eight corner weights and eight atomic adds)
   and 45 for a transmittance candidate (three ratios' derivatives, the
   corners). Bytes: 52 per lane in (ray, key, image, residual), 12 + 12L
   out (image, Le planes), the grid and the supergrid read once, the
-  gradient grid written once.
+  gradient grid written once;
+* the corner table of a live grid (pack_corners, no TPU kernel: a helper
+  of the analytic volume gradient's route) moves the grid in once and 8
+  floats per cell out: 9 x cells x 4 bytes, no arithmetic.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -447,7 +456,7 @@ def kernel_modules():
 
 
 def all_counts():
-    """Launch and plain-call counts of all sixteen kernels."""
+    """Launch and plain-call counts of all seventeen kernels."""
     out = {}
     for mod in kernel_modules():
         out.update(mod.counts())
@@ -2376,6 +2385,17 @@ def phase_launch_bounds_ab(device, nee_scene, volume_scene, reps):
          ptxas={m: built[f"het_megakernel_mb{m}"][1] for m in libs})
 
 
+def bind_launchers(module, lib, names):
+    """Declare the C signatures of ``names`` (launchers of ``module``) on
+    another build's library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = module._ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    lib._xrt_bound = True
+    return lib
+
+
 def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     """The tracking kernels (K7, K8) and the heterogeneous whole-path and
     gradient kernels (K9a-c, K10) of other builds of the sources (``others``:
@@ -2385,8 +2405,11 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     largest difference), and every build timed in turns (the builds in
     order, then in reverse) on the nee and volume presets at AB_SPP samples
     per pixel, at their main paths' full spp chunks, on the camera rays of
-    sample 0 (K9a, also at tools.fit_volume's shape), on the nee preset's
-    captured tracking inputs (K7, K8) and on its full frame (K10)."""
+    sample 0 (K9a), on the nee preset's captured tracking inputs (K7, K8),
+    and K9a (pass A) and K10 at K10's three shapes (the nee frame,
+    tools.fit_volume's first view, the 16^3 cloud) on the dense and the
+    packed live grid, with step_pair's two streams at the view as two
+    launches and as one. pack_corners is the package's in every build."""
     import ctypes
 
     import torch
@@ -2407,7 +2430,10 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     built = build_sources([(f"ab_{name}_{lib}", os.path.join(d, f"{lib}.cu"), [])
                            for name, d in dirs.items()
                            for lib in ("media", "het_megakernel")])
-    libs = {name: (mkk._bind(ctypes.CDLL(built[f"ab_{name}_media"][0])),
+    # the tracking launchers of every build (pack_corners stays the
+    # package's: an older media.cu may lack it)
+    libs = {name: (bind_launchers(mkk, ctypes.CDLL(built[f"ab_{name}_media"][0]),
+                                  ("track_sample", "track_transmittance")),
                    hk._bind(ctypes.CDLL(built[f"ab_{name}_het_megakernel"][0])))
             for name in dirs}
     ptxas = {name: {**built[f"ab_{name}_media"][1], **built[f"ab_{name}_het_megakernel"][1]}
@@ -2419,6 +2445,10 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     def use(name):
         mkk._lib = lambda lib=libs[name][0]: lib
         hk._lib = lambda lib=libs[name][1]: lib
+
+    def pack(grid):
+        mkk._lib = package_libs[0]
+        return mkk.pack_corners(grid)
 
     def ab(kernel, case, run, exact=True, time_it=True, builds=None, reps_=None):
         """Run ``run`` on every build (or on ``builds``): outputs vs the
@@ -2488,41 +2518,81 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
                    lambda: hk.het_spp_persistent(hc, view, 0, full),
                    builds=names[:2], reps_=1)
 
-        # K9a at tools.fit_volume's shape (grad sampling, live grid)
+        # K9a (pass A) and K10 at K10's three shapes: the nee frame at a zero
+        # target, tools.fit_volume's first view (96x72, depth 6, blob grid)
+        # and the 16^3 cloud (16x12, depth 3), at a target of 0.6 x the image
+        # + 0.02 (every lane's residual non-zero); each on the live grid by
+        # eight corner loads ("dense") and by its corner table ("packed"):
+        # radiance and Le planes exact, the grid to its atomics' order
+        tables, camk = nee_scene
         fw, fh = 96, 72
         ftables = fit_volume.build_scene(device)
         fcam = fit_volume._cameras(fw, fh, device)[0]
-        fstep = hk.try_make_fused_het_value_and_grad(
-            ftables, scene_statics(ftables), fcam, fw, fh, fit_volume.MAX_DEPTH, nee=True)
-        fgrid = torch.from_numpy(fit_volume._blob_target()).to(device)
-        ids, xy = window_pixels(fw, fh, None, device)
-        fkeys, fo, fd = het_grad_rays(fcam, fw, fh, ids, xy, 0, 0)
-        ab("het_path", f"fit_volume view 0, {fw}x{fh}",
-           lambda: hk.het_path(fstep.het_consts, fo, fd, fkeys, density=fgrid))
-
-        # K10 on the nee frame (zero target): radiance and Le planes exact,
-        # the grid to its atomics' order
-        tables, camk = nee_scene
-        st = scene_statics(tables)
-        cam = PinholeCamera.make(ncfg.width / ncfg.height, device=device, **camk)
-        hg = hk._het_consts(tables, st, ncfg.max_depth, True, None, None, grad_sampling=True)
-        ids, xy = window_pixels(ncfg.width, ncfg.height, None, device)
-        gkeys, go, gd = het_grad_rays(cam, ncfg.width, ncfg.height, ids, xy, 0, 0)
-        grid = tables.grid_density.contiguous()
-        use("package")
-        img_a = hk.het_path(hg, go, gd, gkeys, density=grid)
-        rfac = (2.0 * img_a / (int(ids.shape[0]) * 3)).contiguous()
-        ab("het_grad_path", f"nee {ncfg.width}x{ncfg.height}, zero target: image, Le planes",
-           lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid)[:2])
-        ab("het_grad_path", "the same: gradient grid",
-           lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid)[2],
-           exact=False, time_it=False)
+        ctables, ccamk, cgrid = grad_cloud_scene(device)
+        shapes = (
+            (f"nee {ncfg.width}x{ncfg.height}, zero target", tables,
+             PinholeCamera.make(ncfg.width / ncfg.height, device=device, **camk),
+             ncfg.width, ncfg.height, ncfg.max_depth, None, tables.grid_density.contiguous()),
+            (f"fit_volume view 0, {fw}x{fh}", ftables, fcam, fw, fh, fit_volume.MAX_DEPTH,
+             None, torch.from_numpy(fit_volume._blob_target()).to(device)),
+            ("16^3 cloud 16x12 d3", ctables,
+             PinholeCamera.make(16 / 12, device=device, **ccamk), 16, 12, 3, 32, cgrid))
+        mkk._lib = package_libs[0]
+        check_pack_corners(device, {s_[0]: (s_[7], s_[1].grid_packed if s_[1] is not ftables else None)
+                                    for s_ in shapes}, reps, flush)
+        for label, gtables, gcam, w, h, depth, max_steps, grid in shapes:
+            hg = hk._het_consts(gtables, scene_statics(gtables), depth, True, max_steps, None,
+                                grad_sampling=True)
+            ids, xy = window_pixels(w, h, None, device)
+            n = int(ids.shape[0])
+            gkeys, go, gd = het_grad_rays(gcam, w, h, ids, xy, 0, 0)
+            packed = pack(grid)
+            use("package")
+            img_a = hk.het_path(hg, go, gd, gkeys, density=grid)
+            tgt = torch.zeros_like(img_a) if label.startswith("nee") else img_a * 0.6 + 0.02
+            rfac = (2.0 * (img_a - tgt) / (n * 3)).contiguous()
+            # the small shapes' launches (under 1 ms) spread more: 4x the reps
+            rr = reps if label.startswith("nee") else 4 * reps
+            for mode, pk in (("dense", None), ("packed", packed)):
+                ab("het_path", f"{label}, pass A, {mode}",
+                   lambda: hk.het_path(hg, go, gd, gkeys, density=grid, packed=pk), reps_=rr)
+                ab("het_grad_path", f"{label}, {mode}: image, Le planes",
+                   lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid, packed=pk)[:2],
+                   reps_=rr)
+                ab("het_grad_path", f"{label}, {mode}: gradient grid",
+                   lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid,
+                                            packed=pk)[2],
+                   exact=False, time_it=False)
+            if not label.startswith("fit_volume"):
+                continue
+            # step_pair's two streams (seed 0, sample 0; seed 7919, sample 1)
+            # at this view: two launches of N against one launch of 2N
+            bkeys, bo, bd = het_grad_rays(gcam, w, h, ids, xy, 7919, 1)
+            img_b = hk.het_path(hg, bo, bd, bkeys, density=grid)
+            rfac_b = (2.0 * (img_b - tgt) / (n * 3)).contiguous()
+            cat = [torch.cat(p).contiguous() for p in
+                   ((go, bo), (gd, bd), (gkeys, bkeys), (img_a, img_b), (rfac, rfac_b))]
+            for mode, pk in (("dense", None), ("packed", packed)):
+                ab("het_path", f"{label}, two streams, 2 launches of N, {mode}",
+                   lambda: torch.cat([hk.het_path(hg, go, gd, gkeys, density=grid, packed=pk),
+                                      hk.het_path(hg, bo, bd, bkeys, density=grid, packed=pk)]),
+                   reps_=rr)
+                ab("het_path", f"{label}, two streams, 1 launch of 2N, {mode}",
+                   lambda: hk.het_path(hg, *cat[:3], density=grid, packed=pk), reps_=rr)
+                ab("het_grad_path", f"{label}, two streams, 2 launches of N, {mode}",
+                   lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid, packed=pk)[2]
+                   + hk.het_grad_path(hg, bo, bd, bkeys, img_b, rfac_b, grid, packed=pk)[2],
+                   exact=False, reps_=rr)
+                ab("het_grad_path", f"{label}, two streams, 1 launch of 2N, {mode}",
+                   lambda: hk.het_grad_path(hg, *cat, grid, packed=pk)[2], exact=False,
+                   reps_=rr)
 
         # K7, K8 on the nee preset's captured tracking inputs
         use("package")
-        integ = make_volume_integrator(tables, st, ncfg.max_depth, nee=True, with_stats=True)
+        integ = make_volume_integrator(tables, scene_statics(tables), ncfg.max_depth,
+                                       nee=True, with_stats=True)
         got = capture_tracking_inputs(
-            WavefrontRenderer(tables, cam, integ, ncfg.width, ncfg.height, seed=0),
+            WavefrontRenderer(tables, shapes[0][2], integ, ncfg.width, ncfg.height, seed=0),
             CAPTURE_ITERATIONS)
         for it, args in zip(CAPTURE_ITERATIONS, got["track_sample"]):
             ab("track_sample", f"nee iteration {it}",
@@ -3411,18 +3481,22 @@ def het_grad_rays(cam, w, h, ids, xy, seed, sample):
 def het_grad_by(plain, hc, cam, w, h, ids, xy, grid, target, samples, seed=0):
     """The loss and gradients (grid, Le (L, 3)) of ``step`` (one sample) or
     ``step_pair`` (two samples, streams seed and seed + 7919), by the
-    kernels (K9a + K10) or by their plain versions (autograd), on the same
+    kernels (K9a + K10 on the live grid's corner table, each stream
+    replayed apart) or by their plain versions (autograd), on the same
     draws. Also returns the pass-A images."""
     import torch
 
     from xraytracer_tpu_torch.integrators import het_megakernel as hk
 
+    from xraytracer_tpu_torch import media_kernels as mkk
+
     fwd = hk.het_path_plain if plain else hk.het_path
     bwd = hk.het_grad_path_plain if plain else hk.het_grad_path
+    table = {} if plain else {"packed": mkk.pack_corners(grid)}
     runs = []
     for k, sample in enumerate(samples):
         keys, o, d = het_grad_rays(cam, w, h, ids, xy, seed + 7919 * k, sample)
-        runs.append((o, d, keys, fwd(hc, o, d, keys, density=grid)))
+        runs.append((o, d, keys, fwd(hc, o, d, keys, density=grid, **table)))
     n = ids.shape[0]
     if len(runs) == 1:
         img = runs[0][3]
@@ -3434,7 +3508,7 @@ def het_grad_by(plain, hc, cam, w, h, ids, xy, grid, target, samples, seed=0):
         rfacs = [(b - target) / (n * 3), (a - target) / (n * 3)]
     g_grid = g_le = 0.0
     for (o, d, keys, img), rfac in zip(runs, rfacs):
-        _, gle, gg = bwd(hc, o, d, keys, img, rfac.contiguous(), grid)
+        _, gle, gg = bwd(hc, o, d, keys, img, rfac.contiguous(), grid, **table)
         g_grid = g_grid + gg
         g_le = g_le + torch.einsum("nc,ncl->lc", rfac, gle)
     return float(loss), g_grid, g_le, [r[3] for r in runs]
@@ -3442,7 +3516,7 @@ def het_grad_by(plain, hc, cam, w, h, ids, xy, grid, target, samples, seed=0):
 
 def het_grad_bound(tables, n, n_spheres, n_lights, stats, tally):
     """bound_ms of a K10 launch: a replay of the K9 path on the same draws
-    (het_bound), the transmittance walks a second time, and per candidate
+    (het_bound), each transmittance walk once, and per candidate
     the gradient event (coefficient and eight corner weights and atomic
     adds); bytes: rays, keys, image and residual in, image and 3L planes
     out, the grid and the supergrid read, the gradient grid written."""
@@ -3453,9 +3527,8 @@ def het_grad_bound(tables, n, n_spheres, n_lights, stats, tally):
            + tally.sample_segments * FLOPS_DDA_SEGMENT
            + tally.sample_candidates * (FLOPS_TRACK_CANDIDATE + FLOPS_SAMPLE_GRAD_EVENT)
            + scattered * (FLOPS_HET_SCATTER + FLOPS_HET_CONE + hit_test + FLOPS_HET_NEE_REST)
-           + 2 * (tally.tr_segments * FLOPS_DDA_SEGMENT
-                  + tally.tr_candidates * FLOPS_TRANSMITTANCE_CANDIDATE)
-           + tally.tr_candidates * FLOPS_TR_GRAD_EVENT)
+           + tally.tr_segments * FLOPS_DDA_SEGMENT
+           + tally.tr_candidates * (FLOPS_TRANSMITTANCE_CANDIDATE + FLOPS_TR_GRAD_EVENT))
     n_bytes = (n * (52 + 12 + 12 * n_lights) + tables.grid_super.numel() * 4
                + 2 * tables.grid_density.numel() * 4)
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -3466,6 +3539,51 @@ def het_grad_bound(tables, n, n_spheres, n_lights, stats, tally):
                 segments=tally.sample_segments, candidates=tally.sample_candidates,
                 shadow_lanes=tally.tr_lanes, shadow_segments=tally.tr_segments,
                 shadow_candidates=tally.tr_candidates)
+
+
+PACK_REPLACES = "xraytracer_tpu/scene/builder.py:417"
+
+
+def check_pack_corners(device, grids, reps, flush):
+    """pack_corners (the corner table of a live grid) against its plain
+    version on each of ``grids`` ({label: (grid, build-time table or
+    None)}), bitwise, and against the scene builder's table where there is
+    one; timed, beside its bytes bound (the grid read once, the table
+    written once: 9 x cells x 4 B). Returns the ``kernels`` entry."""
+    import torch
+
+    from xraytracer_tpu_torch import media_kernels as mkk
+
+    cases = []
+    for label, (grid, built) in grids.items():
+        got = mkk.pack_corners(grid)
+        ref = mkk.pack_corners_plain(grid)
+        torch.cuda.synchronize()
+        bad = int((got != ref).any(dim=1).sum())
+        check(bad == 0, f"pack_corners, {label}: {bad} rows differ from the plain version")
+        if built is not None:
+            check(torch.equal(got, built), f"pack_corners, {label}: not the builder's table")
+        out = torch.empty_like(got)
+        cells = grid.numel()
+        cases.append(dict(
+            case=label, cells=cells, rows_differ=bad, builder_table=built is not None,
+            ms=median_ms(lambda: mkk.pack_corners(grid, out=out), reps, flush),
+            plain_ms=median_ms(lambda: mkk.pack_corners_plain(grid), reps, flush),
+            bound_ms=9 * cells * 4 / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+            max_abs_err=float(torch.abs(got - ref).max())))
+    emit("kernel_checks", kernels="corner table of a live grid", cases=cases, reps=reps)
+    head = cases[0]
+    return dict(
+        name="pack_corners", route="cuda", source="xraytracer_tpu_torch/csrc/media.cu",
+        replaces=PACK_REPLACES, launches=None, launches_by_path=None,
+        replaces_note="no TPU kernel: a helper of het_grad_path's route, in place of "
+                      "the scene builder's host packing",
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        err_of="corner table against the plain version, bitwise (0 rows differ)",
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by="bytes", library_ms=None, shape=f"{head['case']}: {head['cells']} cells",
+        cases=[{k: c[k] for k in ("case", "cells", "ms", "bound_ms", "plain_ms")}
+               for c in cases])
 
 
 def phase_het_grad_kernels(device, nee_scene, reps):
@@ -3487,8 +3605,11 @@ def phase_het_grad_kernels(device, nee_scene, reps):
     from xraytracer_tpu_torch.scene.builder import scene_statics
     from xraytracer_tpu_torch.tools import fit_volume
 
+    from xraytracer_tpu_torch import media_kernels as mkk
+
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
     ncfg = get_preset("nee")
+    attrs = het_kernel_attrs(hk._lib())
     cloud, cloud_cam, cloud_grid = grad_cloud_scene(device)
     fw, fh = 96, 72
     fit_tables = fit_volume.build_scene(device)
@@ -3533,6 +3654,9 @@ def phase_het_grad_kernels(device, nee_scene, reps):
             else:
                 sl, sg = step.step_pair(params, ids, xy, target, *samples)
             torch.cuda.synchronize()
+            sle = sg["al_le"][:ke.shape[0]]
+            sle_beyond = int((torch.abs(sle - ke) > HET_GRAD_LE_RTOL * torch.abs(ke)
+                              + HET_GRAD_LE_ATOL).sum())
             scale = float(torch.abs(pg).max())
             check(scale > 0.0, f"het_grad_path, {label}, {what}: the gradient is zero")
             grid_err = torch.abs(kg - pg)
@@ -3548,7 +3672,9 @@ def phase_het_grad_kernels(device, nee_scene, reps):
                      plain_ms=plain_ms,
                      step_fn_vs_kernels=dict(
                          loss=abs(float(sl) - kl),
-                         grid=float(torch.abs(sg["grid_density"] - kg).max()) / scale))
+                         grid=float(torch.abs(sg["grid_density"] - kg).max()) / scale,
+                         al_le_max_abs_err=float(torch.abs(sle - ke).max()),
+                         al_le_beyond_gate=sle_beyond))
             check(r["loss_rel_err"] <= HET_GRAD_LOSS_RTOL,
                   f"het_grad_path, {label}, {what}: loss {kl} vs plain {pl}")
             check(beyond == 0, f"het_grad_path, {label}, {what}: {beyond} grid cells "
@@ -3557,27 +3683,48 @@ def phase_het_grad_kernels(device, nee_scene, reps):
             check(le_beyond == 0, f"het_grad_path, {label}, {what}: d loss / d Le "
                                   f"{ke.tolist()} vs plain {pe.tolist()}")
             check(bool(torch.isfinite(kg).all()), f"{label}, {what}: non-finite gradient")
-            # the same step through the public function: the same launches on the
-            # same draws, up to the atomics' order
+            # the same step through the public function: the same draws, each
+            # lane's image bitwise (so the loss too), the grid and Le up to the
+            # order of the sums (step_pair replays both streams in one launch)
+            check(r["step_fn_vs_kernels"]["loss"] == 0.0,
+                  f"{label}, {what}: step()'s loss {float(sl)} is not its kernels' {kl}")
             check(r["step_fn_vs_kernels"]["grid"] <= HET_GRAD_ATOL_REL,
                   f"{label}, {what}: step() differs from its own kernels")
+            check(sle_beyond == 0 and not bool(sg["al_le"][ke.shape[0]:].any()),
+                  f"{label}, {what}: step()'s d loss / d Le {sle.tolist()} is not its "
+                  f"kernels' {ke.tolist()}")
             case[what] = r
-        # pass B's recomputed radiance against pass A's, every lane
-        img_a = hk.het_path(hc, o, d, keys, density=grid)
+        # pass A on the live grid's corner table against pass A by eight
+        # corner loads, and pass B's recomputed radiance against pass A's:
+        # every lane, bitwise
+        packed = mkk.pack_corners(grid)
+        img_a = hk.het_path(hc, o, d, keys, density=grid, packed=packed)
+        img_dense = hk.het_path(hc, o, d, keys, density=grid)
         rfac = (2.0 * (img_a - img0 * 0.7 - 0.01) / (n * 3)).contiguous()
-        img_b, _, _ = hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid)
+        img_b, _, _ = hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid, packed=packed)
         torch.cuda.synchronize()
+        packed_lanes = int((img_a != img_dense).any(dim=1).sum())
+        check(packed_lanes == 0, f"het_path, {label}: the corner table's radiance differs "
+                                 f"from the dense grid's on {packed_lanes} of {n} lanes")
         diff = torch.abs(img_b - img_a)
         lanes_beyond = int((diff > HET_REPLAY_RTOL * torch.abs(img_a) + HET_REPLAY_ATOL)
                            .any(dim=1).sum())
         case["replay_vs_pass_a"] = dict(
             max_abs_err=float(diff.max()), lanes_not_bitwise=int((diff > 0).any(dim=1).sum()),
             lanes_beyond_gate=lanes_beyond)
-        check(lanes_beyond <= max(2, K1_PIXEL_DIFF_SHARE * n),
+        case["pass_a_packed_vs_dense_lanes_differ"] = packed_lanes
+        check(case["replay_vs_pass_a"]["lanes_not_bitwise"] == 0,
               f"het_grad_path, {label}: pass B's radiance differs from pass A's on "
-              f"{lanes_beyond} of {n} lanes")
-        case["ms"] = median_ms(lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid),
-                               reps, flush)
+              f"{case['replay_vs_pass_a']['lanes_not_bitwise']} of {n} lanes "
+              f"({lanes_beyond} beyond {HET_REPLAY_RTOL} / {HET_REPLAY_ATOL})")
+        case["ms_packed"] = median_ms(
+            lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid, packed=packed),
+            reps, flush)
+        case["ms_dense"] = median_ms(
+            lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid), reps, flush)
+        # the step functions' route: a grid of at most PACK_MIN cells is read
+        # by corner loads
+        case["ms"] = case["ms_packed" if grid.numel() > mkk.PACK_MIN else "ms_dense"]
         stats, tally = live_grid_tally(hc, o, d, keys, grid)
         case.update(het_grad_bound(tables, n, int(hc.ic[0]), int(hc.ic[1]), stats, tally))
         case["max_abs_err"] = max(case[k]["grid_max_abs_err"] for k in ("step", "step_pair"))
@@ -3591,11 +3738,16 @@ def phase_het_grad_kernels(device, nee_scene, reps):
     ids, xy = window_pixels(ncfg.width, ncfg.height, None, device)
     keys, o, d = het_grad_rays(cam, ncfg.width, ncfg.height, ids, xy, 0, 0)
     grid = nee_tables.grid_density.contiguous()
-    img_a = hk.het_path(hc, o, d, keys, density=grid)
+    packed = mkk.pack_corners(grid)
+    img_a = hk.het_path(hc, o, d, keys, density=grid, packed=packed)
+    img_dense = hk.het_path(hc, o, d, keys, density=grid)
     n = int(ids.shape[0])
     rfac = (2.0 * img_a / (n * 3)).contiguous()
-    img_b, gle, gg = hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid)
+    img_b, gle, gg = hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid, packed=packed)
     torch.cuda.synchronize()
+    packed_lanes = int((img_a != img_dense).any(dim=1).sum())
+    check(packed_lanes == 0, f"het_path, nee full frame: the corner table's radiance differs "
+                             f"from the dense grid's on {packed_lanes} of {n} lanes")
     diff = torch.abs(img_b - img_a)
     full = dict(case=f"nee {ncfg.width}x{ncfg.height}, zero target", n=n,
                 max_depth=ncfg.max_depth, max_steps=hc.max_steps,
@@ -3605,21 +3757,35 @@ def phase_het_grad_kernels(device, nee_scene, reps):
                 grad_max_abs=float(torch.abs(gg).max()))
     check(full["grad_finite"] and bool(torch.isfinite(gle).all()),
           "het_grad_path, nee full frame: non-finite gradient")
+    check(full["replay_vs_pass_a"]["lanes_not_bitwise"] == 0,
+          f"het_grad_path, nee full frame: pass B's radiance differs from pass A's on "
+          f"{full['replay_vs_pass_a']['lanes_not_bitwise']} of {n} lanes")
     stats = {}
     with TrackingTally() as tally:
         hk.het_path_plain(hc, o, d, keys, stats)
-    full.update(ms=median_ms(lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid),
-                             reps, flush),
-                pass_a_ms=median_ms(lambda: hk.het_path(hc, o, d, keys, density=grid),
-                                    reps, flush),
+    full.update(ms=median_ms(
+                    lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid, packed=packed),
+                    reps, flush),
+                ms_dense=median_ms(lambda: hk.het_grad_path(hc, o, d, keys, img_a, rfac, grid),
+                                   reps, flush),
+                pass_a_ms=median_ms(
+                    lambda: hk.het_path(hc, o, d, keys, density=grid, packed=packed),
+                    reps, flush),
+                pass_a_dense_ms=median_ms(lambda: hk.het_path(hc, o, d, keys, density=grid),
+                                          reps, flush),
                 **het_grad_bound(nee_tables, n, int(hc.ic[0]), int(hc.ic[1]), stats, tally))
     emit("kernel_checks", kernels="heterogeneous gradient", cases=cases, full_frame=full,
          reps=reps, window=list(HET_GRAD_WINDOW),
+         kernel_attrs=attrs["het_grad_path"],
          tolerances=dict(loss=HET_GRAD_LOSS_RTOL, grid=[HET_GRAD_RTOL, HET_GRAD_ATOL_REL],
                          al_le=[HET_GRAD_LE_RTOL, HET_GRAD_LE_ATOL],
                          replay=[HET_REPLAY_RTOL, HET_REPLAY_ATOL]))
+    pack_entry = check_pack_corners(device, {
+        "nee 64^3": (grid, nee_tables.grid_packed),
+        "fit_volume blob 16^3": (scenes[1][8], None),
+        "16^3 cloud": (cloud_grid, cloud.grid_packed)}, reps, flush)
     head = cases[2]
-    return [dict(
+    return [pack_entry, dict(
         name="het_grad_path", route="cuda",
         source="xraytracer_tpu_torch/csrc/het_megakernel.cu",
         replaces=HET_GRAD_REPLACES, launches=None, launches_by_path=None,
@@ -3631,10 +3797,12 @@ def phase_het_grad_kernels(device, nee_scene, reps):
                     f"(the tape of the whole frame does not fit the card)",
         bound_ms=full["bound_ms"], bound_by=full["bound_by"], library_ms=None,
         shape=f"{full['case']}: N={full['n']} depth={full['max_depth']} grid=64^3 L=1",
-        cases=[{k: c[k] for k in ("case", "n", "max_depth", "ms", "bound_ms", "bound_by")}
+        kernel_attrs=attrs["het_grad_path"],
+        cases=[{k: c[k] for k in ("case", "n", "max_depth", "ms", "ms_dense", "ms_packed",
+                                  "bound_ms", "bound_by")}
                for c in cases]
-        + [{k: full[k] for k in ("case", "n", "max_depth", "ms", "bound_ms", "bound_by",
-                                 "pass_a_ms")}],
+        + [{k: full[k] for k in ("case", "n", "max_depth", "ms", "ms_dense", "bound_ms",
+                                 "bound_by", "pass_a_ms", "pass_a_dense_ms")}],
     )]
 
 
@@ -3669,7 +3837,8 @@ def phase_vol_grad_path(device, nee_scene):
                                      score_terms=True, grad_sampling=True)
     routes = (
         ("analytic", fast, None, VOL_GRAD_STEPS,
-         {"het_path": VOL_GRAD_STEPS, "het_grad_path": VOL_GRAD_STEPS}),
+         {"het_path": VOL_GRAD_STEPS, "het_grad_path": VOL_GRAD_STEPS,
+          "pack_corners": VOL_GRAD_STEPS}),
         ("autograd", diff.value_and_grad(diff.make_loss_fn(radiance)), HET_GRAD_WINDOW,
          VOL_GRAD_AUTOGRAD_STEPS, None),
     )
@@ -3737,6 +3906,12 @@ def phase_fit_volume_path(device):
     ev_first, ev_last = float(np.mean(ev[:4])), float(np.mean(ev[-4:]))
     mae = stats["mae"]
     c0, c1 = 4, 12
+    # per step and view: one pass-A and one pass-B launch per pair (both
+    # streams in one), one eval render; the 16^3 grid is read by corner
+    # loads (media_kernels.PACK_MIN), so nothing is packed
+    per_step = {"het_path": views * (pairs + 1), "het_grad_path": views * pairs}
+    set_up = {"het_path": views * (target_pairs + 1)}
+    expected = {k: set_up.get(k, 0) + FIT_VOL_STEPS * v for k, v in per_step.items()}
     emit("fit_volume_path", width=96, height=72, depth=6, views=views, pairs=pairs,
          target_pairs=target_pairs, steps=FIT_VOL_STEPS, seconds=secs,
          seconds_per_step=float(np.median(stats["step_seconds"])),
@@ -3747,9 +3922,8 @@ def phase_fit_volume_path(device):
          center=float(fitted[c0:c1, c0:c1, c0:c1].mean()),
          outer=float((fitted.sum() - fitted[c0:c1, c0:c1, c0:c1].sum()) / (16 ** 3 - 8 ** 3)),
          n_rejected=stats["n_rejected"], grads_finite=stats["grads_finite"],
-         launches={k: v["launches"] for k, v in counts.items() if v["launches"]})
-    expected = {"het_path": views * (target_pairs + 1) + FIT_VOL_STEPS * views * (pairs * 2 + 1),
-                "het_grad_path": FIT_VOL_STEPS * views * pairs * 2}
+         launches={k: v["launches"] for k, v in counts.items() if v["launches"]},
+         launches_per_step=per_step)
     for name, c in counts.items():
         check(c["launches"] == expected.get(name, 0),
               f"fit_volume_path: {name} launched {c['launches']}x, "
@@ -3895,8 +4069,9 @@ def main():
                "track_transmittance": "nee_wavefront_path",
                "het_spp_persistent": "nee_path", "het_path": "het_entry_points",
                "het_spp": "het_entry_points", "mega_grad_path": "grad_path_analytic",
-               "het_grad_path": "vol_grad_path_analytic"}
-    check(len(entries) == 16, "the kernels line must list sixteen kernels")
+               "het_grad_path": "vol_grad_path_analytic",
+               "pack_corners": "vol_grad_path_analytic"}
+    check(len(entries) == 17, "the kernels line must list seventeen kernels")
     for e in entries:
         e["runs_on"] = runs_on[e["name"]]
         e["launches_by_path"] = {

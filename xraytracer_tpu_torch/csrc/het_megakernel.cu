@@ -54,25 +54,37 @@
 // factor of a tracking event multiplies exactly the contributions still to
 // come, so the event's share of d loss / d density is sum_c rfac_c s_c
 // d log(factor_c) / d density (media.cuh's SampleGrad, added into a dense
-// float32 gradient grid by atomicAdd of the eight trilinear corners); a
-// next-event contribution's transmittance events carry rfac_c x that
-// contribution (TransGrad, on a second walk of the same candidates once tr
-// is known); and d img_c / d Le_l sums T_c at an emission and
-// T_c w_c tr_c f / pdf at a light sample, in the lane's column of 3L
-// plane-major outputs (no atomics). The grad-sampling estimator is what
-// makes the suffix form exact: a roulette or a throughput-weighted channel
-// pick would make every later probability depend on the whole history.
-// The replay takes every decision pass A took, by the same explicit
-// rounding; chip_smoke.py holds pass B's recomputed radiance against pass
-// A's on every lane. The grid is summed with atomics, so its last bits
-// vary from run to run.
+// float32 gradient grid by atomicAdd of the eight trilinear corners of the
+// cell its own lookup found); a next-event contribution's transmittance
+// events carry rfac_c x that contribution, tr included (TransGrad): the
+// shadow ray's walk keeps each event (t, majorant, density: 12 bytes) in
+// the lane's local memory and adds them once tr is known, and a walk of
+// more than het_path.cuh's TR_EVENTS events is walked a second time; and
+// d img_c / d Le_l sums T_c at an emission and T_c w_c tr_c f / pdf at a
+// light sample, in the lane's column of 3L plane-major outputs (no
+// atomics). The grad-sampling estimator is what makes the suffix form
+// exact: a roulette or a throughput-weighted channel pick would make every
+// later probability depend on the whole history. The replay takes every
+// decision pass A took, by the same explicit rounding; chip_smoke.py holds
+// pass B's recomputed radiance against pass A's on every lane. The grid is
+// summed with atomics, so its last bits vary from run to run.
+//
+// What K10 spends on an H100 (PERF.md, the nee frame, 5.0 ms): about
+// 3.2 ms for pass A's path and the tracking events, 1.8 ms for the
+// transmittance events (0.7 ms of it their adds; a second walk of each
+// shadow segment took 4 ms). The adds are fire-and-forget reductions at L2
+// (REDG.ADD.F32) and cost nothing measurable even where 6,912 lanes share
+// 4,096 cells; a copy of the grid in shared memory, added up per block, was
+// no faster: a float add into shared memory is a compare-and-swap loop on
+// sm_90. Its callers pack the live grid into the corner table once per step
+// (media.cu's pack_corners), so a lookup is one 32-byte row.
 
 #include "het_path.cuh"
 
 // Blocks per SM the compiler must leave room for (the second argument of
-// __launch_bounds__): 5, the most blocks the segment frames (38,912 bytes a
-// block, media.cuh) leave room for in an SM's shared memory; 5 blocks of
-// 128 threads cap a thread at 96 registers (K9c and K10 spill 72 and 48
+// __launch_bounds__) in K9: 5, the most blocks the segment frames (38,912
+// bytes a block, media.cuh) leave room for in an SM's shared memory; 5
+// blocks of 128 threads cap a thread at 96 registers (K9c spills 72
 // bytes). PERF.md records what other caps measured.
 #ifndef HET_MIN_BLOCKS
 #define HET_MIN_BLOCKS 5
@@ -133,12 +145,17 @@ het_spp_persistent_kernel(HetScene S, MediaGrid G, MegaCamera C, int s0,
   out_rej[i] = rej;
 }
 
+// Blocks per SM that het_grad_path (K10) is compiled for, its own minimum:
+// 4 (128 registers, no spill) measured faster than 5 (96 registers and
+// 174 bytes of spills; PERF.md).
+constexpr int HET_GRAD_MIN_BLOCKS = 4;
+
 // Pass B of the analytic volume gradient: one path per ray, replayed from
 // pass A's radiance ``img`` with the residual ``rfac`` (both (n, 3)); writes
 // the recomputed radiance, the lane's column of the (3 n_lights, n)
 // d img / d Le planes and adds into ``grad`` (the grid's shape, zeroed by
 // the caller).
-__global__ void __launch_bounds__(HET_BLOCK, HET_MIN_BLOCKS)
+__global__ void __launch_bounds__(HET_BLOCK, HET_GRAD_MIN_BLOCKS)
 het_grad_path_kernel(HetScene S, MediaGrid G, const float* __restrict__ o,
                      const float* __restrict__ d,
                      const int32_t* __restrict__ keys,
@@ -148,19 +165,10 @@ het_grad_path_kernel(HetScene S, MediaGrid G, const float* __restrict__ o,
                      float* __restrict__ grad) {
   const int i = blockIdx.x * HET_BLOCK + threadIdx.x;
   if (i >= n) return;
-  Replay rep;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    rep.rfac[c] = rfac[3 * i + c];
-    rep.suffix[c] = img[3 * i + c];
-  }
-  rep.dE = dE + i;
-  rep.n = (size_t)n;
-  rep.n_lights = S.n_lights;
-  rep.grad = grad;
-  for (int k = 0; k < 3 * S.n_lights; ++k) rep.dE[(size_t)k * n] = 0.f;
-  const float3 L =
-      het_path_lane(S, G, (uint32_t)keys[i], load3(o, i), load3(d, i), rep);
+  const float im[3] = {img[3 * i], img[3 * i + 1], img[3 * i + 2]};
+  const float rf[3] = {rfac[3 * i], rfac[3 * i + 1], rfac[3 * i + 2]};
+  const float3 L = het_grad_lane(S, G, (uint32_t)keys[i], load3(o, i),
+                                 load3(d, i), im, rf, dE, i, n, grad);
   out[3 * i + 0] = L.x;
   out[3 * i + 1] = L.y;
   out[3 * i + 2] = L.z;

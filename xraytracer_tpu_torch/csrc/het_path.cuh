@@ -187,11 +187,34 @@ __device__ __forceinline__ float3 cone_sample(const HetLight& Lt, float3 mp,
 struct NoReplay {
   static constexpr bool on = false;
   __device__ __forceinline__ NoTrackGrad sample_hook() const { return {}; }
+  __device__ __forceinline__ NoTrackGrad trans_recorder() { return {}; }
+};
+
+// Transmittance events a lane of pass B keeps from the shadow ray's walk:
+// their coefficient needs the whole contribution, tr included, so they are
+// added once tr is known. An event is three floats (where along the walk,
+// its majorant and density: its cell follows from the first), in the
+// lane's local memory (384 bytes; a frame of 12 events in shared memory
+// measured slower, PERF.md). A walk with more events than this is
+// walked a second time instead.
+constexpr int TR_EVENTS = 32;
+constexpr int TR_EVENT_FLOATS = 3;
+
+// The hook of pass B's transmittance walk: hands each candidate that does
+// not escape to the replay's buffer (Replay::record).
+template <class Rep>
+struct TransRecord {
+  static constexpr bool on = true;
+  Rep* rep;
+  __device__ __forceinline__ void event(const MediaGrid&, const Cell&, float t,
+                                        float m_loc, float dens) const {
+    rep->record(t, m_loc, dens);
+  }
 };
 
 // Pass B's per-lane state (het_megakernel.cu, the analytic volume
 // gradient): residual, suffix, the lane's column of the d img / d Le
-// planes, the gradient grid.
+// planes, the gradient grid, the transmittance walk's events.
 struct Replay {
   static constexpr bool on = true;
   float rfac[3], suffix[3];
@@ -199,7 +222,26 @@ struct Replay {
   size_t n;
   int n_lights;
   float* grad;
+  float* ev;  // the lane's TR_EVENTS x TR_EVENT_FLOATS floats; the array
+              // stays out of the struct, which then keeps to registers
+              // (PERF.md)
+  int n_ev;   // events of the current transmittance walk
 
+  __device__ __forceinline__ float& ev_at(int j, int f) const {
+    return ev[j * TR_EVENT_FLOATS + f];
+  }
+  __device__ __forceinline__ void record(float t, float m_loc, float dens) {
+    if (n_ev < TR_EVENTS) {
+      ev_at(n_ev, 0) = t;
+      ev_at(n_ev, 1) = m_loc;
+      ev_at(n_ev, 2) = dens;
+    }
+    ++n_ev;
+  }
+  __device__ __forceinline__ TransRecord<Replay> trans_recorder() {
+    n_ev = 0;
+    return TransRecord<Replay>{this};
+  }
   __device__ __forceinline__ void add_dE(int l, const float v[3]) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) dE[(size_t)(c * n_lights + l) * n] += v[c];
@@ -209,6 +251,13 @@ struct Replay {
     h.grad = grad;
 #pragma unroll
     for (int c = 0; c < 3; ++c) h.rs[c] = rfac[c] * suffix[c];
+    return h;
+  }
+  __device__ __forceinline__ TransGrad trans_hook(const float contrib[3]) const {
+    TransGrad h;
+    h.grad = grad;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) h.pend[c] = rfac[c] * contrib[c];
     return h;
   }
 };
@@ -354,9 +403,11 @@ __device__ __forceinline__ bool nee_setup(const HetScene& S,
 }
 
 // One candidate of the shadow ray's transmittance; false once it is done.
+template <class Hook = NoTrackGrad>
 __device__ __forceinline__ bool bounce_trans_step(const MediaGrid& G,
-                                                  HetLane& ln) {
-  return trans_step(G, ln.W, ln.kt, ln.p.key, NoTrackGrad{});
+                                                  HetLane& ln,
+                                                  const Hook& hook = {}) {
+  return trans_step(G, ln.W, ln.kt, ln.p.key, hook);
 }
 
 // The iteration's end: the light sample's contribution, then the advance
@@ -388,13 +439,19 @@ __device__ __forceinline__ void bounce_end(const HetScene& S,
 #pragma unroll
       for (int c = 0; c < 3; ++c) dle[c] = tw[c] * (tr[c] * ln.f / ln.pdf);
       rep.add_dE(ln.lidx, dle);
-      if (ln.box) {  // the transmittance's events, on the same walk
-        TransGrad th;
-        th.grad = rep.grad;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) th.pend[c] = rep.rfac[c] * contrib[c];
-        trans_begin(G, ln.W, ln.kt, ln.q1, ln.q2, ln.site + S.tr_site);
-        while (trans_step(G, ln.W, ln.kt, p.key, th)) {
+      if (ln.box) {  // the transmittance's events
+        const auto th = rep.trans_hook(contrib);
+        if (rep.n_ev <= TR_EVENTS) {  // as the walk recorded them
+          for (int j = 0; j < rep.n_ev; ++j) {
+            const float t = rep.ev_at(j, 0);
+            Cell cell;  // the candidate's point and cell, as trans_step's
+            grid_cell(G, ray_at(ln.kt.p1, ln.kt.d, t), cell);
+            th.event(G, cell, t, rep.ev_at(j, 1), rep.ev_at(j, 2));
+          }
+        } else {  // too many to keep: the same walk again
+          trans_begin(G, ln.W, ln.kt, ln.q1, ln.q2, ln.site + S.tr_site);
+          while (trans_step(G, ln.W, ln.kt, p.key, th)) {
+          }
         }
       }
 #pragma unroll
@@ -430,9 +487,11 @@ __device__ __forceinline__ void het_bounce(const HetScene& S,
   const auto hook = rep.sample_hook();
   while (bounce_sample_step(G, ln, hook)) {
   }
-  if (nee_setup(S, G, ln))
-    while (bounce_trans_step(G, ln)) {
+  if (nee_setup(S, G, ln)) {
+    const auto rec = rep.trans_recorder();
+    while (bounce_trans_step(G, ln, rec)) {
     }
+  }
   bounce_end(S, G, ln, rep);
 }
 
@@ -449,6 +508,31 @@ __device__ __forceinline__ float3 het_path_lane(const HetScene& S,
   ln.p.d = d;
   while (ln.p.act && ln.p.it < S.n_iterations) het_bounce(S, G, ln, rep);
   return ln.p.L;
+}
+
+// Pass B of the analytic volume gradient for lane i of n (het_grad_path):
+// the path of ray (o, d) replayed from pass A's radiance img (the suffix)
+// with the residual rfac; zeroes and fills the lane's column of the 3L
+// d img / d Le planes at dE + i and adds its events into ``grad``. Returns
+// the recomputed radiance.
+__device__ __forceinline__ float3 het_grad_lane(
+    const HetScene& S, const MediaGrid& G, uint32_t key, float3 o, float3 d,
+    const float img[3], const float rfac[3], float* dE, int i, int n,
+    float* grad) {
+  float events[TR_EVENTS * TR_EVENT_FLOATS];
+  Replay rep;
+  rep.ev = events;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    rep.rfac[c] = rfac[c];
+    rep.suffix[c] = img[c];
+  }
+  rep.dE = dE + i;
+  rep.n = (size_t)n;
+  rep.n_lights = S.n_lights;
+  rep.grad = grad;
+  for (int k = 0; k < 3 * S.n_lights; ++k) rep.dE[(size_t)k * n] = 0.f;
+  return het_path_lane(S, G, key, o, d, rep);
 }
 
 // Samples s0 .. s0 + n_spp - 1 of one pixel, one after the other, each

@@ -86,6 +86,23 @@ track_transmittance_kernel(MediaGrid G, const float* __restrict__ p1,
   out_tr[3 * i + 2] = tr[2];
 }
 
+// The corner table of a live density grid (the analytic volume gradient's
+// step packs its grid once and both passes read one 32-byte row per
+// lookup): one thread per cell, eight loads (seven of them cached: the
+// neighbours' cells), two float4 stores. No TPU kernel: it replaces the
+// scene builder's packing (xraytracer_tpu/scene/builder.py:411-428), done
+// on the host once per scene. Bound by bytes: 9 x cells x 4 B.
+__global__ void __launch_bounds__(MEDIA_BLOCK)
+pack_corners_kernel(const float* __restrict__ g, int nx, int ny, int nz,
+                    float4* __restrict__ out) {
+  const int cell = blockIdx.x * MEDIA_BLOCK + threadIdx.x;
+  if (cell >= nx * ny * nz) return;
+  float c[8];
+  corner_row(g, nx, ny, nz, cell, c);
+  out[2 * cell] = make_float4(c[0], c[1], c[2], c[3]);
+  out[2 * cell + 1] = make_float4(c[4], c[5], c[6], c[7]);
+}
+
 }  // namespace xrt
 
 extern "C" {
@@ -119,6 +136,17 @@ int track_transmittance(const float* p1, const float* p2, const int32_t* keys,
   xrt::track_transmittance_kernel<<<grid, xrt::MEDIA_BLOCK, 0,
                                     (cudaStream_t)stream>>>(
       G, p1, p2, keys, mask, n, site, out_tr);
+  return (int)cudaGetLastError();
+}
+
+// ``out``: (nx * ny * nz, 8) float32, 16-byte aligned.
+int pack_corners(const float* density, int nx, int ny, int nz, float* out,
+                 void* stream) {
+  const int cells = nx * ny * nz;
+  if (cells <= 0) return 0;
+  const int grid = (cells + xrt::MEDIA_BLOCK - 1) / xrt::MEDIA_BLOCK;
+  xrt::pack_corners_kernel<<<grid, xrt::MEDIA_BLOCK, 0, (cudaStream_t)stream>>>(
+      density, nx, ny, nz, reinterpret_cast<float4*>(out));
   return (int)cudaGetLastError();
 }
 

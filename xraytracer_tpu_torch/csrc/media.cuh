@@ -39,16 +39,19 @@
 // operations. The walk's segments (76 floats a thread) are a column of a
 // block-wide frame in shared memory; the loops' state lives in registers.
 //
-// Both tracking loops are templates over a per-event hook. NoTrackGrad's
-// hook is empty and compiles away (K7, K8 and K9 instantiate it); the
-// gradient hooks of the analytic volume gradient (het_megakernel.cu's
-// het_grad_path) add, at every collision candidate, the event's closed-form
-// d log(factor) / d density times a per-channel coefficient into a dense
-// float32 gradient grid, by atomicAdd of the eight trilinear corners. They
-// replace, in xraytracer_tpu/media_pallas.py: track_sample_grad,
+// Both tracking loops are templates over a per-event hook, which sees the
+// cell the candidate's own lookup found. NoTrackGrad's hook is empty and
+// compiles away (K7, K8 and K9 instantiate it); the gradient hooks of the
+// analytic volume gradient (het_megakernel.cu's het_grad_path) add, at
+// every collision candidate, the event's closed-form d log(factor) /
+// d density times a per-channel coefficient into a dense float32 gradient
+// grid, by atomicAdd of the eight trilinear corners. They replace, in
+// xraytracer_tpu/media_pallas.py: track_sample_grad,
 // track_transmittance_grad, _dps_channels and _scatter_rows (the one-hot
-// matmul scatter into a brick accumulator, unbricked afterwards: here one
-// atomic add per corner into the grid itself).
+// matmul scatter into a brick accumulator in VMEM, unbricked afterwards:
+// here one atomic add per corner into the grid itself, a reduction at L2
+// that costs the SM nothing measurable; a block's copy of the grid in
+// shared memory measured no faster, PERF.md).
 #pragma once
 
 #include "path_common.cuh"
@@ -91,17 +94,36 @@ __device__ __forceinline__ float grid_axis(const MediaGrid& G, int k, float p,
   return x - x0;
 }
 
+// Where a lookup fell: its cell (the corner table's row) and the
+// fractions of the trilinear weights; nothing outside the grid. The
+// gradient hooks add into the same eight corners with the same weights.
+struct Cell {
+  bool inside;
+  int ix, iy, iz;
+  float fx, fy, fz;
+};
+
+// The cell of a lookup at p; false outside the grid.
+__device__ __forceinline__ bool grid_cell(const MediaGrid& G, float3 p,
+                                          Cell& cell) {
+  cell.inside = (p.x >= G.gmin[0]) & (p.x <= G.gmax[0]) &
+                (p.y >= G.gmin[1]) & (p.y <= G.gmax[1]) &
+                (p.z >= G.gmin[2]) & (p.z <= G.gmax[2]);
+  if (!cell.inside) return false;
+  cell.fx = grid_axis(G, 0, p.x, cell.ix);
+  cell.fy = grid_axis(G, 1, p.y, cell.iy);
+  cell.fz = grid_axis(G, 2, p.z, cell.iz);
+  return true;
+}
+
 // media.py::density_lookup: corner d = dx*4 + dy*2 + dz, weight
 // (wx[dx] * wy[dy]) * wz[dz], the eight products added for d = 0 .. 7.
-__device__ __forceinline__ float density(const MediaGrid& G, float3 p) {
-  const bool inside = (p.x >= G.gmin[0]) & (p.x <= G.gmax[0]) &
-                      (p.y >= G.gmin[1]) & (p.y <= G.gmax[1]) &
-                      (p.z >= G.gmin[2]) & (p.z <= G.gmax[2]);
-  if (!inside) return 0.f;
-  int ix, iy, iz;
-  const float fx = grid_axis(G, 0, p.x, ix);
-  const float fy = grid_axis(G, 1, p.y, iy);
-  const float fz = grid_axis(G, 2, p.z, iz);
+// ``cell`` receives where the lookup fell.
+__device__ __forceinline__ float density(const MediaGrid& G, float3 p,
+                                         Cell& cell) {
+  if (!grid_cell(G, p, cell)) return 0.f;
+  const int ix = cell.ix, iy = cell.iy, iz = cell.iz;
+  const float fx = cell.fx, fy = cell.fy, fz = cell.fz;
   float c[8];
   if (G.packed != nullptr) {
     const size_t row = ((size_t)ix * G.res[1] + iy) * G.res[2] + iz;
@@ -131,6 +153,29 @@ __device__ __forceinline__ float density(const MediaGrid& G, float3 p) {
     val = d == 0 ? term : XA(val, term);
   }
   return val;
+}
+
+__device__ __forceinline__ float density(const MediaGrid& G, float3 p) {
+  Cell cell;
+  return density(G, p, cell);
+}
+
+// Row ``cell`` = (ix * ny + iy) * nz + iz of the corner table of an
+// (nx, ny, nz) grid: corner d = dx*4 + dy*2 + dz is the grid at
+// (ix + dx, iy + dy, iz + dz), each index clamped to the grid's last
+// (scene/builder.py's packing, which density() reads).
+__device__ __forceinline__ void corner_row(const float* __restrict__ g, int nx,
+                                           int ny, int nz, int cell,
+                                           float c[8]) {
+  const int iz = cell % nz, iy = (cell / nz) % ny, ix = cell / (ny * nz);
+  const int jx = min(ix + 1, nx - 1), jy = min(iy + 1, ny - 1),
+            jz = min(iz + 1, nz - 1);
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    const int x = (d & 4) ? jx : ix, y = (d & 2) ? jy : iy,
+              z = (d & 1) ? jz : iz;
+    c[d] = __ldg(g + ((size_t)x * ny + y) * nz + z);
+  }
 }
 
 __device__ __forceinline__ float exit_time(float v, float v_safe, float lo,
@@ -256,28 +301,23 @@ struct NoTrackGrad {
 };
 
 // grad[corner] += trilinear weight x coeff for the eight corners of the
-// lookup at p (density()'s corners and weights); nothing outside the grid.
+// lookup that fell in ``cell`` (density()'s corners and weights); nothing
+// outside the grid.
 __device__ __forceinline__ void scatter_corners(const MediaGrid& G,
                                                 float* __restrict__ grad,
-                                                float3 p, float coeff) {
-  const bool inside = (p.x >= G.gmin[0]) & (p.x <= G.gmax[0]) &
-                      (p.y >= G.gmin[1]) & (p.y <= G.gmax[1]) &
-                      (p.z >= G.gmin[2]) & (p.z <= G.gmax[2]);
-  if (!inside || coeff == 0.f) return;
-  int ix, iy, iz;
-  const float fx = grid_axis(G, 0, p.x, ix);
-  const float fy = grid_axis(G, 1, p.y, iy);
-  const float fz = grid_axis(G, 2, p.z, iz);
-  const int jx = min(ix + 1, G.res[0] - 1);
-  const int jy = min(iy + 1, G.res[1] - 1);
-  const int jz = min(iz + 1, G.res[2] - 1);
-  const float wx[2] = {1.0f - fx, fx};
-  const float wy[2] = {1.0f - fy, fy};
-  const float wz[2] = {1.0f - fz, fz};
+                                                const Cell& cell,
+                                                float coeff) {
+  if (!cell.inside || coeff == 0.f) return;
+  const int jx = min(cell.ix + 1, G.res[0] - 1);
+  const int jy = min(cell.iy + 1, G.res[1] - 1);
+  const int jz = min(cell.iz + 1, G.res[2] - 1);
+  const float wx[2] = {1.0f - cell.fx, cell.fx};
+  const float wy[2] = {1.0f - cell.fy, cell.fy};
+  const float wz[2] = {1.0f - cell.fz, cell.fz};
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
-    const int x = (d & 4) ? jx : ix, y = (d & 2) ? jy : iy,
-              z = (d & 1) ? jz : iz;
+    const int x = (d & 4) ? jx : cell.ix, y = (d & 2) ? jy : cell.iy,
+              z = (d & 1) ? jz : cell.iz;
     const float w = XM(XM(wx[(d >> 2) & 1], wy[(d >> 1) & 1]), wz[d & 1]);
     atomicAdd(grad + ((size_t)x * G.res[1] + y) * G.res[2] + z, w * coeff);
   }
@@ -299,7 +339,7 @@ struct SampleGrad {
   float* grad;
   float rs[3];
 
-  __device__ __forceinline__ void event(const MediaGrid& G, float3 p,
+  __device__ __forceinline__ void event(const MediaGrid& G, const Cell& cell,
                                         bool scat, int channel,
                                         const float base[3],
                                         const float sig_s[3],
@@ -336,14 +376,15 @@ struct SampleGrad {
         coeff += rs[k] * dlog;
       }
     }
-    scatter_corners(G, grad, p, coeff);
+    scatter_corners(G, grad, cell, coeff);
   }
 };
 
 // The gradient hook of track_transmittance
 // (media_pallas.py::track_transmittance_grad): pend[c] = residual_c x the
 // whole contribution this transmittance multiplies (tr included). Per
-// candidate that does not escape, coeff = sum_c pend[c] * d log
+// candidate that does not escape (at t along the walk, in ``cell``, with
+// majorant m and density dens), coeff = sum_c pend[c] * d log
 // max(m - sigma_t_c dens, 0) / d value = -sigma_t_c D / sig_n_c where
 // sig_n_c > 0, else 0 (the factor, and so the contribution, is 0 there).
 // Ratio tracking samples from the majorant alone: no score terms.
@@ -352,15 +393,15 @@ struct TransGrad {
   float* grad;
   float pend[3];
 
-  __device__ __forceinline__ void event(const MediaGrid& G, float3 p,
-                                        float m_loc, float dens) const {
+  __device__ __forceinline__ void event(const MediaGrid& G, const Cell& cell,
+                                        float, float m_loc, float dens) const {
     float coeff = 0.f;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const float sig_n = m_loc - XM(G.sigma_t[k], dens);
       coeff += pend[k] * (sig_n > 0.f ? -(G.sigma_t[k] * G.dm) / sig_n : 0.f);
     }
-    scatter_corners(G, grad, p, coeff);
+    scatter_corners(G, grad, cell, coeff);
   }
 };
 
@@ -459,7 +500,8 @@ __device__ __forceinline__ bool sample_step(const MediaGrid& G, Walk& W,
   const float t_new = W.locate(tau_new, m_loc);
   const float m_safe = m_loc <= 0.f ? 1.0f : m_loc;
   const float3 pt = ray_at(o, d, t_new);
-  const float dens = density(G, pt) * G.dm;
+  Cell cell;
+  const float dens = density(G, pt, cell) * G.dm;
   float sig_s[3], sig_n[3], p_s[3], p_n[3], q[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -479,7 +521,7 @@ __device__ __forceinline__ bool sample_step(const MediaGrid& G, Walk& W,
     const float pdf_sc = safe1(XA(XA(XM(base[0], p_s[0]), XM(base[1], p_s[1])),
                                   XM(base[2], p_s[2])));
     if constexpr (Hook::on)
-      hook.event(G, pt, true, channel, base, sig_s, sig_n, q, p_s_c, pdf_sc);
+      hook.event(G, cell, true, channel, base, sig_s, sig_n, q, p_s_c, pdf_sc);
     R.t = t_new;
     R.scattered = 1;
     R.scat_step = K.step;
@@ -491,7 +533,7 @@ __device__ __forceinline__ bool sample_step(const MediaGrid& G, Walk& W,
   const float pdf_nl = safe1(XA(XA(XM(base[0], p_n[0]), XM(base[1], p_n[1])),
                                 XM(base[2], p_n[2])));
   if constexpr (Hook::on)
-    hook.event(G, pt, false, channel, base, sig_s, sig_n, q, p_s_c, pdf_nl);
+    hook.event(G, cell, false, channel, base, sig_s, sig_n, q, p_s_c, pdf_nl);
 #pragma unroll
   for (int c = 0; c < 3; ++c) R.w[c] = XM(XM(R.w[c], tr_s), sig_n[c]) / pdf_nl;
   K.tau = tau_new;
@@ -527,8 +569,8 @@ __device__ __forceinline__ TrackResult track_sample(const MediaGrid& G,
 
 // media.py::_track_transmittance for one lane: ratio tracking from p1 to
 // p2. Draws: site + step. ``hook.event`` sees every candidate that does
-// not escape (TransGrad). Cut like the sample loop: trans_begin, then one
-// candidate per trans_step.
+// not escape (TransGrad; het_path.cuh's TransRecord). Cut like the sample
+// loop: trans_begin, then one candidate per trans_step.
 struct TransLoop {
   float3 p1, d;
   float tau_total;
@@ -571,8 +613,9 @@ __device__ __forceinline__ bool trans_step(const MediaGrid& G, Walk& W,
   float m_loc;
   const float t_new = W.locate(tau_new, m_loc);
   const float3 pt = ray_at(K.p1, K.d, t_new);
-  const float dens = density(G, pt) * G.dm;
-  if constexpr (Hook::on) hook.event(G, pt, m_loc, dens);
+  Cell cell;
+  const float dens = density(G, pt, cell) * G.dm;
+  if constexpr (Hook::on) hook.event(G, cell, t_new, m_loc, dens);
   const float m_safe = m_loc <= 0.f ? 1.0f : m_loc;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {

@@ -59,12 +59,16 @@ The analytic volume gradient (the backward half of the JAX module):
   ``grad_sampling`` (roulette off, uniform channel pick); pass B replays
   the same draws and adds, per tracking event, residual x the lane's
   contribution suffix x the closed-form ∂log factor / ∂density into a dense
-  float32 gradient grid by ``atomicAdd`` of the eight trilinear corners,
-  and writes the per-lane ∂img/∂Le planes. Its plain version is
+  float32 gradient grid by ``atomicAdd`` of the eight trilinear corners
+  (a shadow ray's events kept in the lane until its transmittance is
+  known), and writes the per-lane ∂img/∂Le planes. Its plain version is
   ``torch.autograd`` through the wavefront route with ``differentiable``,
   ``score_terms`` and ``grad_sampling`` on the same rays and keys.
 * ``try_make_fused_het_value_and_grad`` builds ``step`` and
-  ``step.step_pair`` (the two-sample product loss) over the two passes.
+  ``step.step_pair`` (the two-sample product loss, both streams in one
+  launch of each pass) over the two passes, which read a live grid of
+  more than ``media_kernels.PACK_MIN`` cells through its corner table
+  (``media_kernels.pack_corners``, once per call).
 """
 
 import ctypes
@@ -310,13 +314,14 @@ def het_path_plain(hc, o, d, keys, stats=None, density=None):
     return _wavefront_integrator(hc, _live_scene(hc, density))(Rays(o=o, d=d), keys)
 
 
-def het_path(hc, o, d, keys, density=None):
+def het_path(hc, o, d, keys, density=None, packed=None):
     """Radiance of one whole heterogeneous volume path per ray. ``o, d``
     (N, 3) f32; ``keys`` (N,) path keys (uint32 values held in int64, or
     their bits as int32). ``density``: a live (nx, ny, nz) f32 grid read in
-    place of the scene's (the gradient route's pass A). Returns (N, 3)
-    f32."""
-    if not o.is_cuda:
+    place of the scene's (the gradient route's pass A), through its corner
+    table ``packed`` (``media_kernels.pack_corners``) when given, else by
+    eight corner loads; both give the same radiance. Returns (N, 3) f32."""
+    if not o.is_cuda:   # the corner table holds the grid's own values
         return het_path_plain(hc, o, d, keys, density=density)
     dev = o.device
     n = o.shape[0]
@@ -325,12 +330,14 @@ def het_path(hc, o, d, keys, density=None):
     keys = media_kernels._key_bits(keys, n, dev)
     media_kernels._check_grid(hc.hm, dev)
     if density is not None:
-        media_kernels._check_live_grid(hc.hm, density, dev)
+        media_kernels._check_live_grid(hc.hm, density, dev, packed)
+    elif packed is not None:
+        raise ValueError("het_path: a corner table needs its live grid")
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("het_path", (
             o.data_ptr(), d.data_ptr(), keys.data_ptr(), n, hc.fc, hc.ic,
-            *hc.hm.grid_args(density), out.data_ptr(), sweeps._stream(),
+            *hc.hm.grid_args(density, packed), out.data_ptr(), sweeps._stream(),
         ))
     LAUNCHES["het_path"] += 1
     return out
@@ -501,7 +508,7 @@ def het_grad_path_plain(hc, o, d, keys, img, rfac, density, le_planes=True):
     return img_b.detach(), gle, grad
 
 
-def het_grad_path(hc, o, d, keys, img, rfac, density, le_planes=True):
+def het_grad_path(hc, o, d, keys, img, rfac, density, le_planes=True, packed=None):
     """Pass B of the analytic gradient of a loss of the radiance of one
     whole path per ray: replays ``het_path``'s draws under
     ``grad_sampling`` (``hc`` must be built with it) on the live grid
@@ -512,8 +519,9 @@ def het_grad_path(hc, o, d, keys, img, rfac, density, le_planes=True):
     w.r.t. it. Returns (img (N, 3), the radiance pass B recomputed;
     gle (N, 3, L), gle[:, c, l] = ∂img_c/∂al_le[l, c] at the build-time
     emission, or None unless ``le_planes``; the gradient grid (nx, ny,
-    nz)). The grid is summed with atomic adds, so its last bits vary from
-    run to run."""
+    nz)). ``packed``: ``density``'s corner table, read in place of eight
+    corner loads per lookup (the same values). The grid is summed with
+    atomic adds, so its last bits vary from run to run."""
     if not hc.grad_sampling:
         raise ValueError("het_grad_path: the constants must be built with grad_sampling")
     if not o.is_cuda:
@@ -527,7 +535,7 @@ def het_grad_path(hc, o, d, keys, img, rfac, density, le_planes=True):
     sweeps._check("rfac", rfac, f32, (n, 3), dev)
     keys = media_kernels._key_bits(keys, n, dev)
     media_kernels._check_grid(hc.hm, dev)
-    media_kernels._check_live_grid(hc.hm, density, dev)
+    media_kernels._check_live_grid(hc.hm, density, dev, packed)
     n_l = _n_lights(hc)
     out_img = torch.empty((n, 3), dtype=f32, device=dev)
     planes = torch.empty((3 * n_l, n), dtype=f32, device=dev)
@@ -535,7 +543,7 @@ def het_grad_path(hc, o, d, keys, img, rfac, density, le_planes=True):
     with torch.cuda.device(dev):
         _launch("het_grad_path", (
             o.data_ptr(), d.data_ptr(), keys.data_ptr(), img.data_ptr(),
-            rfac.data_ptr(), n, hc.fc, hc.ic, *hc.hm.grid_args(density),
+            rfac.data_ptr(), n, hc.fc, hc.ic, *hc.hm.grid_args(density, packed),
             out_img.data_ptr(), planes.data_ptr(), grad.data_ptr(),
             sweeps._stream(),
         ))
@@ -550,13 +558,18 @@ def try_make_fused_het_value_and_grad(
 ):
     """ANALYTIC value and gradient of the L2 image loss for the
     heterogeneous whole path (the volume counterpart of
-    ``diff.try_make_fast_value_and_grad``), two launches per step: pass A
+    ``diff.try_make_fast_value_and_grad``), two passes per step: pass A
     renders the image with the grad-sampling estimator (``het_path``,
     roulette off, uniform channel pick), pass B (``het_grad_path``) replays
     the same draws and accumulates the density gradient and the per-lane
     ∂img/∂Le. The gradients are those of ``torch.autograd`` through
     ``make_volume_integrator(differentiable=True, score_terms=True,
     grad_sampling=True)`` on the same draws, up to float32 summation order.
+    Each call first packs the live grid into its corner table
+    (``media_kernels.pack_corners``, one table per step function, reused),
+    so that both passes read one row per lookup; grids of at most
+    ``media_kernels.PACK_MIN`` cells (faster by corner loads) and grids
+    past the builder's gate are read by corner loads.
 
     Returns ``step(params, pixel_ids, pixel_xy, target, sample_idx) ->
     (loss, grads)`` for ``params`` keys "grid_density" and "al_le", and
@@ -564,10 +577,11 @@ def try_make_fused_het_value_and_grad(
     sample_b)``: the two-sample product loss mean((a - t) (b - t)) over two
     independent renders (streams ``seed`` and ``seed + 7919``), an unbiased
     surrogate for (E img - t)^2 that lacks the Var(img) term a plain L2 on
-    one noisy render drives down by emptying the grid; its gradients sum
-    two replays with crossed residuals; ``step.render(grid, pixel_ids,
-    pixel_xy, sample_idx)`` is pass A alone. A dict passed as ``aux``
-    receives the rendered images ("img", and "img_b" of the second stream).
+    one noisy render drives down by emptying the grid; both streams go
+    through one pass-A and one pass-B launch over their 2N lanes, replayed
+    with crossed residuals; ``step.render(grid, pixel_ids, pixel_xy,
+    sample_idx)`` is pass A alone. A dict passed as ``aux`` receives the
+    rendered images ("img", and "img_b" of the second stream).
     ``grid_density`` is LIVE: each call
     reads the tensor it is given. Le is the build-time value: "al_le"
     gradients are taken there, and a new Le needs a new step. The active
@@ -590,67 +604,83 @@ def try_make_fused_het_value_and_grad(
     n_l = _n_lights(hc)
     dev = tables.tri_v0.device
     wh = torch.tensor([float(width), float(height)], device=dev)
+    n_cells = tables.grid_density.numel()
+    table = (torch.empty((n_cells, 8), dtype=torch.float32, device=dev)
+             if media_kernels.PACK_MIN < n_cells <= media_kernels.PACK_GATE else None)
 
-    def render(grid, seed_, pixel_ids, pixel_xy, sample):
+    def camera_rays(seed_, pixel_ids, pixel_xy, sample):
         keys = path_keys(seed_, pixel_ids, sample)
         u = uniform2(keys, CAMERA_SITE)
         rays = camera.sample_rays((pixel_xy + u) / wh)
-        o, d = rays.o.contiguous(), rays.d.contiguous()
-        return o, d, keys, het_path(hc, o, d, keys, density=grid)
+        return rays.o, rays.d, keys
 
-    def grads(params, grid, replays):
-        """The gradients of ``params`` summed over the replays, each
-        (o, d, keys, img, rfac)."""
-        g_grid = g_le = 0.0
+    def live_grid(grid):
+        """The live grid and its corner table (None outside the gates)."""
+        grid = grid.detach().contiguous()
+        packed = None if table is None else media_kernels.pack_corners(grid, out=table)
+        return grid, packed
+
+    def passes(params, grid, packed, o, d, keys, rfac_of):
+        """Pass A over the lanes (o, d, keys), the loss and the residual
+        from ``rfac_of(img)``, then pass B: (img, loss, grads)."""
+        o, d = o.contiguous(), d.contiguous()
+        img = het_path(hc, o, d, keys, density=grid, packed=packed)
+        loss, rfac = rfac_of(img)
         le = "al_le" in params
-        for o, d, keys, img, rfac in replays:
-            _, gle, gg = het_grad_path(hc, o, d, keys, img, rfac, grid, le_planes=le)
-            g_grid = g_grid + gg
-            if le:
-                g_le = g_le + torch.einsum("nc,ncl->lc", rfac, gle)
+        _, gle, g_grid = het_grad_path(hc, o, d, keys, img, rfac.contiguous(), grid,
+                                       le_planes=le, packed=packed)
         out = {}
         if "grid_density" in params:
             out["grid_density"] = g_grid
-        if "al_le" in params:
+        if le:
             out["al_le"] = torch.zeros_like(params["al_le"])
-            out["al_le"][:n_l] = g_le
-        return out
-
-    def live_grid(params):
-        return params.get("grid_density", tables.grid_density).detach().contiguous()
+            out["al_le"][:n_l] = torch.einsum("nc,ncl->lc", rfac, gle)
+        return img, loss, out
 
     @torch.no_grad()
     def step(params, pixel_ids, pixel_xy, target, sample_idx, aux=None):
-        grid = live_grid(params)
-        o, d, keys, img = render(grid, seed, pixel_ids, pixel_xy, sample_idx)
-        n = img.shape[0]
-        loss = torch.mean((img - target) ** 2)
-        rfac = 2.0 * (img - target) / (n * 3)
+        grid, packed = live_grid(params.get("grid_density", tables.grid_density))
+        o, d, keys = camera_rays(seed, pixel_ids, pixel_xy, sample_idx)
+        n = keys.shape[0]
+
+        def rfac_of(img):
+            return torch.mean((img - target) ** 2), 2.0 * (img - target) / (n * 3)
+
+        img, loss, grads = passes(params, grid, packed, o, d, keys, rfac_of)
         if aux is not None:
             aux["img"] = img
-        return loss, grads(params, grid, [(o, d, keys, img, rfac)])
+        return loss, grads
 
     @torch.no_grad()
     def step_pair(params, pixel_ids, pixel_xy, target, sample_a, sample_b,
                   aux=None):
-        grid = live_grid(params)
-        a = render(grid, seed, pixel_ids, pixel_xy, sample_a)
-        b = render(grid, seed + 7919, pixel_ids, pixel_xy, sample_b)
-        img_a, img_b = a[3], b[3]
-        n = img_a.shape[0]
-        loss = torch.mean((img_a - target) * (img_b - target))
-        rfac_a = (img_b - target) / (n * 3)
-        rfac_b = (img_a - target) / (n * 3)
+        grid, packed = live_grid(params.get("grid_density", tables.grid_density))
+        a = camera_rays(seed, pixel_ids, pixel_xy, sample_a)
+        b = camera_rays(seed + 7919, pixel_ids, pixel_xy, sample_b)
+        n = a[2].shape[0]
+
+        def rfac_of(img):
+            # lanes [0, n) are stream a, [n, 2n) stream b: each replays with
+            # the other's residual
+            img_a, img_b = img[:n], img[n:]
+            loss = torch.mean((img_a - target) * (img_b - target))
+            return loss, torch.cat([img_b - target, img_a - target]) / (n * 3)
+
+        img, loss, grads = passes(params, grid, packed,
+                                  *(torch.cat([x, y]) for x, y in zip(a, b)),
+                                  rfac_of)
         if aux is not None:
-            aux["img"], aux["img_b"] = img_a, img_b
-        return loss, grads(params, grid, [(*a, rfac_a), (*b, rfac_b)])
+            aux["img"], aux["img_b"] = img[:n], img[n:]
+        return loss, grads
 
     @torch.no_grad()
     def render_image(grid, pixel_ids, pixel_xy, sample_idx):
         """Pass A alone: the grad-sampling image of ``grid`` (stream
         ``seed``), as ``step`` renders it."""
-        return render(grid.detach().contiguous(), seed, pixel_ids, pixel_xy,
-                      sample_idx)[3]
+        grid, packed = live_grid(grid)
+        o, d, keys = camera_rays(seed, pixel_ids, pixel_xy, sample_idx)
+        return het_path(hc, o.contiguous(), d.contiguous(), keys, density=grid,
+                        packed=packed)
 
     step.n_lights = n_l
     step.het_consts = hc

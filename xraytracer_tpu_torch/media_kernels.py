@@ -13,6 +13,13 @@ per-lane device functions of ``csrc/media.cuh``, launched from
   (through ``try_make_fused_het_transmittance``): ratio-tracked
   transmittance between two points per lane.
 
+And one helper of the analytic volume gradient, which replaces no TPU
+kernel: ``pack_corners`` makes the corner table of a LIVE density grid on
+the device (the scene builder's packing, ``scene/builder.py``), so that the
+gradient step's two passes read one 32-byte row per lookup, as the forward
+kernels read the build-time table (for grids of more than ``PACK_MIN``
+cells: a smaller grid is read faster by corner loads).
+
 The JAX package's kernels read a bf16 brick table through one-hot matmuls
 (the TPU's stand-in for a gather) and so sample the density field rounded to
 bf16; these kernels load float32 corners from ``grid_packed`` (or
@@ -46,7 +53,7 @@ from .geometry import kernels as sweeps
 from .integrators.megakernel import _i32_bits
 from .scene.tables import MED_HETEROGENEOUS
 
-KERNEL_NAMES = ("track_sample", "track_transmittance")
+KERNEL_NAMES = ("track_sample", "track_transmittance", "pack_corners")
 
 # launches of each kernel, and calls of each plain version, since the last
 # ``reset_counts()``: plain ints, bumped exactly where a wrapper launches
@@ -65,7 +72,21 @@ _ARGTYPES = {
     "track_sample": [_P] * 7 + [_I, ctypes.c_uint] + _GRID_ARGTYPES + [_P] * 5,
     # p1, p2, keys, mask, n, site, grid..., tr, stream
     "track_transmittance": [_P] * 4 + [_I, ctypes.c_uint] + _GRID_ARGTYPES + [_P] * 2,
+    # density, nx, ny, nz, out, stream
+    "pack_corners": [_P, _I, _I, _I, _P, _P],
 }
+
+# the scene builder's size gate for the corner table (8 floats per cell):
+# a larger grid is read by eight corner loads
+PACK_GATE = 160 ** 3
+# the gradient step functions pack a live grid only past this many cells.
+# A small grid stays in L1 and its eight scattered loads are cheap, where its
+# table is 8x the bytes: at 16^3 (16 KB) pass A read the table 26% slower
+# than the dense grid and K10 2% slower; at 64^3 (1 MB) K10 read it 3-7%
+# faster and both passes together 0-9% faster (H100, chip_smoke.py). The
+# crossover between the two was not measured; the gate sits at 32^3, a
+# 128 KB grid.
+PACK_MIN = 32 ** 3
 
 
 def _bind(lib):
@@ -124,17 +145,19 @@ class HetMedium:
     def device(self):
         return self.scene.grid_density.device
 
-    def grid_args(self, density=None):
+    def grid_args(self, density=None, packed=None):
         """The grid's launch arguments. ``density``: a live (nx, ny, nz)
-        grid on the device, read by eight corner loads in place of the
-        scene's corner table (which would be stale)."""
+        grid on the device, read in place of the scene's (whose corner
+        table would be stale): through ``packed``, its corner table
+        (``pack_corners``), or else by eight corner loads."""
         s = self.scene
         if density is None:
             return (self.fc, self.ic, s.grid_density.data_ptr(),
                     s.grid_packed.data_ptr(), s.grid_super.data_ptr())
         ic = (ctypes.c_int * len(self.ic))(*self.ic)
-        ic[8] = 0   # use_packed
-        return (self.fc, ic, density.data_ptr(), density.data_ptr(),
+        ic[8] = int(packed is not None)   # use_packed
+        rows = density if packed is None else packed
+        return (self.fc, ic, density.data_ptr(), rows.data_ptr(),
                 s.grid_super.data_ptr())
 
     def med(self, n):
@@ -193,11 +216,16 @@ def _check_grid(hm, dev):
         raise ValueError("grid_density: too many cells for the kernels' indexing")
 
 
-def _check_live_grid(hm, density, dev):
+def _check_live_grid(hm, density, dev, packed=None):
     """A live density grid: float32, the scene grid's shape, contiguous, on
-    ``dev``."""
+    ``dev``; and its corner table, if given."""
     g = hm.scene.grid_density
     sweeps._check("grid_density (live)", density, torch.float32, g.shape, dev)
+    if packed is not None:
+        sweeps._check("corner table (live)", packed, torch.float32,
+                      (density.numel(), 8), dev)
+        if packed.data_ptr() % 32:
+            raise ValueError("corner table (live): must be 32-byte aligned")
 
 
 def _key_bits(keys, n, dev):
@@ -309,6 +337,56 @@ def track_transmittance(hm, p1, p2, keys, site, het_mask):
         ))
     LAUNCHES["track_transmittance"] += 1
     return tr
+
+
+# --------------------------------------------------------------------------
+# the corner table of a live grid
+# --------------------------------------------------------------------------
+def pack_corners_plain(density):
+    """Plain PyTorch version of ``pack_corners``: the scene builder's
+    packing. Returns (nx * ny * nz, 8), corner d = dx*4 + dy*2 + dz of row
+    (i, j, k) the grid at (i + dx, j + dy, k + dz), edges clamped."""
+    PLAIN_CALLS["pack_corners"] += 1
+    nx, ny, nz = density.shape
+    dev = density.device
+    ix, iy, iz = (torch.arange(k, device=dev) for k in (nx, ny, nz))
+    out = torch.empty((nx, ny, nz, 8), dtype=density.dtype, device=dev)
+    for d in range(8):
+        dx, dy, dz = (d >> 2) & 1, (d >> 1) & 1, d & 1
+        out[..., d] = density[torch.clamp(ix + dx, max=nx - 1)][
+            :, torch.clamp(iy + dy, max=ny - 1)][:, :, torch.clamp(iz + dz, max=nz - 1)]
+    return out.reshape(-1, 8)
+
+
+def pack_corners(density, out=None):
+    """The corner table (nx * ny * nz, 8) f32 of the (nx, ny, nz) f32 grid
+    ``density``, written into ``out`` when given (its shape, 32-byte
+    aligned). A grid past ``PACK_GATE`` has none (the builder's gate):
+    ValueError."""
+    if density.numel() > PACK_GATE:
+        raise ValueError(f"pack_corners: {tuple(density.shape)} is past the "
+                         f"corner table's size gate ({PACK_GATE} cells)")
+    if not density.is_cuda:
+        table = pack_corners_plain(density)
+        if out is None:
+            return table
+        out.copy_(table)
+        return out
+    dev = density.device
+    sweeps._check("density", density, torch.float32, density.shape, dev)
+    n = density.numel()
+    if out is None:
+        out = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    sweeps._check("out", out, torch.float32, (n, 8), dev)
+    if out.data_ptr() % 32:
+        raise ValueError("pack_corners: out must be 32-byte aligned")
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        _launch("pack_corners", (density.data_ptr(), *density.shape,
+                                 out.data_ptr(), sweeps._stream()))
+    LAUNCHES["pack_corners"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------
