@@ -17,11 +17,13 @@
                                      # csrc/het_megakernel.cu under other
                                      # __launch_bounds__ caps and times them
     python3 chip_smoke.py --ab-csrc parent=DIR [--ab-only]
-                                     # also builds media.cu and
+                                     # also builds sweep.cu, media.cu and
                                      # het_megakernel.cu from DIR (another
                                      # copy of csrc/, e.g. the parent
-                                     # commit's) and holds K7-K10 of that
-                                     # build against the package's, bitwise,
+                                     # commit's; each only where its sources
+                                     # differ from the package's) and holds
+                                     # K2-K4 and K7-K10 of that build
+                                     # against the package's, bitwise,
                                      # timing both in turns
 
 Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
@@ -29,9 +31,9 @@ libraries: the sweeps, the whole-path surface kernels with the
 analytic-gradient kernel, the whole-path homogeneous volume kernels, the
 heterogeneous tracking kernels, the whole-path heterogeneous volume
 kernels with the analytic volume-gradient kernel), holds each of the
-sixteen kernels (and the corner-table helper of the volume gradient's
-route) against its plain PyTorch version on the card at the
-shapes its path gives it, reproduces the two CPU golden images through the
+sixteen kernels (and two helpers: the chunk table the sweeps walk and the
+corner table of the volume gradient's route) against its plain PyTorch
+version on the card at the shapes its path gives it, reproduces the two CPU golden images through the
 kernels, and then drives, through the port's public entry points:
 
 * ``main_path``: the ``cornellbox_gi`` preset (780x585, depth 3) by its
@@ -104,9 +106,16 @@ Bounds. ``bound_ms`` is the least time the card could take: the larger of
 cores, the H100 SXM data-sheet peaks. Operations are counted from this
 run's data:
 
-* the nearest-hit sweeps need all N*T pair tests (38 flop each); the any-hit
-  sweep needs, per ray with t_max > 0, the tests up to and including its
-  first blocking triangle in table order (all T when nothing blocks);
+* the sweeps walk a chunk table (csrc/sweep.cuh) and need, per ray in its
+  own visit order, the slab test of every group's box and of the chunks of
+  the groups it wants (15 flop each), and the pair tests of the valid rows
+  of every chunk it wants itself (38 flop each; 39 for any-hit), where the
+  nearest-hit ray prunes against its own running best and the any-hit ray
+  against its t_max, up to and including its first blocking row
+  (``culled_tests_needed``). The brute-force count (all N*T tests; for
+  any-hit up to the first blocker in table order) is printed beside it as
+  ``brute_bound_ms``. The chunk table (chunk_boxes) reads the table and
+  mask once and writes its boxes and coefficient rows once;
 * a whole-path surface kernel needs T pair tests for every camera, bounce
   and shadow ray of its paths, counted by the plain version's per-bounce
   counters on the same inputs;
@@ -195,6 +204,8 @@ K1_SPP = 4             # whole-path kernel checks beside the main-path shape
 K1_MESH_SIZE = (40, 38)  # 3,044 triangles in 3,072 rows = 24 tiles of 128
 MESH_SPP = 4
 MESH_SIZE = (82, 80)   # the "13k" lat-long sphere mesh
+MESH51_SIZE = (161, 160)  # bench_mesh.py's "51k" mesh (--ab-csrc only)
+MESH51_PLAIN_RAYS = 65536  # rays of the 51k case held against the plain version
 REF_W, REF_H = 128, 96
 VOL_CHECK_SPP = 4      # volume whole-path kernel checks at the vpt preset's size
 # the case the kernels line reports is the main path's own launch (the
@@ -245,6 +256,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 FLOPS_PER_TEST = 38     # det 5, u 11, v 11, t 6, sign/compare arithmetic 5
 FLOPS_PER_ANYHIT_TEST = 39
+FLOPS_PER_SLAB = 15     # a chunk or group box: 6 differences, 6 products, the
+                        # interval's min / max and the candidacy compares
 # volume whole-path and tracking kernels; derived in the docstring above
 FLOPS_VOL_TRI_TEST, FLOPS_VOL_BOX, FLOPS_VOL_RR = 45, 30, 8
 FLOPS_VOL_MEDIUM, FLOPS_VOL_LIGHT, FLOPS_VOL_NEE_REST = 110, 40, 50
@@ -456,7 +469,7 @@ def kernel_modules():
 
 
 def all_counts():
-    """Launch and plain-call counts of all seventeen kernels."""
+    """Launch and plain-call counts of all eighteen kernels and helpers."""
     out = {}
     for mod in kernel_modules():
         out.update(mod.counts())
@@ -464,8 +477,20 @@ def all_counts():
 
 
 def reset_all_counts():
+    """Every count to 0, and the sweeps' cached chunk tables dropped: a
+    path counted from here builds the chunk table of each (table, mask) it
+    sweeps once, as a render of a new table does."""
+    from xraytracer_tpu_torch.geometry import kernels
+
     for mod in kernel_modules():
         mod.reset_counts()
+    kernels._chunk_tables.clear()
+
+
+def chunk_builds(tables, masks):
+    """chunk_boxes launches of a counted run that sweeps ``tables`` under
+    ``masks`` distinct masks (none for an empty table)."""
+    return masks if tables.tri_v0.shape[0] > 0 else 0
 
 
 def capture_sweep_inputs(renderer):
@@ -520,6 +545,72 @@ def anyhit_tests_needed(o, d, v0, e1, e2, blocks, t_max):
             first = torch.where(has & (first == t_total), loc, first)
         total += int(torch.where(tm > 0.0, first, torch.zeros_like(first)).sum())
     return total
+
+
+def culled_tests_needed(o, d, v0, e1, e2, mask, t_max=None):
+    """(pair tests, slab tests) that the culled walk of csrc/sweep.cuh needs
+    for these rays, per ray in its own visit order: every group's box, the
+    boxes of the chunks of the groups it wants, and the valid rows of each
+    chunk it wants itself, where it wants a box it enters before its running
+    best t (nearest hit), or before its t_max and up to and including its
+    first blocking row (any-hit, ``t_max`` given; 0 for parked rays). What
+    the warp's other lanes make it wait for is not counted."""
+    import torch
+
+    from xraytracer_tpu_torch.geometry import intersect as ix
+    from xraytracer_tpu_torch.geometry import kernels
+
+    chunk, group = kernels.SWEEP_CHUNK, kernels.SWEEP_GROUP
+    t_total = v0.shape[0]
+    if t_total == 0:
+        return 0, 0
+    center = torch.mean(v0, dim=0)
+    boxes, _ = kernels.chunk_boxes_plain(v0, e1, e2, mask, center)
+    n_chunks = -(-t_total // chunk)
+    g = ix._tri_features(v0 - center, e1, e2).T.reshape(t_total, 4, 10)
+    vf = mask.to(torch.float32)
+    oc = o - center
+    f = ix._ray_features(oc, d)
+    tiny = torch.full_like(d, 1e-12)
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-12, torch.copysign(tiny, d), d)
+    anyhit = t_max is not None
+    best = t_max.clone() if anyhit else torch.full_like(o[:, 0], 3.4e38)
+    done = ~(t_max > 0.0) if anyhit else torch.zeros_like(best, dtype=torch.bool)
+
+    def wants(b):
+        ta = (b[0:3] - oc) * inv
+        tb = (b[3:6] - oc) * inv
+        tmin = torch.minimum(ta, tb).amax(dim=1)
+        tmax = torch.maximum(ta, tb).amin(dim=1)
+        return (~done & (b[6] > 0) & (tmax >= tmin) & (tmax > 0)
+                & (torch.clamp(tmin, min=0.0) < best * (1.0 + 1e-5)))
+
+    tests = torch.zeros_like(best, dtype=torch.int64)
+    slabs = torch.zeros_like(tests)
+    for gi in range(-(-n_chunks // group)):
+        slabs += ~done
+        want_g = wants(boxes[n_chunks + gi])
+        for c in range(gi * group, min(n_chunks, (gi + 1) * group)):
+            slabs += want_g
+            want = want_g & wants(boxes[c])
+            lanes = torch.nonzero(want)[:, 0]
+            if lanes.numel() == 0:
+                continue
+            r0, r1 = c * chunk, min(t_total, (c + 1) * chunk)
+            ok, det, t_num, t_s, absd = ix._mm_hit_test(f[lanes], g[r0:r1], vf[r0:r1])
+            valid = vf[r0:r1] > 0
+            if anyhit:
+                blk = ok & (t_s < best[lanes, None] * absd)
+                has = blk.any(dim=1)
+                first = torch.argmax(blk.to(torch.int8), dim=1)
+                upto = torch.cumsum(valid.to(torch.int64), 0)
+                tests[lanes] += torch.where(has, upto[first], upto[-1])
+                done[lanes[has]] = True
+            else:
+                tests[lanes] += int(valid.sum())
+                t = torch.where(ok, t_num / det, torch.full_like(t_num, 3.4e38))
+                best[lanes] = torch.minimum(best[lanes], t.amin(dim=1))
+    return int(tests.sum()), int(slabs.sum())
 
 
 def bound_ms(n_bytes, n_tests, flops_per_test):
@@ -628,10 +719,11 @@ def kernel_cases(tables, rays_sets, flush, reps):
     rec_tab = tables.tri_rec
     t_total = v0.shape[0]
     tri_bytes = t_total * (36 + 1) + 12
-    out = {k: [] for k in kernels.KERNEL_NAMES}
+    out = {k: [] for k in kernels.SWEEPS}
 
     for label, (o, d) in rays_sets["nearest"].items():
         n = o.shape[0]
+        tests, slabs = culled_tests_needed(o, d, v0, e1, e2, valid)
         for name, with_rec in (("sweep_nearest", False), ("sweep_nearest_rec", True)):
             if with_rec:
                 run_k = lambda: kernels.sweep_nearest_rec(o, d, v0, e1, e2, valid, rec_tab)
@@ -645,12 +737,14 @@ def kernel_cases(tables, rays_sets, flush, reps):
             torch.cuda.synchronize()
             case = compare_nearest(got, ref, with_rec)
             del got, ref
-            b_ms, b_by = bound_ms(n_bytes, n * t_total, FLOPS_PER_TEST)
+            b_ms, b_by = bound_ms(n_bytes, tests * FLOPS_PER_TEST + slabs * FLOPS_PER_SLAB, 1)
             case.update(
                 case=label, t_total=t_total,
                 ms=median_ms(run_k, reps, flush),
                 plain_ms=median_ms(run_p, reps, flush),
-                bound_ms=b_ms, bound_by=b_by,
+                bound_ms=b_ms, bound_by=b_by, tests_needed=tests, slabs_needed=slabs,
+                tests_brute=n * t_total,
+                brute_bound_ms=bound_ms(n_bytes, n * t_total, FLOPS_PER_TEST)[0],
             )
             out[name].append(case)
 
@@ -680,27 +774,37 @@ def kernel_cases(tables, rays_sets, flush, reps):
               f"sweep_nearest {label}: {mism24} of {n} derived blocked flags "
               f"differ from occluded_anyhit's")
         del got2, ref2
-        b_ms, b_by = bound_ms(n * (24 + 16) + tri_bytes, n * t_total, FLOPS_PER_TEST)
+        n_bytes = n * (24 + 16) + tri_bytes
+        tests, slabs = culled_tests_needed(o, d, v0, e1, e2, blocks)
+        b_ms, b_by = bound_ms(n_bytes, tests * FLOPS_PER_TEST + slabs * FLOPS_PER_SLAB, 1)
         case2.update(
             case=f"{label}, blocks mask", t_total=t_total,
             derived_blocked_mismatch=mism2,
             derived_blocked_vs_anyhit_kernel=mism24,
             ms=median_ms(run_k2, reps, flush),
             plain_ms=median_ms(run_p2, reps, flush),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, tests_needed=tests, slabs_needed=slabs,
+            tests_brute=n * t_total,
+            brute_bound_ms=bound_ms(n_bytes, n * t_total, FLOPS_PER_TEST)[0],
         )
         out["sweep_nearest"].append(case2)
-        tests = anyhit_tests_needed(o, d, v0, e1, e2, blocks, tm)
-        b_ms, b_by = bound_ms(n * (24 + 4 + 1) + tri_bytes, tests,
-                              FLOPS_PER_ANYHIT_TEST)
+        # the brute-force walk's count (up to the first blocker in table
+        # order) and the culled walk's
+        brute = anyhit_tests_needed(o, d, v0, e1, e2, blocks, tm)
+        tests, slabs = culled_tests_needed(o, d, v0, e1, e2, blocks, tm)
+        n_bytes = n * (24 + 4 + 1) + tri_bytes
+        b_ms, b_by = bound_ms(
+            n_bytes, tests * FLOPS_PER_ANYHIT_TEST + slabs * FLOPS_PER_SLAB, 1)
         out["occluded_anyhit"].append(dict(
             case=label, n=n, t_total=t_total,
             blocked=int(ref.sum()), parked=int((tm <= 0).sum()),
             blocked_mismatch=mism, mismatch_share=mism / max(n, 1),
-            tests_needed=tests, tests_brute=n * t_total,
+            tests_needed=tests, slabs_needed=slabs, tests_brute_needed=brute,
+            tests_brute=n * t_total,
             ms=median_ms(run_k, reps, flush),
             plain_ms=median_ms(run_p, reps, flush),
             bound_ms=b_ms, bound_by=b_by,
+            brute_bound_ms=bound_ms(n_bytes, brute, FLOPS_PER_ANYHIT_TEST)[0],
         ))
     return out
 
@@ -767,6 +871,16 @@ def edge_cases(device):
           "blocked by an all-invalid table")
     done.append(dict(case="masked tile / all-invalid table", hits=c["hits"]))
 
+    # an empty table: no chunk table to build, every lane misses
+    empty = torch.zeros((0, 3), device=device)
+    no_rows = torch.zeros((0,), dtype=torch.bool, device=device)
+    got = kernels.sweep_nearest_rec(o, d, empty, empty, empty, no_rows,
+                                    torch.zeros((0, 32), device=device))
+    check(bool((got[1] == -1).all()) and not bool(got[4].any()), "hit in an empty table")
+    check(not bool(kernels.occluded_anyhit(o, d, empty, empty, empty, no_rows, tm).any()),
+          "blocked by an empty table")
+    done.append(dict(case="empty table (T = 0)", hits=0))
+
     # rays parallel to (and in the plane of) a triangle never hit it
     v0 = torch.tensor([[0.0, 0.0, 0.0]] * 8, device=device)
     e1 = torch.tensor([[1.0, 0.0, 0.0]] * 8, device=device)
@@ -794,7 +908,7 @@ def summarize(cases_by_kernel, headline):
         "occluded_anyhit": "xraytracer_tpu/geometry/pallas_kernels.py:420",
     }
     entries = []
-    for name in kernels.KERNEL_NAMES:
+    for name in kernels.SWEEPS:
         cases = cases_by_kernel[name]
         head = next(c for c in cases if c["case"] == headline[name])
         if name == "occluded_anyhit":
@@ -816,9 +930,67 @@ def summarize(cases_by_kernel, headline):
             library_ms=None,
             shape=f"{head['case']}: N={head['n']} T={head['t_total']}",
             cases=[{k: c[k] for k in ("case", "n", "t_total", "ms", "plain_ms",
-                                      "bound_ms", "bound_by")} for c in cases],
+                                      "bound_ms", "bound_by", "brute_bound_ms")}
+                   for c in cases],
         ))
     return entries
+
+
+CHUNK_REPLACES = "xraytracer_tpu/geometry/pallas_kernels.py:794"
+
+
+def check_chunk_boxes(tables_by_label, reps, flush):
+    """chunk_boxes (the chunk table the sweeps walk) against its plain
+    version on each scene's table under both masks: the boxes bitwise, the
+    coefficient rows to float rounding (nvcc contracts their products);
+    timed beside its bytes bound (the table and mask read once, the boxes
+    and the coefficient rows written once). Returns the ``kernels`` entry."""
+    import torch
+
+    from xraytracer_tpu_torch.geometry import kernels
+
+    cases = []
+    for label, tables in tables_by_label.items():
+        v0, e1, e2 = tables.tri_v0, tables.tri_e1, tables.tri_e2
+        valid = tables.tri_obj >= 0
+        light = tables.obj_light[torch.clamp(tables.tri_obj, min=0).to(torch.int64)]
+        for mname, mask in (("valid", valid), ("blocks", valid & (light < 0))):
+            center = kernels._center(v0)
+            boxes, coef = kernels.chunk_boxes(v0, e1, e2, mask, center)
+            pboxes, pcoef = kernels.chunk_boxes_plain(v0, e1, e2, mask, center)
+            torch.cuda.synchronize()
+            bad = int((boxes != pboxes).any(dim=1).sum())
+            check(bad == 0, f"chunk_boxes, {label} {mname}: {bad} box rows differ "
+                            f"from the plain version")
+            err = float(torch.abs(coef - pcoef).max())
+            scale = float(torch.abs(pcoef).max())
+            check(err <= 1e-5 * scale, f"chunk_boxes, {label} {mname}: coefficients "
+                                       f"differ by {err} (largest {scale})")
+            t_total = v0.shape[0]
+            n_bytes = t_total * (36 + 1) + 12 + boxes.numel() * 4 + coef.numel() * 4
+            cases.append(dict(
+                case=f"{label}, {mname} mask", t_total=t_total, box_rows=boxes.shape[0],
+                box_rows_differ=bad, coef_max_abs_err=err, coef_largest=scale,
+                ms=median_ms(lambda: kernels.chunk_boxes(v0, e1, e2, mask, center),
+                             reps, flush),
+                plain_ms=median_ms(lambda: kernels.chunk_boxes_plain(
+                    v0, e1, e2, mask, center), reps, flush),
+                bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+    emit("kernel_checks", kernels="chunk table of the sweeps", cases=cases, reps=reps)
+    head = cases[-1]
+    return dict(
+        name="chunk_boxes", route="cuda", source="xraytracer_tpu_torch/csrc/sweep.cu",
+        replaces=CHUNK_REPLACES, launches=None, launches_by_path=None,
+        replaces_note="no TPU kernel: the XLA pre-pass of every Pallas sweep "
+                      "(_build_chunk_aabbs, _build_g_chunks), built here once per "
+                      "table and mask",
+        max_abs_err=max(c["coef_max_abs_err"] for c in cases),
+        err_of="coefficient rows against the plain version (boxes bitwise: 0 rows differ)",
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        shape=f"{head['case']}: T={head['t_total']}",
+        cases=[{k: c[k] for k in ("case", "t_total", "ms", "bound_ms", "plain_ms")}
+               for c in cases])
 
 
 def render_checks(label, result, spp, counts, expected, ref_kernel, ref_plain):
@@ -952,13 +1124,15 @@ def phase_kernels(device, scenes_in, reps, fmad_ab):
         ))
 
     def run_all_cases():
-        merged = {k: [] for k in kernels.KERNEL_NAMES}
+        merged = {k: [] for k in kernels.SWEEPS}
         for tables, sets in scenes.values():
             for k, v in kernel_cases(tables, sets, flush, reps).items():
                 merged[k].extend(v)
         return merged
 
     cases = run_all_cases()
+    chunk_entry = check_chunk_boxes(
+        {label: tables for label, (tables, _) in scenes.items()}, reps, flush)
     edges = edge_cases(device)
     emit("kernel_checks", kernels="sweeps", flags=[], cases=cases,
          edge_cases=edges, reps=reps, tolerances=dict(
@@ -979,7 +1153,7 @@ def phase_kernels(device, scenes_in, reps, fmad_ab):
         "sweep_nearest": "cornell depth-0 camera rays",
         "sweep_nearest_rec": "cornell depth-0 camera rays",
         "occluded_anyhit": "cornell depth-0 shadow rays",
-    })
+    }) + [chunk_entry]
 
 
 MEGA_REPLACES = {
@@ -1402,7 +1576,8 @@ def phase_wavefront(device, cfg, cornell, cornell_cam, main_image_mean):
     line = render_checks(
         "wavefront_path", result, WAVEFRONT_SPP, counts_wave,
         {"sweep_nearest_rec": WAVEFRONT_SPP * DEPTH,
-         "occluded_anyhit": WAVEFRONT_SPP * DEPTH * n_lights}, ref_k, ref_p)
+         "occluded_anyhit": WAVEFRONT_SPP * DEPTH * n_lights,
+         "chunk_boxes": chunk_builds(cornell, 2)}, ref_k, ref_p)
     m_wave = float(result.image.mean())
     check(abs(m_wave - main_image_mean) <= MEAN_BAND_FULL_VS_REF * main_image_mean,
           f"wavefront_path: mean {m_wave} vs main path {main_image_mean}")
@@ -1419,9 +1594,10 @@ def phase_wavefront(device, cfg, cornell, cornell_cam, main_image_mean):
     counts_tri = all_counts()
     check(res_s.n_rejected == 0, "tri_fn_path: rejected samples")
     check(bool(np.isfinite(res_s.image).all()), "tri_fn_path: non-finite pixels")
-    k2_expected = STATS_SPP * DEPTH * (1 + n_lights)
+    expected_tri = {"sweep_nearest": STATS_SPP * DEPTH * (1 + n_lights),
+                    "chunk_boxes": chunk_builds(cornell, 2)}
     for name, c in counts_tri.items():
-        want = k2_expected if name == "sweep_nearest" else 0
+        want = expected_tri.get(name, 0)
         check(c["launches"] == want,
               f"tri_fn_path: {name} launched {c['launches']}x, expected {want}")
     check(sum(c["plain_calls"] for c in counts_tri.values()) == 0,
@@ -1523,7 +1699,8 @@ def phase_mesh(device, mesh, mesh_cam):
     line = render_checks(
         "mesh_path", result, MESH_SPP, counts,
         {"sweep_nearest_rec": MESH_SPP * DEPTH,
-         "occluded_anyhit": MESH_SPP * DEPTH * statics["n_area_lights"]},
+         "occluded_anyhit": MESH_SPP * DEPTH * statics["n_area_lights"],
+         "chunk_boxes": chunk_builds(mesh, 2)},
         ref_k, ref_p)
     line.update(scene="lat-long sphere mesh %dx%d + floor + quad light" % MESH_SIZE,
                 triangles=int((mesh.tri_obj >= 0).sum()),
@@ -2259,7 +2436,8 @@ def phase_het_kernels(device, nee_scene, volume_scene, reps):
 
 PTXAS_KERNELS = ("het_path_kernel", "het_spp_kernel", "het_spp_persistent_kernel",
                  "het_grad_path_kernel", "track_sample_kernel",
-                 "track_transmittance_kernel")
+                 "track_transmittance_kernel", "sweep_kernel", "chunk_boxes_kernel")
+SWEEP_MODES = ("sweep_nearest", "sweep_nearest_rec", "occluded_anyhit")
 
 
 def ptxas_table(text):
@@ -2273,6 +2451,8 @@ def ptxas_table(text):
         if m:
             cur = next((k[:-len("_kernel")] for k in PTXAS_KERNELS
                         if f"{len(k)}{k}" in m.group(1)), None)
+            if cur == "sweep":  # sweep_kernel<MODE>
+                cur = SWEEP_MODES[int(re.search(r"ILi(\d)E", m.group(1)).group(1))]
             continue
         if cur is None:
             continue
@@ -2396,30 +2576,95 @@ def bind_launchers(module, lib, names):
     return lib
 
 
+# the sources each A/B compares: a build whose copies of these equal the
+# package's is not built again
+SWEEP_SOURCES = ("sweep.cu", "sweep.cuh", "tri_test.cuh", "common.cuh")
+TRACK_SOURCES = ("media.cu", "het_megakernel.cu", "media.cuh", "het_path.cuh",
+                 "path_common.cuh", "tri_test.cuh", "common.cuh")
+# the C signatures of a sweep.cu from before the chunk table
+BRUTE_FORCE_ARGTYPES = {
+    "sweep_nearest": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] + [ctypes.c_void_p] * 6,
+    "sweep_nearest_rec": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] + [ctypes.c_void_p] * 8,
+    "occluded_anyhit": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] + [ctypes.c_void_p] * 4,
+}
+
+
+def sources_differ(d, names):
+    from xraytracer_tpu_torch import _build
+
+    def read(path):
+        return open(path, "rb").read() if os.path.exists(path) else None
+
+    return any(read(os.path.join(d, n)) != read(os.path.join(_build.CSRC_DIR, n))
+               for n in names)
+
+
+class BruteForceSweeps:
+    """A sweep library built from a sweep.cu that predates the chunk table
+    (its launchers take the mask, no table), called through the package's
+    argument lists: the table's v0, e1, e2 and mask pointers come from
+    ``table``, set for each case; the chunk table is the package's and is
+    not read."""
+
+    def __init__(self, lib, package):
+        for name, argtypes in BRUTE_FORCE_ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self.lib, self.package, self.table = lib, package, None
+        self.chunk_boxes = package.chunk_boxes
+
+    def sweep_nearest(self, o, d, n, v0, e1, e2, t_total, center, boxes, coef, *outs):
+        return self.lib.sweep_nearest(o, d, n, v0, e1, e2, self.table[3], t_total,
+                                      center, *outs)
+
+    def sweep_nearest_rec(self, o, d, n, v0, e1, e2, t_total, center, boxes, coef,
+                          rec, *outs):
+        return self.lib.sweep_nearest_rec(o, d, n, v0, e1, e2, self.table[3], t_total,
+                                          center, rec, *outs)
+
+    def occluded_anyhit(self, o, d, n, t_total, center, boxes, coef, *rest):
+        return self.lib.occluded_anyhit(o, d, n, *self.table, t_total, center, *rest)
+
+
 def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
-    """The tracking kernels (K7, K8) and the heterogeneous whole-path and
-    gradient kernels (K9a-c, K10) of other builds of the sources (``others``:
-    {name: a directory holding another copy of csrc/, e.g. the parent
-    commit's}) against the package's own, in one call on one card: outputs
-    compared lane by lane (bitwise; K10's grid, summed by atomics, by its
-    largest difference), and every build timed in turns (the builds in
-    order, then in reverse) on the nee and volume presets at AB_SPP samples
-    per pixel, at their main paths' full spp chunks, on the camera rays of
-    sample 0 (K9a), on the nee preset's captured tracking inputs (K7, K8),
-    and K9a (pass A) and K10 at K10's three shapes (the nee frame,
+    """Other builds of the sources (``others``: {name: a directory holding
+    another copy of csrc/, e.g. the parent commit's}) against the package's
+    own, in one call on one card: outputs compared lane by lane (bitwise;
+    K10's grid, summed by atomics, by its largest difference), and every
+    build timed in turns (the builds in order, then in reverse).
+
+    The sweeps (K2-K4, from every build whose sweep sources differ; one from
+    before the chunk table is called through ``BruteForceSweeps``): on the
+    Cornell table's camera and depth-0 shadow rays, the 13k mesh's camera,
+    depth-1 bounce and depth-0 shadow rays, and the camera and depth-0
+    shadow rays of the 51k mesh, each captured from one sample of the
+    wavefront route; the package's build is also held against the plain
+    versions there (on the 51k mesh on its first MESH51_PLAIN_RAYS rays),
+    and each case's culled and brute-force bounds are counted as the
+    default phase counts them.
+
+    The tracking kernels (K7, K8) and the heterogeneous whole-path and
+    gradient kernels (K9a-c, K10), from every build whose sources of them
+    differ: on the nee and volume presets at AB_SPP samples per pixel, at
+    their main paths' full spp chunks, on the camera rays of sample 0
+    (K9a), on the nee preset's captured tracking inputs (K7, K8), and K9a
+    (pass A) and K10 at K10's three shapes (the nee frame,
     tools.fit_volume's first view, the 16^3 cloud) on the dense and the
     packed live grid, with step_pair's two streams at the view as two
     launches and as one. pack_corners is the package's in every build."""
-    import ctypes
-
     import torch
 
-    from xraytracer_tpu_torch import _build
+    from xraytracer_tpu_torch import _build, cli
     from xraytracer_tpu_torch import media_kernels as mkk
     from xraytracer_tpu_torch.camera import PinholeCamera
     from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.geometry import kernels
     from xraytracer_tpu_torch.integrators import het_megakernel as hk
-    from xraytracer_tpu_torch.integrators import make_volume_integrator
+    from xraytracer_tpu_torch.integrators import make_path_integrator, make_volume_integrator
     from xraytracer_tpu_torch.integrators import megakernel as mk
     from xraytracer_tpu_torch.renderer import WavefrontRenderer
     from xraytracer_tpu_torch.scene.builder import scene_statics
@@ -2427,24 +2672,37 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
     dirs = {"package": _build.CSRC_DIR, **others}
-    built = build_sources([(f"ab_{name}_{lib}", os.path.join(d, f"{lib}.cu"), [])
-                           for name, d in dirs.items()
-                           for lib in ("media", "het_megakernel")])
+    sweep_names = ["package"] + [n for n, d in others.items()
+                                 if sources_differ(d, SWEEP_SOURCES)]
+    names = ["package"] + [n for n, d in others.items() if sources_differ(d, TRACK_SOURCES)]
+    built = build_sources(
+        [(f"ab_{name}_sweep", os.path.join(dirs[name], "sweep.cu"), [])
+         for name in sweep_names]
+        + [(f"ab_{name}_{lib}", os.path.join(dirs[name], f"{lib}.cu"), [])
+           for name in names for lib in ("media", "het_megakernel")])
+    package_sweep = kernels._bind(ctypes.CDLL(built["ab_package_sweep"][0]))
+    sweep_libs = {}
+    for name in sweep_names:
+        lib = ctypes.CDLL(built[f"ab_{name}_sweep"][0])
+        sweep_libs[name] = (kernels._bind(lib) if hasattr(lib, "chunk_boxes")
+                            else BruteForceSweeps(lib, package_sweep))
     # the tracking launchers of every build (pack_corners stays the
     # package's: an older media.cu may lack it)
     libs = {name: (bind_launchers(mkk, ctypes.CDLL(built[f"ab_{name}_media"][0]),
                                   ("track_sample", "track_transmittance")),
                    hk._bind(ctypes.CDLL(built[f"ab_{name}_het_megakernel"][0])))
-            for name in dirs}
-    ptxas = {name: {**built[f"ab_{name}_media"][1], **built[f"ab_{name}_het_megakernel"][1]}
-             for name in dirs}
-    names = list(dirs)
-    package_libs = mkk._lib, hk._lib
+            for name in names}
+    ptxas = {name: {} for name in dirs}
+    for tag, (_, table) in built.items():
+        ptxas[next(n for n in dirs if tag.startswith(f"ab_{n}_"))].update(table)
+    package_libs = mkk._lib, hk._lib, kernels._lib
     rows = []
 
     def use(name):
-        mkk._lib = lambda lib=libs[name][0]: lib
-        hk._lib = lambda lib=libs[name][1]: lib
+        kernels._lib = lambda lib=sweep_libs.get(name, package_sweep): lib
+        if name in libs:
+            mkk._lib = lambda lib=libs[name][0]: lib
+            hk._lib = lambda lib=libs[name][1]: lib
 
     def pack(grid):
         mkk._lib = package_libs[0]
@@ -2489,120 +2747,204 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
         rows.append(row)
         emit("csrc_ab_case", **row)
 
+    def set_table(v0, e1, e2, mask):
+        for lib in sweep_libs.values():
+            if isinstance(lib, BruteForceSweeps):
+                lib.table = (v0.data_ptr(), e1.data_ptr(), e2.data_ptr(),
+                             mask.view(torch.uint8).data_ptr())
+
     try:
-        ncfg = get_preset("nee")
-        for label, (tables, camk), cfg, depth in (
-                ("nee", nee_scene, ncfg, ncfg.max_depth),
-                ("volume", volume_scene, get_preset("volume"), get_preset("volume").max_depth),
-                ("8 lights nee", (eight_light_cloud(device), nee_scene[1]), ncfg,
-                 HET_LIGHTS_DEPTH)):
-            nee = label != "volume"
-            st = scene_statics(tables)
-            hc = hk._het_consts(tables, st, depth, nee, None, None)
-            cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
-            view = hk.try_make_fused_het_spp_render(
-                tables, st, cam, cfg.width, cfg.height, 0, depth, nee=nee).view
-            keys, o, d = mk._camera_rays_plain(view, 0)
-            ab("het_path", f"{label}, camera rays", lambda: hk.het_path(hc, o, d, keys))
-            for name in ("het_spp", "het_spp_persistent"):
-                fn = getattr(hk, name)
-                ab(name, f"{label}, {HET_CHECK_SPP} spp",
-                   lambda fn=fn: fn(hc, view, 0, HET_CHECK_SPP), time_it=False)
-                if label != "8 lights nee":
-                    ab(name, f"{label}, {AB_SPP} spp", lambda fn=fn: fn(hc, view, 0, AB_SPP))
-            if label != "8 lights nee":
-                # the main path's whole chunk: the package and the first
-                # other build only, one timed launch per turn
-                full = cfg.spp
-                ab("het_spp_persistent", f"{label}, {full} spp (main path's chunk)",
-                   lambda: hk.het_spp_persistent(hc, view, 0, full),
-                   builds=names[:2], reps_=1)
-
-        # K9a (pass A) and K10 at K10's three shapes: the nee frame at a zero
-        # target, tools.fit_volume's first view (96x72, depth 6, blob grid)
-        # and the 16^3 cloud (16x12, depth 3), at a target of 0.6 x the image
-        # + 0.02 (every lane's residual non-zero); each on the live grid by
-        # eight corner loads ("dense") and by its corner table ("packed"):
-        # radiance and Le planes exact, the grid to its atomics' order
-        tables, camk = nee_scene
-        fw, fh = 96, 72
-        ftables = fit_volume.build_scene(device)
-        fcam = fit_volume._cameras(fw, fh, device)[0]
-        ctables, ccamk, cgrid = grad_cloud_scene(device)
-        shapes = (
-            (f"nee {ncfg.width}x{ncfg.height}, zero target", tables,
-             PinholeCamera.make(ncfg.width / ncfg.height, device=device, **camk),
-             ncfg.width, ncfg.height, ncfg.max_depth, None, tables.grid_density.contiguous()),
-            (f"fit_volume view 0, {fw}x{fh}", ftables, fcam, fw, fh, fit_volume.MAX_DEPTH,
-             None, torch.from_numpy(fit_volume._blob_target()).to(device)),
-            ("16^3 cloud 16x12 d3", ctables,
-             PinholeCamera.make(16 / 12, device=device, **ccamk), 16, 12, 3, 32, cgrid))
-        mkk._lib = package_libs[0]
-        check_pack_corners(device, {s_[0]: (s_[7], s_[1].grid_packed if s_[1] is not ftables else None)
-                                    for s_ in shapes}, reps, flush)
-        for label, gtables, gcam, w, h, depth, max_steps, grid in shapes:
-            hg = hk._het_consts(gtables, scene_statics(gtables), depth, True, max_steps, None,
-                                grad_sampling=True)
-            ids, xy = window_pixels(w, h, None, device)
-            n = int(ids.shape[0])
-            gkeys, go, gd = het_grad_rays(gcam, w, h, ids, xy, 0, 0)
-            packed = pack(grid)
-            use("package")
-            img_a = hk.het_path(hg, go, gd, gkeys, density=grid)
-            tgt = torch.zeros_like(img_a) if label.startswith("nee") else img_a * 0.6 + 0.02
-            rfac = (2.0 * (img_a - tgt) / (n * 3)).contiguous()
-            # the small shapes' launches (under 1 ms) spread more: 4x the reps
-            rr = reps if label.startswith("nee") else 4 * reps
-            for mode, pk in (("dense", None), ("packed", packed)):
-                ab("het_path", f"{label}, pass A, {mode}",
-                   lambda: hk.het_path(hg, go, gd, gkeys, density=grid, packed=pk), reps_=rr)
-                ab("het_grad_path", f"{label}, {mode}: image, Le planes",
-                   lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid, packed=pk)[:2],
-                   reps_=rr)
-                ab("het_grad_path", f"{label}, {mode}: gradient grid",
-                   lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid,
-                                            packed=pk)[2],
-                   exact=False, time_it=False)
-            if not label.startswith("fit_volume"):
-                continue
-            # step_pair's two streams (seed 0, sample 0; seed 7919, sample 1)
-            # at this view: two launches of N against one launch of 2N
-            bkeys, bo, bd = het_grad_rays(gcam, w, h, ids, xy, 7919, 1)
-            img_b = hk.het_path(hg, bo, bd, bkeys, density=grid)
-            rfac_b = (2.0 * (img_b - tgt) / (n * 3)).contiguous()
-            cat = [torch.cat(p).contiguous() for p in
-                   ((go, bo), (gd, bd), (gkeys, bkeys), (img_a, img_b), (rfac, rfac_b))]
-            for mode, pk in (("dense", None), ("packed", packed)):
-                ab("het_path", f"{label}, two streams, 2 launches of N, {mode}",
-                   lambda: torch.cat([hk.het_path(hg, go, gd, gkeys, density=grid, packed=pk),
-                                      hk.het_path(hg, bo, bd, bkeys, density=grid, packed=pk)]),
-                   reps_=rr)
-                ab("het_path", f"{label}, two streams, 1 launch of 2N, {mode}",
-                   lambda: hk.het_path(hg, *cat[:3], density=grid, packed=pk), reps_=rr)
-                ab("het_grad_path", f"{label}, two streams, 2 launches of N, {mode}",
-                   lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid, packed=pk)[2]
-                   + hk.het_grad_path(hg, bo, bd, bkeys, img_b, rfac_b, grid, packed=pk)[2],
-                   exact=False, reps_=rr)
-                ab("het_grad_path", f"{label}, two streams, 1 launch of 2N, {mode}",
-                   lambda: hk.het_grad_path(hg, *cat, grid, packed=pk)[2], exact=False,
-                   reps_=rr)
-
-        # K7, K8 on the nee preset's captured tracking inputs
+        # the sweeps, on rays captured from one sample of the wavefront route
         use("package")
-        integ = make_volume_integrator(tables, scene_statics(tables), ncfg.max_depth,
-                                       nee=True, with_stats=True)
-        got = capture_tracking_inputs(
-            WavefrontRenderer(tables, shapes[0][2], integ, ncfg.width, ncfg.height, seed=0),
-            CAPTURE_ITERATIONS)
-        for it, args in zip(CAPTURE_ITERATIONS, got["track_sample"]):
-            ab("track_sample", f"nee iteration {it}",
-               lambda args=args: tuple(x.float() for x in mkk.track_sample(*args)))
-        for it, args in zip(CAPTURE_ITERATIONS, got["track_transmittance"]):
-            ab("track_transmittance", f"nee iteration {it} NEE segments",
-               lambda args=args: mkk.track_transmittance(*args))
+        cornell = cli.build_scene(get_preset("cornellbox_gi", width=WIDTH, height=HEIGHT),
+                                  device=device)
+        for label, (tables, camk), cosine, which in (
+                ("cornell", cornell, False, ("camera", "shadow")),
+                ("mesh13k", mesh_scene(device), True, ("camera", "bounce", "shadow")),
+                ("mesh51k", mesh_scene(device, MESH51_SIZE), True, ("camera", "shadow"))):
+            st = scene_statics(tables)
+            cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
+            integ = make_path_integrator(tables, st, DEPTH, nee=True, cosine_sampling=cosine,
+                                         fused="never")
+            use("package")
+            got = capture_sweep_inputs(WavefrontRenderer(tables, cam, integ, WIDTH, HEIGHT,
+                                                         seed=0))
+            v0, e1, e2, rec = tables.tri_v0, tables.tri_e1, tables.tri_e2, tables.tri_rec
+            valid = tables.tri_obj >= 0
+            light = tables.obj_light[torch.clamp(tables.tri_obj, min=0).to(torch.int64)]
+            blocks = valid & (light < 0)
+            k = MESH51_PLAIN_RAYS if label == "mesh51k" else None
+            tri_bytes = v0.shape[0] * (36 + 1) + 12
+            # Cornell's launches (~0.05 ms) spread more: 4x the reps
+            rr = 4 * reps if label == "cornell" else None
+            t_rows = f"T={v0.shape[0]}"
+            for w in which:
+                if w == "shadow":
+                    o, d, tm = got["shadow"][0]
+                    case = f"{label} depth-0 shadow rays, {t_rows}"
+                    set_table(v0, e1, e2, blocks)
+                    ab("occluded_anyhit", case,
+                       lambda: kernels.occluded_anyhit(o, d, v0, e1, e2, blocks, tm),
+                       builds=sweep_names, reps_=rr)
+                    use("package")
+                    mine = kernels.occluded_anyhit(o[:k], d[:k], v0, e1, e2, blocks, tm[:k])
+                    ref = kernels.occluded_anyhit_plain(o[:k], d[:k], v0, e1, e2, blocks,
+                                                        tm[:k])
+                    mism = int((mine != ref).sum())
+                    check(mism <= max(1, BLOCKED_MISMATCH_SHARE * mine.shape[0]),
+                          f"csrc_ab {case}: {mism} blocked flags differ from the plain version")
+                    n_bytes = o.shape[0] * (24 + 4 + 1) + tri_bytes
+                    tests, slabs = culled_tests_needed(o, d, v0, e1, e2, blocks, tm)
+                    b_ms, b_by = bound_ms(
+                        n_bytes, tests * FLOPS_PER_ANYHIT_TEST + slabs * FLOPS_PER_SLAB, 1)
+                    emit("csrc_ab_bound", kernel="occluded_anyhit", case=case,
+                         tests_needed=tests, slabs_needed=slabs, bound_ms=b_ms, bound_by=b_by,
+                         brute_bound_ms=bound_ms(n_bytes, anyhit_tests_needed(
+                             o, d, v0, e1, e2, blocks, tm), FLOPS_PER_ANYHIT_TEST)[0])
+                    emit("csrc_ab_plain", kernel="occluded_anyhit", case=case,
+                         n=mine.shape[0], blocked_mismatch=mism)
+                    continue
+                o, d = got["nearest"][0 if w == "camera" else 1]
+                case = f"{label} depth-{0 if w == 'camera' else 1} {w} rays, {t_rows}"
+                set_table(v0, e1, e2, valid)
+                for name in (("sweep_nearest", "sweep_nearest_rec") if w == "camera"
+                             else ("sweep_nearest_rec",)):
+                    if name == "sweep_nearest":
+                        run = lambda: kernels.sweep_nearest(o, d, v0, e1, e2, valid)
+                    else:
+                        run = lambda: kernels.sweep_nearest_rec(o, d, v0, e1, e2, valid, rec)
+                    ab(name, case, run, builds=sweep_names, reps_=rr)
+                n, n_tri = o.shape[0], v0.shape[0]
+                tests, slabs = culled_tests_needed(o, d, v0, e1, e2, valid)
+                for name, n_bytes in (("sweep_nearest", n * (24 + 16) + tri_bytes),
+                                      ("sweep_nearest_rec",
+                                       n * (24 + 16 + 128) + tri_bytes + n_tri * 128)):
+                    b_ms, b_by = bound_ms(
+                        n_bytes, tests * FLOPS_PER_TEST + slabs * FLOPS_PER_SLAB, 1)
+                    emit("csrc_ab_bound", kernel=name, case=case, tests_needed=tests,
+                         slabs_needed=slabs, bound_ms=b_ms, bound_by=b_by,
+                         brute_bound_ms=bound_ms(n_bytes, n * n_tri, FLOPS_PER_TEST)[0])
+                use("package")
+                mine = kernels.sweep_nearest_rec(o[:k], d[:k], v0, e1, e2, valid, rec)
+                ref = kernels.sweep_nearest_rec_plain(o[:k], d[:k], v0, e1, e2, valid, rec)
+                emit("csrc_ab_plain", kernel="sweep_nearest_rec", case=case,
+                     **compare_nearest(mine, ref, True))
+
+        if len(names) > 1:
+            ncfg = get_preset("nee")
+            for label, (tables, camk), cfg, depth in (
+                    ("nee", nee_scene, ncfg, ncfg.max_depth),
+                    ("volume", volume_scene, get_preset("volume"), get_preset("volume").max_depth),
+                    ("8 lights nee", (eight_light_cloud(device), nee_scene[1]), ncfg,
+                     HET_LIGHTS_DEPTH)):
+                nee = label != "volume"
+                st = scene_statics(tables)
+                hc = hk._het_consts(tables, st, depth, nee, None, None)
+                cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+                view = hk.try_make_fused_het_spp_render(
+                    tables, st, cam, cfg.width, cfg.height, 0, depth, nee=nee).view
+                keys, o, d = mk._camera_rays_plain(view, 0)
+                ab("het_path", f"{label}, camera rays", lambda: hk.het_path(hc, o, d, keys))
+                for name in ("het_spp", "het_spp_persistent"):
+                    fn = getattr(hk, name)
+                    ab(name, f"{label}, {HET_CHECK_SPP} spp",
+                       lambda fn=fn: fn(hc, view, 0, HET_CHECK_SPP), time_it=False)
+                    if label != "8 lights nee":
+                        ab(name, f"{label}, {AB_SPP} spp", lambda fn=fn: fn(hc, view, 0, AB_SPP))
+                if label != "8 lights nee":
+                    # the main path's whole chunk: the package and the first
+                    # other build only, one timed launch per turn
+                    full = cfg.spp
+                    ab("het_spp_persistent", f"{label}, {full} spp (main path's chunk)",
+                       lambda: hk.het_spp_persistent(hc, view, 0, full),
+                       builds=names[:2], reps_=1)
+
+            # K9a (pass A) and K10 at K10's three shapes: the nee frame at a zero
+            # target, tools.fit_volume's first view (96x72, depth 6, blob grid)
+            # and the 16^3 cloud (16x12, depth 3), at a target of 0.6 x the image
+            # + 0.02 (every lane's residual non-zero); each on the live grid by
+            # eight corner loads ("dense") and by its corner table ("packed"):
+            # radiance and Le planes exact, the grid to its atomics' order
+            tables, camk = nee_scene
+            fw, fh = 96, 72
+            ftables = fit_volume.build_scene(device)
+            fcam = fit_volume._cameras(fw, fh, device)[0]
+            ctables, ccamk, cgrid = grad_cloud_scene(device)
+            shapes = (
+                (f"nee {ncfg.width}x{ncfg.height}, zero target", tables,
+                 PinholeCamera.make(ncfg.width / ncfg.height, device=device, **camk),
+                 ncfg.width, ncfg.height, ncfg.max_depth, None, tables.grid_density.contiguous()),
+                (f"fit_volume view 0, {fw}x{fh}", ftables, fcam, fw, fh, fit_volume.MAX_DEPTH,
+                 None, torch.from_numpy(fit_volume._blob_target()).to(device)),
+                ("16^3 cloud 16x12 d3", ctables,
+                 PinholeCamera.make(16 / 12, device=device, **ccamk), 16, 12, 3, 32, cgrid))
+            mkk._lib = package_libs[0]
+            check_pack_corners(device, {s_[0]: (s_[7], s_[1].grid_packed if s_[1] is not ftables else None)
+                                        for s_ in shapes}, reps, flush)
+            for label, gtables, gcam, w, h, depth, max_steps, grid in shapes:
+                hg = hk._het_consts(gtables, scene_statics(gtables), depth, True, max_steps, None,
+                                    grad_sampling=True)
+                ids, xy = window_pixels(w, h, None, device)
+                n = int(ids.shape[0])
+                gkeys, go, gd = het_grad_rays(gcam, w, h, ids, xy, 0, 0)
+                packed = pack(grid)
+                use("package")
+                img_a = hk.het_path(hg, go, gd, gkeys, density=grid)
+                tgt = torch.zeros_like(img_a) if label.startswith("nee") else img_a * 0.6 + 0.02
+                rfac = (2.0 * (img_a - tgt) / (n * 3)).contiguous()
+                # the small shapes' launches (under 1 ms) spread more: 4x the reps
+                rr = reps if label.startswith("nee") else 4 * reps
+                for mode, pk in (("dense", None), ("packed", packed)):
+                    ab("het_path", f"{label}, pass A, {mode}",
+                       lambda: hk.het_path(hg, go, gd, gkeys, density=grid, packed=pk), reps_=rr)
+                    ab("het_grad_path", f"{label}, {mode}: image, Le planes",
+                       lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid, packed=pk)[:2],
+                       reps_=rr)
+                    ab("het_grad_path", f"{label}, {mode}: gradient grid",
+                       lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid,
+                                                packed=pk)[2],
+                       exact=False, time_it=False)
+                if not label.startswith("fit_volume"):
+                    continue
+                # step_pair's two streams (seed 0, sample 0; seed 7919, sample 1)
+                # at this view: two launches of N against one launch of 2N
+                bkeys, bo, bd = het_grad_rays(gcam, w, h, ids, xy, 7919, 1)
+                img_b = hk.het_path(hg, bo, bd, bkeys, density=grid)
+                rfac_b = (2.0 * (img_b - tgt) / (n * 3)).contiguous()
+                cat = [torch.cat(p).contiguous() for p in
+                       ((go, bo), (gd, bd), (gkeys, bkeys), (img_a, img_b), (rfac, rfac_b))]
+                for mode, pk in (("dense", None), ("packed", packed)):
+                    ab("het_path", f"{label}, two streams, 2 launches of N, {mode}",
+                       lambda: torch.cat([hk.het_path(hg, go, gd, gkeys, density=grid, packed=pk),
+                                          hk.het_path(hg, bo, bd, bkeys, density=grid, packed=pk)]),
+                       reps_=rr)
+                    ab("het_path", f"{label}, two streams, 1 launch of 2N, {mode}",
+                       lambda: hk.het_path(hg, *cat[:3], density=grid, packed=pk), reps_=rr)
+                    ab("het_grad_path", f"{label}, two streams, 2 launches of N, {mode}",
+                       lambda: hk.het_grad_path(hg, go, gd, gkeys, img_a, rfac, grid, packed=pk)[2]
+                       + hk.het_grad_path(hg, bo, bd, bkeys, img_b, rfac_b, grid, packed=pk)[2],
+                       exact=False, reps_=rr)
+                    ab("het_grad_path", f"{label}, two streams, 1 launch of 2N, {mode}",
+                       lambda: hk.het_grad_path(hg, *cat, grid, packed=pk)[2], exact=False,
+                       reps_=rr)
+
+            # K7, K8 on the nee preset's captured tracking inputs
+            use("package")
+            integ = make_volume_integrator(tables, scene_statics(tables), ncfg.max_depth,
+                                           nee=True, with_stats=True)
+            got = capture_tracking_inputs(
+                WavefrontRenderer(tables, shapes[0][2], integ, ncfg.width, ncfg.height, seed=0),
+                CAPTURE_ITERATIONS)
+            for it, args in zip(CAPTURE_ITERATIONS, got["track_sample"]):
+                ab("track_sample", f"nee iteration {it}",
+                   lambda args=args: tuple(x.float() for x in mkk.track_sample(*args)))
+            for it, args in zip(CAPTURE_ITERATIONS, got["track_transmittance"]):
+                ab("track_transmittance", f"nee iteration {it} NEE segments",
+                   lambda args=args: mkk.track_transmittance(*args))
     finally:
-        mkk._lib, hk._lib = package_libs
-    emit("csrc_ab", builds=dirs, ptxas=ptxas, reps=reps, cases=len(rows))
+        mkk._lib, hk._lib, kernels._lib = package_libs
+    emit("csrc_ab", builds=dirs, sweep_builds=sweep_names, tracking_builds=names,
+         ptxas=ptxas, reps=reps, cases=len(rows))
 
 
 def phase_het_entry_points(device, nee_scene, main_image_mean):
@@ -2703,7 +3045,7 @@ def phase_nee_wavefront(device, nee_scene, nee_image_mean):
     counts = all_counts()
     iters = NEE_WAVEFRONT_SPP * (2 * cfg.max_depth + 2)
     expected = {"track_sample": iters, "track_transmittance": iters,
-                "sweep_nearest_rec": 2 * iters}
+                "sweep_nearest_rec": 2 * iters, "chunk_boxes": chunk_builds(tables, 1)}
     check(result.image.shape == (cfg.height, cfg.width, 3), "nee_wavefront_path: shape")
     check(bool(np.isfinite(result.image).all()), "nee_wavefront_path: non-finite pixels")
     check(result.n_rejected == 0, f"nee_wavefront_path: {result.n_rejected} rejected")
@@ -2761,7 +3103,7 @@ def phase_cloud_golden(device):
     routes = (("het", {}, CLOUD_GOLDEN_HET_GATE, {"het_spp_persistent": 1}),
               ("tracking", dict(with_stats=True), CLOUD_GOLDEN_CARD_GATE,
                {"track_sample": 4 * 18, "track_transmittance": 4 * 18,
-                "sweep_nearest_rec": 2 * 4 * 18}))
+                "sweep_nearest_rec": 2 * 4 * 18, "chunk_boxes": chunk_builds(tables, 1)}))
     out = {}
     for route, kw, (rtol, atol), expected in routes:
         integ = make_volume_integrator(tables, scene_statics(tables), 8, nee=True,
@@ -3261,7 +3603,8 @@ def phase_grad_path(device, cornell, cornell_cam):
     routes = (
         ("autograd", diff.value_and_grad(diff.make_loss_fn(radiance)),
          {"sweep_nearest": DEPTH * GRAD_STEPS,
-          "occluded_anyhit": DEPTH * n_lights * GRAD_STEPS}),
+          "occluded_anyhit": DEPTH * n_lights * GRAD_STEPS,
+          "chunk_boxes": chunk_builds(cornell, 2)}),
         ("analytic", fast, {"mega_grad_path": GRAD_STEPS}),
     )
     out, by_path, first = {}, {}, {}
@@ -3953,10 +4296,11 @@ def main():
                     help="also build the heterogeneous whole-path kernels under "
                          "other __launch_bounds__ caps and time them")
     ap.add_argument("--ab-csrc", action="append", default=[], metavar="NAME=DIR",
-                    help="also build media.cu and het_megakernel.cu from DIR (another "
-                         "copy of xraytracer_tpu_torch/csrc, e.g. the parent commit's) "
-                         "and hold K7-K10 of that build against the package's own, "
-                         "bitwise, timing both in turns; repeatable")
+                    help="also build sweep.cu, media.cu and het_megakernel.cu from DIR "
+                         "(another copy of xraytracer_tpu_torch/csrc, e.g. the parent "
+                         "commit's; each where its sources differ from the package's) "
+                         "and hold K2-K4 and K7-K10 of that build against the package's "
+                         "own, bitwise, timing both in turns; repeatable")
     ap.add_argument("--ab-only", action="store_true",
                     help="with --ab-csrc: run that comparison alone and stop "
                          "(no result line)")
@@ -4060,7 +4404,7 @@ def main():
     by_path.update(phase_vol_grad_path(device, nee_scene))
     by_path["fit_volume_path"] = phase_fit_volume_path(device)
     # the path on which each kernel must have run, by that path's own count
-    runs_on = {"mega_spp_persistent": "main_path",
+    runs_on = {"mega_spp_persistent": "main_path", "chunk_boxes": "mesh_path",
                "mega_path": "fused_entry_points", "mega_spp": "fused_entry_points",
                "sweep_nearest": "tri_fn_path", "sweep_nearest_rec": "wavefront_path",
                "occluded_anyhit": "wavefront_path",
@@ -4071,7 +4415,7 @@ def main():
                "het_spp": "het_entry_points", "mega_grad_path": "grad_path_analytic",
                "het_grad_path": "vol_grad_path_analytic",
                "pack_corners": "vol_grad_path_analytic"}
-    check(len(entries) == 17, "the kernels line must list seventeen kernels")
+    check(len(entries) == 18, "the kernels line must list eighteen kernels")
     for e in entries:
         e["runs_on"] = runs_on[e["name"]]
         e["launches_by_path"] = {

@@ -39,6 +39,7 @@ from xraytracer_tpu_torch.geometry import Rays, kernels
 from xraytracer_tpu_torch.geometry.intersect import (
     intersect_triangles_mm,
     occluded,
+    tables_present,
 )
 from xraytracer_tpu_torch.integrators import megakernel as mk
 from xraytracer_tpu_torch.renderer import pixel_grid
@@ -409,12 +410,12 @@ def test_occluded_honours_detached_ok():
     kernels.reset_counts()
     a = occluded(tt, Rays(o=o, d=d), t_max,
                  tri_fn=kernels.sweep_nearest_stopgrad_tri_fn,
-                 present=(False, False))
+                 present=tables_present(tt))
     c = kernels.counts()
     assert c["occluded_anyhit"]["plain_calls"] == 1
     assert c["sweep_nearest"]["plain_calls"] == 0
     b = occluded(tt, Rays(o=o, d=d), t_max, tri_fn=intersect_triangles_mm,
-                 present=(False, False))
+                 present=tables_present(tt))
     assert kernels.counts()["occluded_anyhit"]["plain_calls"] == 1
     assert torch.equal(a, b) and bool(a.any())
 

@@ -76,7 +76,7 @@ def test_sources_name_neither_jax_import_nor_jax_package():
 
 def test_kernels_module_needs_no_compiler_or_card():
     assert kernels.KERNEL_NAMES == (
-        "sweep_nearest", "sweep_nearest_rec", "occluded_anyhit")
+        "sweep_nearest", "sweep_nearest_rec", "occluded_anyhit", "chunk_boxes")
     assert set(kernels._ARGTYPES) == set(kernels.KERNEL_NAMES)
     assert _build._loaded == {}  # nothing was built or loaded at import
     srcs = sorted(os.listdir(_build.CSRC_DIR))
@@ -101,6 +101,8 @@ def test_wrapper_on_cpu_tensors_takes_plain_version():
     out = kernels.sweep_nearest(o, d, v0, e1, e2, valid)
     out_rec = kernels.sweep_nearest_rec(o, d, v0, e1, e2, valid, rec)
     blk = kernels.occluded_anyhit(o, d, v0, e1, e2, valid, torch.full((50,), 9.0))
+    boxes, coef = kernels.chunk_boxes(v0, e1, e2, valid, kernels._center(v0))
+    assert boxes.shape == (2, 8) and coef.shape == (kernels.SWEEP_CHUNK, 16)
     assert kernels.counts() == {
         n: {"launches": 0, "plain_calls": 1} for n in kernels.KERNEL_NAMES}
     assert out[1].dtype == torch.int32 and blk.dtype == torch.bool

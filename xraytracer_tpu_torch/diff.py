@@ -29,6 +29,7 @@ integrator (``make_volume_integrator(differentiable=True)``) w.r.t.
 
 import torch
 
+from .geometry.intersect import tables_present
 from .integrators import make_path_integrator, make_volume_integrator
 from .renderer import CAMERA_SITE
 from .sampling import path_keys, uniform2
@@ -73,6 +74,9 @@ def make_radiance_fn(
         from .lights import light_power_weights
 
         pick_w = light_power_weights(tables)
+    # the scene's masks and table flags, made once: ``params`` holds
+    # differentiable (float) fields, never the object ids they are made of
+    present = tables_present(tables)
 
     def radiance(params, pixel_ids, pixel_xy, sample_idx):
         from .scene.tables import rejoin_appearance
@@ -84,13 +88,13 @@ def make_radiance_fn(
             integrate = make_volume_integrator(
                 scene, statics, max_depth, nee=nee, max_steps=max_steps,
                 tri_fn=tri_fn, differentiable=True, score_terms=score_terms,
-                grad_sampling=grad_sampling,
+                grad_sampling=grad_sampling, present=present,
             )
         else:
             integrate = make_path_integrator(
                 scene, statics, max_depth, nee=nee,
                 cosine_sampling=cosine_sampling, tri_fn=tri_fn,
-                nee_mode=nee_mode, pick_weights=pick_w,
+                nee_mode=nee_mode, pick_weights=pick_w, present=present,
             )
         keys = path_keys(seed, pixel_ids, sample_idx)
         u = uniform2(keys, CAMERA_SITE)

@@ -23,6 +23,8 @@ versions below. There is no ``try``: a CUDA tensor either reaches its kernel
 or the wrapper raises.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from ..constants import INF, K_EPS
@@ -314,9 +316,24 @@ def table_nonempty(obj_ids):
     return bool((obj_ids >= 0).any())
 
 
+class Present(NamedTuple):
+    """A scene's constants for ``intersect_scene`` / ``occluded``."""
+
+    has_spheres: bool
+    has_boxes: bool
+    tri_valid: torch.Tensor   # (T,) bool: rows that belong to an object
+    tri_blocks: torch.Tensor  # (T,) bool: valid rows whose object carries
+                              # no area light (such objects never block)
+
+
 def tables_present(scene):
-    """(has_spheres, has_boxes) for ``intersect_scene``/``occluded``."""
-    return table_nonempty(scene.sph_obj), table_nonempty(scene.box_obj)
+    """The scene's ``Present``, resolved once per scene by the integrator
+    factories. The triangle masks are made here, once: the sweep kernels
+    build one chunk table per mask tensor they are given."""
+    valid = scene.tri_obj >= 0
+    blocks = valid & (scene.obj_light[_ix(scene.tri_obj)] < 0)
+    return Present(table_nonempty(scene.sph_obj), table_nonempty(scene.box_obj),
+                   valid, blocks)
 
 
 def _ix(i):
@@ -337,7 +354,9 @@ def intersect_scene(scene, rays: Rays, tri_fn=None, present=None) -> Hit:
     o, d = rays.o, rays.d
     n = o.shape[0]
     dev = o.device
-    tri_valid = scene.tri_obj >= 0
+    if present is None:
+        present = tables_present(scene)
+    has_sph, has_box, tri_valid, _ = present
     if tri_fn is None:
         tt, ti, tu, tv, rec = kernels.sweep_nearest_rec(
             o.contiguous(), d.contiguous(), scene.tri_v0, scene.tri_e1, scene.tri_e2, tri_valid,
@@ -348,7 +367,6 @@ def intersect_scene(scene, rays: Rays, tri_fn=None, present=None) -> Hit:
             rays, scene.tri_v0, scene.tri_e1, scene.tri_e2, tri_valid
         )
         rec = take_rows(scene.tri_rec, _ix(ti))
-    has_sph, has_box = present if present is not None else tables_present(scene)
     if has_sph:
         st, si = intersect_spheres(
             rays, scene.sph_center, scene.sph_radius, scene.sph_obj >= 0
@@ -501,10 +519,11 @@ def occluded(scene, rays: Rays, t_max, tri_fn=None, present=None):
     visibility is a detached boolean in every estimator, so the shadow rays
     go in detached and the kernel needs no gradient rule. Any other given
     ``tri_fn`` is swept over the blocking mask and its nearest t compared
-    with ``t_max``.
+    with ``t_max``. ``present`` as for ``intersect_scene``.
     """
-    tri_light = scene.obj_light[_ix(scene.tri_obj)]
-    tri_blocks = (scene.tri_obj >= 0) & (tri_light < 0)
+    if present is None:
+        present = tables_present(scene)
+    has_sph, _, _, tri_blocks = present
     if tri_fn is None or getattr(tri_fn, "detached_ok", False):
         n = rays.o.shape[0]
         t_max = torch.as_tensor(
@@ -521,7 +540,6 @@ def occluded(scene, rays: Rays, t_max, tri_fn=None, present=None):
         )
         blocked = tt < t_max
 
-    has_sph = present[0] if present is not None else table_nonempty(scene.sph_obj)
     if has_sph:
         sph_light = scene.obj_light[_ix(scene.sph_obj)]
         sph_blocks = (scene.sph_obj >= 0) & (sph_light < 0)

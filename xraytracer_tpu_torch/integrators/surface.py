@@ -130,7 +130,7 @@ def _nee_area_lights(
 def make_path_integrator(
     scene, statics, max_depth, nee=True, le_depth0_only=None,
     cosine_sampling=False, tri_fn=None, mis=False, with_stats=False,
-    nee_mode="all", fused="auto", pick_weights=None,
+    nee_mode="all", fused="auto", pick_weights=None, present=None,
 ):
     """Indirect (``nee=False``) and GI (``nee=True``) path tracing
     (reference: Src/integrator.h:122-190 and 198-291).
@@ -164,6 +164,10 @@ def make_path_integrator(
     tables on the CPU. The JAX package's ``sort_rays`` re-sort (row
     scheduling that leaves the image bitwise unchanged) is not part of this
     port yet; ROADMAP.md lists it.
+
+    ``present``: ``tables_present(scene)`` when the caller has it (one that
+    makes a factory per call on tables whose object ids stay the same, as
+    ``diff.make_radiance_fn`` does); None resolves it here.
     """
     if mis:
         nee = True
@@ -190,7 +194,8 @@ def make_path_integrator(
             return fi
 
     n_lights = statics["n_area_lights"]
-    present = tables_present(scene)
+    if present is None:
+        present = tables_present(scene)
     pick_dist = None
     if nee and nee_mode == "power" and n_lights > 0:
         # the pick distribution is a SAMPLING choice, detached from the

@@ -81,7 +81,7 @@ def _nee_site_layout(max_steps):
 def make_volume_integrator(
     scene, statics, max_depth, nee=False, max_steps=None, tri_fn=None,
     n_iterations=None, differentiable=False, with_stats=False, fused="auto",
-    score_terms=False, grad_sampling=False,
+    score_terms=False, grad_sampling=False, present=None,
 ):
     """Factory for both volume integrators (``nee`` selects the variant).
 
@@ -122,6 +122,8 @@ def make_volume_integrator(
     package does not pass it to its fused route); the homogeneous one has
     no such estimator, so ``grad_sampling`` keeps such a scene on the
     wavefront loop.
+
+    ``present``: as for ``make_path_integrator``.
     """
     # single-kernel route (vol_megakernel.py): on the card, for eligible
     # scenes (one homogeneous box + a few flat triangles + flat area lights
@@ -189,7 +191,8 @@ def make_volume_integrator(
         n_iterations = 2 * max_depth + 2
     site_pick, site_light, site_tr = _nee_site_layout(max_steps)
     n_lights = statics["n_area_lights"]
-    present = tables_present(scene)
+    if present is None:
+        present = tables_present(scene)
 
     def integrate(rays: Rays, keys):
         n = rays.o.shape[0]
