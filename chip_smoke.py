@@ -17,14 +17,15 @@
                                      # csrc/het_megakernel.cu under other
                                      # __launch_bounds__ caps and times them
     python3 chip_smoke.py --ab-csrc parent=DIR [--ab-only]
-                                     # also builds sweep.cu, media.cu and
-                                     # het_megakernel.cu from DIR (another
-                                     # copy of csrc/, e.g. the parent
-                                     # commit's; each only where its sources
-                                     # differ from the package's) and holds
-                                     # K2-K4 and K7-K10 of that build
-                                     # against the package's, bitwise,
-                                     # timing both in turns
+                                     # also builds sweep.cu, media.cu,
+                                     # het_megakernel.cu and megakernel.cu
+                                     # from DIR (another copy of csrc/, e.g.
+                                     # the parent commit's; each only where
+                                     # its sources differ from the
+                                     # package's) and holds K1-K5 and
+                                     # K7-K10 of that build against the
+                                     # package's, bitwise, timing both in
+                                     # turns
 
 Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
 libraries: the sweeps, the whole-path surface kernels with the
@@ -118,7 +119,11 @@ run's data:
   mask once and writes its boxes and coefficient rows once;
 * a whole-path surface kernel needs T pair tests for every camera, bounce
   and shadow ray of its paths, counted by the plain version's per-bounce
-  counters on the same inputs;
+  counters on the same inputs. Where the merged loop culls (a table it
+  does not stage: ``FusedScene.culls``), it needs per ray the culled walk's
+  pair and slab tests in the ray's own visit order (``mega_culled_bound``:
+  ``culled_tests_needed`` on the rays the plain version traced); the
+  brute-force count is printed beside it as ``brute_bound_ms``;
 * a whole-path volume kernel needs, per iteration, for every lane that
   enters it (counter ``rays``) the classic triangle tests (45 flop each: two
   cross products, four dot products, a division, the compares) and the box
@@ -202,6 +207,12 @@ REF_SPP = 16           # reference-size renders beside the main path
 STATS_SPP = 4
 K1_SPP = 4             # whole-path kernel checks beside the main-path shape
 K1_MESH_SIZE = (40, 38)  # 3,044 triangles in 3,072 rows = 24 tiles of 128
+# a mesh of one chunk-table group, culled: 324 triangles in 384 rows
+K1_MESH_ONE_GROUP = (16, 10)
+# 124 triangles in 128 rows, the smallest table above one chunk (those
+# come in steps of 128 rows), culled: one side of the staging line
+# (csrc/megakernel.cu MEGA_STAGE_ROWS); --ab-csrc only
+K1_MESH_SMALL = (10, 6)
 MESH_SPP = 4
 MESH_SIZE = (82, 80)   # the "13k" lat-long sphere mesh
 MESH51_SIZE = (161, 160)  # bench_mesh.py's "51k" mesh (--ab-csrc only)
@@ -221,6 +232,7 @@ HET_LIGHTS_DEPTH = 8   # the 8-light cloud of those checks (nee size and camera)
 HET_ENTRY_SPP = 2      # het_path / het_spp through their entry points
 NEE_WAVEFRONT_SPP = 1  # the nee preset by the wavefront route, cut from 1024
 AB_SPP = 16            # samples per launch of the --launch-bounds-ab timings
+MEGA_AB_TURNS = 6      # --ab-csrc turns over the whole-path surface builds
 # reference-size renders beside the volume paths: samples per pixel of the
 # full-depth kernel render and of the kernels-vs-plain pair (same seeds, so
 # that pair agrees pixel by pixel whatever the count)
@@ -1225,6 +1237,115 @@ def mega_bound(n, t_total, n_lights, stats, bytes_in, bytes_out):
                 rays=rays, shadow_rays=shadow)
 
 
+class MegaRayLog:
+    """While open (and ``on``), records the rays the plain version of a whole
+    path traces (``integrators.surface``'s ``intersect_scene`` and
+    ``occluded``): per call of the integrator (``max_depth`` bounces, every
+    lane of the wavefront at each) a list of (path o, d, [(shadow o, d,
+    t_max, walked)]), where ``walked`` marks the light samples whose shadow
+    ray the kernels walk (mega_path.cuh's ``light_sample``: ``test``): the
+    lane reaches next-event estimation at that vertex (it hit a surface
+    that is not an emitter and the roulette kept it), the sample's pdf and
+    cosine are positive, the path's and the light's directions lie above
+    the shading normal, the light faces the point and t_max > 0."""
+
+    def __init__(self, max_depth, on=True):
+        self.max_depth, self.on = max_depth, on
+        self.paths = []
+
+    def __enter__(self):
+        from xraytracer_tpu_torch.integrators import surface
+
+        names = ("intersect_scene", "occluded", "sample_area_light", "_nee_area_lights")
+        self._orig = {k: getattr(surface, k) for k in names}
+        if not self.on:
+            return self
+        orig = self._orig
+        vertex = {}
+
+        def intersect_scene(scene, rays, **kw):
+            hit = orig["intersect_scene"](scene, rays, **kw)
+            if not self.paths or len(self.paths[-1]) == self.max_depth:
+                self.paths.append([])
+            self.paths[-1].append((rays.o, rays.d, []))
+            return hit
+
+        def nee_area_lights(scene, statics, hit, d_in, throughput, keys, site0,
+                            tri_fn, active, **kw):
+            vertex.update(hit=hit, d_in=d_in, active=active)
+            return orig["_nee_area_lights"](scene, statics, hit, d_in, throughput,
+                                            keys, site0, tri_fn, active, **kw)
+
+        def sample_area_light(scene, light_idx, position, u2, *a, **kw):
+            ls = orig["sample_area_light"](scene, light_idx, position, u2, *a, **kw)
+            vertex.update(scene=scene, light_idx=light_idx, ls=ls)
+            return ls
+
+        def occluded(scene, rays, t_max, **kw):
+            import torch
+
+            hit, ls = vertex["hit"], vertex["ls"]
+            li = torch.clamp(vertex["light_idx"], min=0).to(torch.int64)
+            tm = torch.as_tensor(t_max, dtype=torch.float32,
+                                 device=rays.o.device).expand(rays.o.shape[0])
+            walked = (vertex["active"] & (ls.pdf > 0.0)
+                      & (torch.sum(hit.ng * ls.wi, dim=-1) > 0.0)
+                      & (torch.sum(-vertex["d_in"] * hit.ns, dim=-1) > 0.0)
+                      & (torch.sum(ls.wi * hit.ns, dim=-1) > 0.0)
+                      & (torch.sum(ls.wi * vertex["scene"].al_ng[li], dim=-1) < 0.0)
+                      & (tm > 0.0))
+            self.paths[-1][-1][2].append((rays.o, rays.d, tm, walked))
+            return orig["occluded"](scene, rays, t_max, **kw)
+
+        surface.intersect_scene, surface.occluded = intersect_scene, occluded
+        surface.sample_area_light = sample_area_light
+        surface._nee_area_lights = nee_area_lights
+        return self
+
+    def __exit__(self, *exc):
+        from xraytracer_tpu_torch.integrators import surface
+
+        for k, fn in self._orig.items():
+            setattr(surface, k, fn)
+        return False
+
+
+def mega_culled_bound(fs, paths, bytes_in, bytes_out, n):
+    """bound_ms of a whole-path launch that walks its table over its chunk
+    table (the merged loop on a table it does not stage): per path ray and
+    per shadow ray the pair and slab tests of ``culled_tests_needed`` in its
+    own visit order, from the rays the plain version traced for the same
+    samples (``MegaRayLog``). A lane's path ray counts at a bounce it
+    reaches (its ray changed since the bounce before; every lane at the
+    first), a shadow ray where the kernel walks it (``MegaRayLog``'s
+    ``walked``)."""
+    import torch
+
+    s = fs.scene
+    v0, e1, e2 = s.tri_v0, s.tri_e1, s.tri_e2
+    valid, blocks = fs.valid.bool(), fs.blocks.bool()
+    tests = slabs = shadow_tests = shadow_slabs = n_path = n_shadow = 0
+    for bounces in paths:
+        prev = None
+        for o, d, shadows in bounces:
+            live = (torch.ones_like(o[:, 0], dtype=torch.bool) if prev is None else
+                    ((o != prev[0]).any(dim=1) | (d != prev[1]).any(dim=1)))
+            prev = (o, d)
+            t, sl = culled_tests_needed(o[live], d[live], v0, e1, e2, valid)
+            tests, slabs, n_path = tests + t, slabs + sl, n_path + int(live.sum())
+            for so, sd, tm, w in shadows:
+                t, sl = culled_tests_needed(so[w], sd[w], v0, e1, e2, blocks, tm[w])
+                shadow_tests, shadow_slabs = shadow_tests + t, shadow_slabs + sl
+                n_shadow += int(w.sum())
+    t_total = v0.shape[0]
+    n_bytes = n * (bytes_in + bytes_out) + t_total * (36 + 2 + 128) + fs.n_lights * 80
+    b_ms, b_by = bound_ms(n_bytes, tests * FLOPS_PER_TEST + shadow_tests
+                          * FLOPS_PER_ANYHIT_TEST + (slabs + shadow_slabs) * FLOPS_PER_SLAB, 1)
+    return dict(bound_ms=b_ms, bound_by=b_by, culled=dict(
+        path_rays=n_path, shadow_rays=n_shadow, pair_tests=tests,
+        anyhit_tests=shadow_tests, slab_tests=slabs + shadow_slabs))
+
+
 def phase_mega_kernels(device, cornell, cornell_cam, reps):
     """Hold the three whole-path kernels against their plain versions on the
     card: Cornell at the main path's shape and at a few samples (uniform and
@@ -1241,6 +1362,7 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
     mesh_small, mesh_cam = mesh_scene(device, K1_MESH_SIZE)
+    mesh_one, _ = mesh_scene(device, K1_MESH_ONE_GROUP)
     room = many_light_scene(device)
     room_in = many_light_scene(device, face_in=True)
     scenes = [
@@ -1250,6 +1372,8 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
         ("cornell cosine", cornell, cornell_cam,
          dict(max_depth=DEPTH, cosine_sampling=True), (K1_SPP,)),
         ("mesh %dx%d, multi-tile table" % K1_MESH_SIZE, mesh_small, mesh_cam,
+         dict(max_depth=DEPTH, cosine_sampling=True), (K1_SPP,)),
+        ("mesh %dx%d, one group, culled" % K1_MESH_ONE_GROUP, mesh_one, mesh_cam,
          dict(max_depth=DEPTH, cosine_sampling=True), (K1_SPP,)),
         ("64 lights, one", room, cornell_camera(),
          dict(max_depth=2, cosine_sampling=True, nee_mode="one"), (K1_SPP,)),
@@ -1292,15 +1416,21 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
         cases["mega_path"].append(case)
         del got, ref
 
+        culled = fs.culls
         for n_spp in spp_list:
             tag = f"{label}, {n_spp} spp"
             stats = {}
-            (ref, ref_rej), plain_ms = timed_once(
-                lambda: mk.mega_spp_persistent_plain(fs, view, 0, n_spp, stats))
+            with MegaRayLog(opts["max_depth"], on=culled) as log:
+                (ref, ref_rej), plain_ms = timed_once(
+                    lambda: mk.mega_spp_persistent_plain(fs, view, 0, n_spp, stats))
             got_c, rej_c = mk.mega_spp_persistent(fs, view, 0, n_spp)
             got_b, rej_b = mk.mega_spp(fs, view, 0, n_spp)
             torch.cuda.synchronize()
             bound = mega_bound(n, t_total, n_lights, stats, 12, 16)
+            # the merged loop culls a table it does not stage
+            bound_c = dict(bound, **mega_culled_bound(fs, log.paths, 12, 16, n),
+                           brute_bound_ms=bound["bound_ms"]) if culled else bound
+            del log
             for name, got, rej in (("mega_spp_persistent", got_c, rej_c),
                                    ("mega_spp", got_b, rej_b)):
                 if name == "mega_spp" and n_spp == MAIN_SPP:
@@ -1314,7 +1444,8 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
                 fn = getattr(mk, name)
                 case.update(case=tag, n_spp=n_spp, plain_ms=plain_b,
                             ms=median_ms(lambda: fn(fs, view, 0, n_spp), reps, flush),
-                            **bound, **common)
+                            **(bound_c if name == "mega_spp_persistent" else bound),
+                            **common)
                 cases[name].append(case)
             # per-sample loop vs merged loop (A/B), raster vs morton (bitwise)
             ab = torch.abs(got_b - got_c)
@@ -1377,7 +1508,8 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
                   f"n_spp={head['n_spp']}",
             cases=[{k: c[k] for k in ("case", "n", "t_total", "n_spp", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
-                                      "pixels_beyond_gate")} for c in cases[name]],
+                                      "brute_bound_ms", "pixels_beyond_gate")
+                    if k in c} for c in cases[name]],
         ))
     return entries
 
@@ -2436,8 +2568,11 @@ def phase_het_kernels(device, nee_scene, volume_scene, reps):
 
 PTXAS_KERNELS = ("het_path_kernel", "het_spp_kernel", "het_spp_persistent_kernel",
                  "het_grad_path_kernel", "track_sample_kernel",
-                 "track_transmittance_kernel", "sweep_kernel", "chunk_boxes_kernel")
+                 "track_transmittance_kernel", "sweep_kernel", "chunk_boxes_kernel",
+                 "mega_path_kernel", "mega_spp_kernel", "mega_spp_persistent_kernel",
+                 "mega_grad_path_kernel", "mega_coeffs_kernel")
 SWEEP_MODES = ("sweep_nearest", "sweep_nearest_rec", "occluded_anyhit")
+MEGA_WALKS = ("staged", "culled")  # csrc/megakernel.cu K1cWalk
 
 
 def ptxas_table(text):
@@ -2453,6 +2588,10 @@ def ptxas_table(text):
                         if f"{len(k)}{k}" in m.group(1)), None)
             if cur == "sweep":  # sweep_kernel<MODE>
                 cur = SWEEP_MODES[int(re.search(r"ILi(\d)E", m.group(1)).group(1))]
+            elif cur == "mega_spp_persistent":  # mega_spp_persistent_kernel<WALK>
+                walk = re.search(r"ILi(\d)E", m.group(1))
+                if walk:
+                    cur += "<" + MEGA_WALKS[int(walk.group(1))] + ">"
             continue
         if cur is None:
             continue
@@ -2581,6 +2720,8 @@ def bind_launchers(module, lib, names):
 SWEEP_SOURCES = ("sweep.cu", "sweep.cuh", "tri_test.cuh", "common.cuh")
 TRACK_SOURCES = ("media.cu", "het_megakernel.cu", "media.cuh", "het_path.cuh",
                  "path_common.cuh", "tri_test.cuh", "common.cuh")
+MEGA_SOURCES = ("megakernel.cu", "mega_path.cuh", "sweep.cuh", "path_common.cuh",
+                "tri_test.cuh", "common.cuh")
 # the C signatures of a sweep.cu from before the chunk table
 BRUTE_FORCE_ARGTYPES = {
     "sweep_nearest": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -2630,6 +2771,127 @@ class BruteForceSweeps:
         return self.lib.occluded_anyhit(o, d, n, *self.table, t_total, center, *rest)
 
 
+def bind_mega(lib):
+    """A megakernel library of another build, bound through the package's
+    C signatures; a build from before the chunk table (no ``mega_abi``)
+    takes the scene arguments without the table's boxes."""
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+
+    if hasattr(lib, "mega_abi"):
+        return mk._bind(lib)
+    return MegaWithoutBoxes(lib)
+
+
+class MegaWithoutBoxes:
+    """The launchers of a megakernel library whose scene arguments end
+    before the chunk table's boxes (``megakernel._SCENE_ARGTYPES`` less its
+    last entry), called with the package's argument lists."""
+
+    def __init__(self, lib):
+        from xraytracer_tpu_torch.integrators import megakernel as mk
+
+        n_scene = len(mk._SCENE_ARGTYPES)
+        self._calls = {}
+        for name, argtypes in mk._ARGTYPES.items():
+            first = 8 if name.startswith("mega_spp") else 4  # scene args' offset
+            box = first + n_scene - 1
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes[:box] + argtypes[box + 1:]
+            fn.restype = ctypes.c_int
+            self._calls[name] = (fn, box)
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        fn, box = self._calls[name]
+        return lambda *args: fn(*args[:box], *args[box + 1:])
+
+
+def mega_ab_cases(device, ab_, cornell, builds, reps):
+    """The whole-path surface kernels' cases of ``phase_csrc_ab``, run
+    through its ``ab`` on every megakernel build (``builds``)."""
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.scene.presets import cornell_camera
+    from xraytracer_tpu_torch.scene.tables import rejoin_appearance
+
+    cornell_tables, cornell_cam = cornell
+    check(get_preset("cornellbox_gi").spp == MAIN_SPP, "cornellbox_gi's spp changed")
+    room_in = many_light_scene(device, face_in=True)
+    mesh_small, mesh_cam = mesh_scene(device, K1_MESH_SIZE)
+    mesh_one, _ = mesh_scene(device, K1_MESH_ONE_GROUP)
+    mesh_128, _ = mesh_scene(device, K1_MESH_SMALL)
+    turns = MEGA_AB_TURNS
+
+    def ab(*args, **kw):
+        ab_(*args, builds=builds, **kw)
+
+    for label, tables, camk, opts, main in (
+            ("cornell uniform", cornell_tables, cornell_cam,
+             dict(max_depth=DEPTH, cosine_sampling=False), True),
+            ("cornell cosine", cornell_tables, cornell_cam,
+             dict(max_depth=DEPTH, cosine_sampling=True), False),
+            ("mesh %dx%d, T=3072" % K1_MESH_SIZE, mesh_small, mesh_cam,
+             dict(max_depth=DEPTH, cosine_sampling=True), False),
+            ("mesh %dx%d, T=384" % K1_MESH_ONE_GROUP, mesh_one, mesh_cam,
+             dict(max_depth=DEPTH, cosine_sampling=True), False),
+            ("mesh %dx%d, T=128" % K1_MESH_SMALL, mesh_128, mesh_cam,
+             dict(max_depth=DEPTH, cosine_sampling=True), False),
+            ("64 lights facing in, one", room_in, cornell_camera(),
+             dict(max_depth=3, cosine_sampling=True, nee_mode="one"), False),
+            ("64 lights facing in, power", room_in, cornell_camera(),
+             dict(max_depth=3, cosine_sampling=False, nee_mode="power"), False)):
+        st = scene_statics(tables)
+        cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
+        fs = mk._bake(tables, st, opts["max_depth"], True, True, opts["cosine_sampling"],
+                      nee_mode=opts.get("nee_mode", "all"))
+        check(fs is not None, f"csrc_ab {label}: not eligible for the fused route")
+        view = mk.try_make_fused_spp_render(tables, st, cam, WIDTH, HEIGHT, 0,
+                                            nee=True, **opts).view
+        keys, o, d = mk._camera_rays_plain(view, 0)
+        # launches under a few ms read bimodal between turns: 4x the reps
+        ab("mega_path", f"{label}, camera rays", lambda: mk.mega_path(fs, o, d, keys),
+           turns=turns, reps_=4 * reps)
+        for name in ("mega_spp", "mega_spp_persistent"):
+            fn = getattr(mk, name)
+            ab(name, f"{label}, {K1_SPP} spp", lambda fn=fn: fn(fs, view, 0, K1_SPP),
+               turns=turns, reps_=4 * reps)
+        if main:
+            ab("mega_spp_persistent", f"{label}, {MAIN_SPP} spp (main path's launch)",
+               lambda: mk.mega_spp_persistent(fs, view, 0, MAIN_SPP), reps_=3,
+               turns=turns)
+    # K5 on the cases of phase_grad_kernels
+    box, box_cam = light_box_scene(device)
+    room4 = many_light_scene(device, n_side=2, face_in=True)
+    alb = cornell_tables.mat_albedo.clone()
+    alb[1] = torch.tensor([0.12, 0.75, 0.1], device=device)
+    alb[2] = torch.tensor([0.8, 0.1, 0.05], device=device)
+    for label, tables, camk, opts, albedo, le_scale in (
+            ("cornell, Le x 1.3, own albedos", cornell_tables, cornell_cam,
+             dict(max_depth=DEPTH, cosine_sampling=True, nee_mode="all"), alb, 1.3),
+            ("16-light box, power", box, box_cam,
+             dict(max_depth=2, cosine_sampling=True, nee_mode="power"), None, 1.0),
+            ("4 lights facing in, all, uniform", room4, cornell_camera(),
+             dict(max_depth=DEPTH, cosine_sampling=False, nee_mode="all"), None, 1.3)):
+        st = scene_statics(tables)
+        f = mk.try_make_fused_grad_path(tables, st, opts["max_depth"], nee=True,
+                                        cosine_sampling=opts["cosine_sampling"],
+                                        nee_mode=opts["nee_mode"])
+        check(f is not None, f"csrc_ab {label}: not eligible for the gradient kernel")
+        gs = f.grad_scene
+        keys, o, d = sample_rays(camk, device, GRAD_SAMPLE)
+        le = tables.al_le * le_scale
+        rec = rejoin_appearance(tables._replace(
+            mat_albedo=tables.mat_albedo if albedo is None else albedo,
+            al_le=le)).tri_rec.contiguous()
+        ab("mega_grad_path", label, lambda: mk.mega_grad_path(gs, o, d, keys, rec, le),
+           turns=turns, reps_=4 * reps)
+
+
 def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     """Other builds of the sources (``others``: {name: a directory holding
     another copy of csrc/, e.g. the parent commit's}) against the package's
@@ -2655,7 +2917,18 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     (pass A) and K10 at K10's three shapes (the nee frame,
     tools.fit_volume's first view, the 16^3 cloud) on the dense and the
     packed live grid, with step_pair's two streams at the view as two
-    launches and as one. pack_corners is the package's in every build."""
+    launches and as one. pack_corners is the package's in every build.
+
+    The whole-path surface kernels (K1a-c, K5), from every build whose
+    sources of them differ: K1a on the camera rays of sample 0, K1b and
+    K1c at K1_SPP samples per pixel, on Cornell (uniform and cosine), the
+    3,072-, 384- and 128-row meshes and the 64-light rooms facing in
+    (``one``, ``power``; all culled),
+    K1c at the main path's own launch (Cornell uniform, MAIN_SPP samples,
+    one chunk), and K5 on the three cases of its default phase; sums,
+    rejection counts and K5's planes compared bitwise, each case timed in
+    MEGA_AB_TURNS turns. Each section runs only where some build differs
+    from the package there."""
     import torch
 
     from xraytracer_tpu_torch import _build, cli
@@ -2675,11 +2948,17 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     sweep_names = ["package"] + [n for n, d in others.items()
                                  if sources_differ(d, SWEEP_SOURCES)]
     names = ["package"] + [n for n, d in others.items() if sources_differ(d, TRACK_SOURCES)]
+    mega_names = ["package"] + [n for n, d in others.items()
+                                if sources_differ(d, MEGA_SOURCES)]
     built = build_sources(
         [(f"ab_{name}_sweep", os.path.join(dirs[name], "sweep.cu"), [])
          for name in sweep_names]
         + [(f"ab_{name}_{lib}", os.path.join(dirs[name], f"{lib}.cu"), [])
-           for name in names for lib in ("media", "het_megakernel")])
+           for name in names for lib in ("media", "het_megakernel")]
+        + [(f"ab_{name}_megakernel", os.path.join(dirs[name], "megakernel.cu"), [])
+           for name in mega_names])
+    mega_libs = {name: bind_mega(ctypes.CDLL(built[f"ab_{name}_megakernel"][0]))
+                 for name in mega_names}
     package_sweep = kernels._bind(ctypes.CDLL(built["ab_package_sweep"][0]))
     sweep_libs = {}
     for name in sweep_names:
@@ -2695,7 +2974,7 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     ptxas = {name: {} for name in dirs}
     for tag, (_, table) in built.items():
         ptxas[next(n for n in dirs if tag.startswith(f"ab_{n}_"))].update(table)
-    package_libs = mkk._lib, hk._lib, kernels._lib
+    package_libs = mkk._lib, hk._lib, kernels._lib, mk._lib
     rows = []
 
     def use(name):
@@ -2703,15 +2982,19 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
         if name in libs:
             mkk._lib = lambda lib=libs[name][0]: lib
             hk._lib = lambda lib=libs[name][1]: lib
+        if name in mega_libs:
+            mk._lib = lambda lib=mega_libs[name]: lib
 
     def pack(grid):
         mkk._lib = package_libs[0]
         return mkk.pack_corners(grid)
 
-    def ab(kernel, case, run, exact=True, time_it=True, builds=None, reps_=None):
+    def ab(kernel, case, run, exact=True, time_it=True, builds=None, reps_=None,
+           turns=2):
         """Run ``run`` on every build (or on ``builds``): outputs vs the
         package's (lanes that differ, or the largest difference), then
-        times in two turns."""
+        times in ``turns`` turns (the builds in order, then in reverse,
+        and so on); ``median_ms`` per build is the median of its turns."""
         row = dict(kernel=kernel, case=case)
         ref = None
         differ = {}
@@ -2739,11 +3022,12 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
         row["vs_package"] = differ
         if time_it:
             ms = {name: [] for name in order}
-            for turn in (order, order[::-1]):
-                for name in turn:
+            for k in range(turns):
+                for name in (order if k % 2 == 0 else order[::-1]):
                     use(name)
                     ms[name].append(median_ms(run, reps_ or reps, flush))
             row["ms"] = ms
+            row["median_ms"] = {name: sorted(v)[len(v) // 2] for name, v in ms.items()}
         rows.append(row)
         emit("csrc_ab_case", **row)
 
@@ -2754,14 +3038,16 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
                              mask.view(torch.uint8).data_ptr())
 
     try:
-        # the sweeps, on rays captured from one sample of the wavefront route
         use("package")
         cornell = cli.build_scene(get_preset("cornellbox_gi", width=WIDTH, height=HEIGHT),
                                   device=device)
-        for label, (tables, camk), cosine, which in (
+        if len(mega_names) > 1:
+            mega_ab_cases(device, ab, cornell, mega_names, reps)
+        # the sweeps, on rays captured from one sample of the wavefront route
+        for label, (tables, camk), cosine, which in (() if len(sweep_names) == 1 else (
                 ("cornell", cornell, False, ("camera", "shadow")),
                 ("mesh13k", mesh_scene(device), True, ("camera", "bounce", "shadow")),
-                ("mesh51k", mesh_scene(device, MESH51_SIZE), True, ("camera", "shadow"))):
+                ("mesh51k", mesh_scene(device, MESH51_SIZE), True, ("camera", "shadow")))):
             st = scene_statics(tables)
             cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
             integ = make_path_integrator(tables, st, DEPTH, nee=True, cosine_sampling=cosine,
@@ -2942,9 +3228,9 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
                 ab("track_transmittance", f"nee iteration {it} NEE segments",
                    lambda args=args: mkk.track_transmittance(*args))
     finally:
-        mkk._lib, hk._lib, kernels._lib = package_libs
+        mkk._lib, hk._lib, kernels._lib, mk._lib = package_libs
     emit("csrc_ab", builds=dirs, sweep_builds=sweep_names, tracking_builds=names,
-         ptxas=ptxas, reps=reps, cases=len(rows))
+         mega_builds=mega_names, ptxas=ptxas, reps=reps, cases=len(rows))
 
 
 def phase_het_entry_points(device, nee_scene, main_image_mean):
@@ -4296,11 +4582,12 @@ def main():
                     help="also build the heterogeneous whole-path kernels under "
                          "other __launch_bounds__ caps and time them")
     ap.add_argument("--ab-csrc", action="append", default=[], metavar="NAME=DIR",
-                    help="also build sweep.cu, media.cu and het_megakernel.cu from DIR "
-                         "(another copy of xraytracer_tpu_torch/csrc, e.g. the parent "
-                         "commit's; each where its sources differ from the package's) "
-                         "and hold K2-K4 and K7-K10 of that build against the package's "
-                         "own, bitwise, timing both in turns; repeatable")
+                    help="also build sweep.cu, media.cu, het_megakernel.cu and "
+                         "megakernel.cu from DIR (another copy of "
+                         "xraytracer_tpu_torch/csrc, e.g. the parent commit's; each where "
+                         "its sources differ from the package's) and hold K1-K5 and "
+                         "K7-K10 of that build against the package's own, bitwise, "
+                         "timing both in turns; repeatable")
     ap.add_argument("--ab-only", action="store_true",
                     help="with --ab-csrc: run that comparison alone and stop "
                          "(no result line)")

@@ -55,17 +55,54 @@
 // arguments. The triangle coefficients (tri_test.cuh, 64 B a row) are
 // computed by a small preparation kernel that each launcher runs first, into
 // scratch the caller owns; a second copy holds zero rows for triangles that
-// do not block shadow rays. There is no shared-memory staging and therefore
-// NO BARRIER in these kernels: lanes of a block leave the loops at
-// different times, and a barrier would force every lane, finished or beyond
-// n, to keep turning up. All lanes of a warp that are inside a table walk
-// read the same row, so each load is one broadcast from L1 / L2 (4096 rows
-// x 64 B x 2 copies stay far below the 50 MB L2).
+// do not block shadow rays. The lane code (walks, shading, the merged
+// loop's pass) is in mega_path.cuh.
+//
+// What bounds K1 on an H100: float32 operations, and the table walks
+// spend them. A pixel moves 12 B in and 16 B out per launch whatever the
+// sample count, while every ray costs T pair tests of ~38 flops (the
+// bound counts only those). Breaking the Cornell main-path launch down
+// (PERF.md, section 6): the separate shadow walks cost 40% of its time, and
+// their divergence more than their tests (a shadow walk by every lane over
+// every row was 8% faster than one by the lanes that need it, stopping at
+// the first blocker); row loads through L1 15%; the shading between walks
+// 2%. So the merged loop (K1c) walks a coherent pair of rays:
+//
+//   * One walk per pass. A lane carries its path ray and the shadow ray
+//     of its previous vertex's last light sample into one loop over the
+//     rows, which tests both against each row, loaded once; the shadow
+//     ray reads the row's blocks bit and does not stop at a blocker. Its
+//     term waits in the lane and is added after the walk (mega_path.cuh
+//     states why every sum stays bitwise the per-sample loop's). A path's
+//     last vertex leaves its shadow ray to the pass that walks the lane's
+//     next camera ray. With two rays a row the walk's own instructions
+//     cost more than its loads: the culled walk tests a row's plane before
+//     its edges (mega_path.cuh).
+//   * Staging. A table of at most MEGA_STAGE_ROWS rows (the Cornell box's
+//     40: 7,688 B) is copied whole, coefficients, records and blocks bits,
+//     into each block's dynamic shared memory once; the block turns for
+//     the whole launch, so the copy is paid once, and the walk (and the
+//     winner's record) read it from there, every row by the whole pair
+//     test, without a box test. One barrier follows the copy, before any
+//     lane may leave; lanes past n take part in the copy and then leave.
+//   * Culling. A larger table is walked over the sweeps' chunk table
+//     (sweep.cuh: groups of SWEEP_GROUP chunks of SWEEP_CHUNK rows; its
+//     boxes under the valid mask, built once per table by sweep.cu's
+//     chunk_boxes), its rows and records through L1: a warp visits a
+//     group, then a chunk, only when some lane's path ray enters its box
+//     before its best t or its shadow ray before its t_max (__any_sync),
+//     as the TPU kernels cull and with the padding condition of sweep.cu.
+//     Lanes past n and lanes done with their samples keep voting until
+//     their warp is done.
+//
+// K1a, K1b and K5 keep the walk of a bounce at a time (mega_path.cuh's
+// `bounce`: the nearest walk, then each light sample's shadow walk over the
+// blocks copy, stopping at its first blocker), through L1.
 //
 // Winner rule: strict t < best while walking rows upwards, first index wins
 // exact ties, as in sweep.cu (the Pallas key keeps the lowest row among hits
-// within 2^-16 relative t instead). The per-chunk AABB culling of the Pallas
-// kernels is work reduction and is not done here.
+// within 2^-16 relative t instead); a culled chunk holds no row that could
+// replace the best.
 //
 // mega_grad_path carries, beside the path, its Jacobians w.r.t. the
 // material albedos and the light emissions (see `Grad` below): the gradient
@@ -78,66 +115,36 @@
 // moves 28 + 4 (3 + 9M + 3L) bytes per lane, so it is bound by operations
 // for Cornell (M = 3, L = 1) and by bytes once the lights are many.
 //
-// What bounds it on an H100: float32 operations. A pixel moves 12 B in and
-// 16 B out per launch whatever the sample count, while every ray costs T
-// pair tests of ~38 flops. The kernels are brute force and far above that
-// bound; most of the gap is the scalar shading between the table walks and
-// warp divergence (lanes that died, lanes past the table walk).
-//
 // nvcc contracts a*b+c into FMAs; no fast-math flags, so division, sqrtf,
 // sinf and cosf are the accurate ones.
 
-#include "path_common.cuh"
-#include "tri_test.cuh"
+#include "mega_path.cuh"
 
 namespace xrt {
 
 constexpr int MEGA_BLOCK = 128;
-constexpr int LIGHT_STRIDE = 20;  // floats per light-table row, see below
-constexpr uint32_t SITE_RR = 0, SITE_BSDF = 1, SITE_LIGHT0 = 16;
-constexpr float SHADOW_BIAS = 0.01f;
-constexpr float PI_INV = (float)(1.0 / 3.14159265359);
-
-enum NeeKind { NEE_ALL = 0, NEE_ONE = 1, NEE_POWER = 2 };
-
-// Light-table row: [0] type (0 triangle, 1 quad), [1..3] v0, [4..6] e1,
-// [7..9] e2, [10..12] ng (unnormalised e1 x e2), [13..15] Le,
-// [16] probability of picking this light ("one" / "power"), [17..19] unused.
-struct MegaScene {
-  const float4* coef;         // (T, 4) coefficients, zero rows never hit
-  const float4* coef_blocks;  // the same, zero rows for non-blocking rows
-  const float4* tri_rec;      // (T, 8) = (T, 32) floats
-  const float* center;        // (3,) table centroid
-  const float* lights;        // (n_lights, LIGHT_STRIDE)
-  const float* pick_cdf;      // (n_lights + 1,), NEE_POWER only
-  int t_total;
-  int n_lights;
-  int max_depth;
-  int nee;       // next-event estimation on (and n_lights > 0)
-  int le0;       // emitter radiance only at the first bounce
-  int cosine;    // cosine-weighted instead of uniform hemisphere sampling
-  int nee_kind;  // NeeKind
-};
-
-struct Path {
-  uint32_t key;
-  int it;  // bounces done
-  bool act;
-  float3 L, T, o, d;
-};
-
-// The hooks `bounce` calls at the points where the Jacobians change. For the
-// render kernels every hook is empty and compiles to nothing.
-struct NoGrad {
-  __device__ __forceinline__ void hit(float) {}
-  // the boosted throughput
-  __device__ __forceinline__ float3 roulette(float3 t, float boost, float) {
-    return make_float3(t.x * boost, t.y * boost, t.z * boost);
-  }
-  __device__ __forceinline__ void emit(float3, float3, int) {}
-  __device__ __forceinline__ void nee(float3, float3, float3, float, int) {}
-  __device__ __forceinline__ void scatter(float3, float3, float) {}
-};
+// The largest table K1c stages whole into each block's shared memory
+// (coefficients, records and blocks bits: 192 B a row, 12,296 B at 64
+// rows; Cornell's 40 rows 7,688 B); a larger one is culled over its chunk
+// table. Measured at the two sides (PERF.md, section 6): Cornell's 40 rows
+// ran the main path's launch 17% slower culled than staged, a 128-row
+// sphere mesh 25% faster culled (and the 256-row rooms and 384-row mesh
+// about twice as fast culled as with their rows staged). Between 40 and
+// 128 rows the crossover was not measured; the line is drawn at two chunks.
+// integrators/megakernel.py::MEGA_STAGE_ROWS decides which tables get a
+// chunk table, and must equal it.
+constexpr int MEGA_STAGE_ROWS = 64;
+// K1c's blocks per SM: seven at 72 registers (204 B of spill stores) ran
+// the main path's launch 4% faster than no minimum (at most 96 registers,
+// no spills), six 2% faster, eight 4% slower (PERF.md, section 6). A pixel's
+// samples are one lane's sum, so the frame's 3,565 blocks run in whole
+// waves: seven per SM take four waves of 924.
+constexpr int MEGA_MIN_BLOCKS = 7;
+// K1a's and K1b's: eight, at most 64 registers (with spills) as before
+// their bounce moved into mega_path.cuh, which let them take 72; at 72, K1b
+// on a 3,072-row table ran 1.0-1.3% slower than at 64, outside its turns'
+// spread (PERF.md, section 6).
+constexpr int MEGA_PATH_MIN_BLOCKS = 8;
 
 constexpr int MAX_GRAD_MATS = 8;  // integrators/megakernel.py::MAX_GRAD_MATS
 
@@ -273,261 +280,6 @@ struct Grad {
   }
 };
 
-__device__ __forceinline__ int nearest_row(const float4* __restrict__ coef,
-                                           int t_total, float3 oc, float3 d,
-                                           float3 m) {
-  float best_t = BIG_T;
-  int best_i = -1;
-#pragma unroll 2
-  for (int k = 0; k < t_total; ++k) {
-    const PairTest r =
-        pair_test(__ldg(coef + 4 * k), __ldg(coef + 4 * k + 1),
-                  __ldg(coef + 4 * k + 2), __ldg(coef + 4 * k + 3), oc, d, m);
-    if (r.ok) {
-      const float t = r.t_num / r.det;
-      if (t < best_t) {
-        best_t = t;
-        best_i = k;
-      }
-    }
-  }
-  return best_i;
-}
-
-__device__ __forceinline__ bool any_hit(const float4* __restrict__ coef,
-                                        int t_total, float3 oc, float3 d,
-                                        float3 m, float tm) {
-  // t_s > eps*|det| > 0 can never be below t_max*|det| when t_max <= 0
-  if (!(tm > 0.f)) return false;
-#pragma unroll 2
-  for (int k = 0; k < t_total; ++k) {
-    const PairTest r =
-        pair_test(__ldg(coef + 4 * k), __ldg(coef + 4 * k + 1),
-                  __ldg(coef + 4 * k + 2), __ldg(coef + 4 * k + 3), oc, d, m);
-    if (r.ok && r.t_s < tm * r.absd) return true;
-  }
-  return false;
-}
-
-// One light sample's weight cos / pdf / pi, 0 when it contributes nothing.
-// The shadow test runs only for a sample that could contribute.
-__device__ __forceinline__ float nee_coef(const MegaScene& S, float3 center,
-                                          float3 P, float3 ng, float3 ns,
-                                          float3 d, float3 lp, float3 gn,
-                                          float pdf_scale, float prob) {
-  const float3 dl = sub3(lp, P);
-  const float tl = sqrtf(dl.x * dl.x + dl.y * dl.y + dl.z * dl.z);
-  const float ddn = dl.x * gn.x + dl.y * gn.y + dl.z * gn.z;
-  const bool front = ddn < 0.f;
-  float denom = fabsf(ddn);
-  denom = denom == 0.f ? 1.0f : denom;
-  const float pdf = pdf_scale * tl * tl * tl / denom * prob;
-  const bool ok = pdf > 0.f;
-  const float ti = 1.0f / (tl == 0.f ? 1.0f : tl);
-  const float3 wi = make_float3(dl.x * ti, dl.y * ti, dl.z * ti);
-  const float cosv = fmaxf(0.f, ng.x * wi.x + ng.y * wi.y + ng.z * wi.z);
-  const float wo_y = -(d.x * ns.x + d.y * ns.y + d.z * ns.z);
-  const float wi_y = wi.x * ns.x + wi.y * ns.y + wi.z * ns.z;
-  const bool above = (wo_y > 0.f) & (wi_y > 0.f);
-  if (!(ok & above & front) || !(cosv > 0.f)) return 0.f;
-  const float3 so = make_float3(P.x + ng.x * SHADOW_BIAS,
-                                P.y + ng.y * SHADOW_BIAS,
-                                P.z + ng.z * SHADOW_BIAS);
-  const float3 soc = sub3(so, center);
-  if (any_hit(S.coef_blocks, S.t_total, soc, wi, cross3(soc, wi),
-              tl - SHADOW_BIAS))
-    return 0.f;
-  return cosv / pdf * PI_INV;
-}
-
-// One bounce of an active path. Ends the path (act = false) on a miss, a
-// roulette kill, an emitter, zero throughput, or after the last bounce.
-// ``jac`` follows the Jacobians (NoGrad: nothing).
-template <class J>
-__device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
-                                       Path& p, J& jac) {
-  const uint32_t base = (uint32_t)p.it * SITES_PER_BOUNCE;
-  const float3 o = p.o, d = p.d;
-  const float3 oc = sub3(o, center);
-  const int row = nearest_row(S.coef, S.t_total, oc, d, cross3(oc, d));
-  const int it = p.it;
-  p.it = it + 1;
-  if (row < 0) {  // miss: black background
-    p.act = false;
-    return;
-  }
-
-  // the winner's packed record: normals 0-8, v0 e1 e2 15-23, light 25,
-  // albedo 29-31
-  const float4* rec = S.tri_rec + (size_t)row * 8;
-  const float4 r0 = __ldg(rec + 0), r1 = __ldg(rec + 1), r2 = __ldg(rec + 2),
-               r3 = __ldg(rec + 3), r4 = __ldg(rec + 4), r5 = __ldg(rec + 5),
-               r6 = __ldg(rec + 6), r7 = __ldg(rec + 7);
-  const float3 n0 = make_float3(r0.x, r0.y, r0.z);
-  const float3 n1 = make_float3(r0.w, r1.x, r1.y);
-  const float3 n2 = make_float3(r1.z, r1.w, r2.x);
-  const float3 v0 = make_float3(r3.w, r4.x, r4.y);
-  const float3 e1 = make_float3(r4.z, r4.w, r5.x);
-  const float3 e2 = make_float3(r5.y, r5.z, r5.w);
-  const float lrow = r6.y;
-  const float3 alb = make_float3(r7.y, r7.z, r7.w);
-  jac.hit(r6.x);
-
-  float t, tu, tv;
-  winner_tuv(o, d, v0, e1, e2, t, tu, tv);
-
-  float3 ng = cross3(e1, e2);
-  const float ngi = 1.0f / sqrtf(ng.x * ng.x + ng.y * ng.y + ng.z * ng.z);
-  ng = make_float3(ng.x * ngi, ng.y * ngi, ng.z * ngi);
-  const float w0 = 1.0f - tu - tv;
-  float3 ns = make_float3(w0 * n0.x + tu * n1.x + tv * n2.x,
-                          w0 * n0.y + tu * n1.y + tv * n2.y,
-                          w0 * n0.z + tu * n1.z + tv * n2.z);
-  const float nsi =
-      1.0f / fmaxf(sqrtf(ns.x * ns.x + ns.y * ns.y + ns.z * ns.z), 1e-20f);
-  ns = make_float3(ns.x * nsi, ns.y * nsi, ns.z * nsi);
-  const float3 P = make_float3(o.x + t * d.x, o.y + t * d.y, o.z + t * d.z);
-
-  // Russian roulette from the second bounce on
-  if (it > 0) {
-    const float u_rr = u1(p.key, base + SITE_RR);
-    const float rr_prob = fminf((p.T.x + p.T.y + p.T.z) * THIRD, 1.0f);
-    if (u_rr >= rr_prob) {
-      p.act = false;
-      return;
-    }
-    const float boost = 1.0f / fmaxf(rr_prob, 1e-12f);
-    p.T = jac.roulette(p.T, boost, rr_prob);
-  }
-
-  // emitter hit: one-sided radiance, and the path ends
-  if (lrow >= 0.f) {
-    if (!S.le0 || it == 0) {
-      const float wons = -(d.x * ns.x + d.y * ns.y + d.z * ns.z);
-      const int li = (int)lrow;
-      if (wons > 0.f && li < S.n_lights) {
-        const float3 le = ld3(S.lights + li * LIGHT_STRIDE + 13);
-        p.L.x += p.T.x * le.x;
-        p.L.y += p.T.y * le.y;
-        p.L.z += p.T.z * le.z;
-        jac.emit(p.T, le, li);
-      }
-    }
-    p.act = false;
-    return;
-  }
-
-  // next-event estimation over the flat area lights
-  if (S.nee) {
-    if (S.nee_kind == NEE_ALL) {
-      for (int i = 0; i < S.n_lights; ++i) {
-        float lu, lv;
-        u2(p.key, base + SITE_LIGHT0 + (uint32_t)i, lu, lv);
-        const float* row_l = S.lights + i * LIGHT_STRIDE;
-        const bool is_tri = __ldg(row_l) == 0.f;
-        const float3 lp = light_point(is_tri, ld3(row_l + 1), ld3(row_l + 4),
-                                      ld3(row_l + 7), lu, lv);
-        const float coef =
-            nee_coef(S, center, P, ng, ns, d, lp, ld3(row_l + 10),
-                     is_tri ? 2.0f : 1.0f, 1.0f);
-        const float3 le = ld3(row_l + 13);
-        p.L.x += p.T.x * alb.x * le.x * coef;
-        p.L.y += p.T.y * alb.y * le.y * coef;
-        p.L.z += p.T.z * alb.z * le.z * coef;
-        jac.nee(p.T, alb, le, coef, i);
-      }
-    } else {
-      // one light per vertex: pick at site LIGHT0, sample at LIGHT0 + 1
-      const float u_pick = u1(p.key, base + SITE_LIGHT0);
-      int lidx;
-      if (S.nee_kind == NEE_POWER) {
-        // lower_bound over the cdf (n_lights + 1 entries) with the x == 0
-        // bump: count of entries below u_pick, at least 1, minus 1
-        int x = 0;
-        for (int j = 0; j <= S.n_lights; ++j)
-          x += __ldg(S.pick_cdf + j) < u_pick ? 1 : 0;
-        lidx = min(max(max(x, 1) - 1, 0), S.n_lights - 1);
-      } else {
-        lidx = min((int)(u_pick * (float)S.n_lights), S.n_lights - 1);
-      }
-      float lu, lv;
-      u2(p.key, base + SITE_LIGHT0 + 1u, lu, lv);
-      const float* row_l = S.lights + lidx * LIGHT_STRIDE;
-      const bool is_tri = __ldg(row_l) == 0.f;
-      const float3 lp = light_point(is_tri, ld3(row_l + 1), ld3(row_l + 4),
-                                    ld3(row_l + 7), lu, lv);
-      const float coef =
-          nee_coef(S, center, P, ng, ns, d, lp, ld3(row_l + 10),
-                   is_tri ? 2.0f : 1.0f, __ldg(row_l + 16));
-      const float3 le = ld3(row_l + 13);
-      p.L.x += p.T.x * alb.x * le.x * coef;
-      p.L.y += p.T.y * alb.y * le.y * coef;
-      p.L.z += p.T.z * alb.z * le.z * coef;
-      jac.nee(p.T, alb, le, coef, lidx);
-    }
-  }
-
-  // the last bounce's sampled direction feeds nothing
-  if (it + 1 >= S.max_depth) {
-    p.act = false;
-    return;
-  }
-
-  // Lambert resampling in the copysign frame of the shading normal
-  float ub1, ub2;
-  u2(p.key, base + SITE_BSDF, ub1, ub2);
-  const float phi = TWO_PI * ub2;
-  float lx, ly, lz;
-  float3 w = alb;
-  float f_bounce = 1.0f;  // w = albedo * f_bounce
-  if (S.cosine) {
-    const float rad = sqrtf(ub1);
-    lx = rad * cosf(phi);
-    lz = rad * sinf(phi);
-    ly = sqrtf(fmaxf(0.f, 1.0f - ub1));
-  } else {
-    const float st = sqrtf(fmaxf(0.f, 1.0f - ub1 * ub1));
-    lx = st * cosf(phi);
-    ly = ub1;
-    lz = st * sinf(phi);
-    const float cw = 2.0f * fmaxf(ly, 0.f);
-    w = make_float3(alb.x * cw, alb.y * cw, alb.z * cw);
-    f_bounce = cw;
-  }
-  const float sg = copysignf(1.0f, ns.z);
-  const float a = -1.0f / (sg + ns.z);
-  const float b = ns.x * ns.y * a;
-  const float3 t0 =
-      make_float3(1.0f + sg * ns.x * ns.x * a, sg * b, -sg * ns.x);
-  const float3 b0 = make_float3(b, sg + ns.y * ns.y * a, -ns.y);
-  const float3 ww = make_float3(lx * t0.x + ly * ns.x + lz * b0.x,
-                                lx * t0.y + ly * ns.y + lz * b0.y,
-                                lx * t0.z + ly * ns.z + lz * b0.z);
-  jac.scatter(p.T, w, f_bounce);
-  p.T = make_float3(p.T.x * w.x, p.T.y * w.y, p.T.z * w.z);
-  if (!((p.T.x > 0.f) | (p.T.y > 0.f) | (p.T.z > 0.f))) {
-    p.act = false;
-    return;
-  }
-  const float side = d.x * ng.x + d.y * ng.y + d.z * ng.z;
-  const float isign = side > 0.f ? -1.0f : (side < 0.f ? 1.0f : 0.f);
-  const float off = isign * SHADOW_BIAS;
-  p.o = make_float3(P.x + off * ng.x, P.y + off * ng.y, P.z + off * ng.z);
-  p.d = ww;
-}
-
-// Key and camera ray of sample ``s`` of one pixel (path_common.cuh), and a
-// fresh path.
-__device__ __forceinline__ void start_sample(const MegaCamera& C,
-                                             uint32_t pixfold, float px,
-                                             float py, uint32_t s, Path& p) {
-  camera_sample(C, pixfold, px, py, s, p.key, p.o, p.d);
-  p.it = 0;
-  p.act = true;
-  p.L = make_float3(0.f, 0.f, 0.f);
-  p.T = make_float3(1.f, 1.f, 1.f);
-}
-
 __global__ void __launch_bounds__(MEGA_BLOCK)
 mega_coeffs_kernel(const float* __restrict__ v0, const float* __restrict__ e1,
                    const float* __restrict__ e2,
@@ -552,7 +304,7 @@ mega_coeffs_kernel(const float* __restrict__ v0, const float* __restrict__ e1,
   coef_blocks[4 * j + 3] = g.f3;
 }
 
-__global__ void __launch_bounds__(MEGA_BLOCK)
+__global__ void __launch_bounds__(MEGA_BLOCK, MEGA_PATH_MIN_BLOCKS)
 mega_path_kernel(MegaScene S, const float* __restrict__ o,
                  const float* __restrict__ d, const int32_t* __restrict__ keys,
                  int n, float* __restrict__ out) {
@@ -574,7 +326,7 @@ mega_path_kernel(MegaScene S, const float* __restrict__ o,
   out[3 * i + 2] = p.L.z;
 }
 
-__global__ void __launch_bounds__(MEGA_BLOCK)
+__global__ void __launch_bounds__(MEGA_BLOCK, MEGA_PATH_MIN_BLOCKS)
 mega_spp_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
                 const int32_t* __restrict__ pixfold,
                 const float* __restrict__ px, const float* __restrict__ py,
@@ -599,41 +351,94 @@ mega_spp_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
   out_rej[i] = rej;
 }
 
-__global__ void __launch_bounds__(MEGA_BLOCK)
+// How a K1c launch reads its table, by the table's size alone: at most
+// MEGA_STAGE_ROWS rows are staged into each block's shared memory and
+// walked whole (WALK_STAGED), a larger table is read through L1 by the
+// culled walk (WALK_CULLED).
+enum K1cWalk { WALK_STAGED = 0, WALK_CULLED = 1 };
+
+// The staged layout: coefficients (4T float4) | records (8T float4) |
+// blocks bits (T / 32 words, rounded up).
+static inline int stage_bytes(int t_total) {
+  return t_total * 192 + 4 * ((t_total + 31) / 32);
+}
+
+// One lane of a warp: culled_pair_walk's walker on the card (its votes go
+// to the warp).
+struct LaneWarp {
+  static constexpr int LANES = 1;
+  SweepRay path[1], shadow[1];
+  __device__ __forceinline__ bool vote(bool p) {
+    return __any_sync(0xffffffffu, p);
+  }
+};
+
+// The block's copy of the table, in stage_bytes' layout; the blocks bits by
+// a warp vote per 32 rows.
+__device__ __forceinline__ void stage_table(const MegaScene& S, float4* smem) {
+  const int T = S.t_total;
+  for (int j = threadIdx.x; j < 4 * T; j += MEGA_BLOCK) smem[j] = __ldg(S.coef + j);
+  for (int j = threadIdx.x; j < 8 * T; j += MEGA_BLOCK)
+    smem[4 * T + j] = __ldg(S.tri_rec + j);
+  uint32_t* bits = (uint32_t*)(smem + 12 * T);
+  const int lane = threadIdx.x & 31;
+  for (int w = threadIdx.x >> 5; w < (T + 31) / 32; w += MEGA_BLOCK / 32) {
+    const int k = 32 * w + lane;
+    const unsigned b = __ballot_sync(0xffffffffu, k < T && S.blocks[k] != 0);
+    if (lane == 0) bits[w] = b;
+  }
+}
+
+template <int WALK>
+__global__ void __launch_bounds__(MEGA_BLOCK, MEGA_MIN_BLOCKS)
 mega_spp_persistent_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
                            const int32_t* __restrict__ pixfold,
                            const float* __restrict__ px,
                            const float* __restrict__ py, int n,
                            float* __restrict__ out_sum,
                            int* __restrict__ out_rej) {
+  extern __shared__ float4 smem[];
   const int i = blockIdx.x * MEGA_BLOCK + threadIdx.x;
-  if (i >= n) return;
+  const bool live = i < n;
+  const int T = S.t_total;
+  constexpr bool STAGED = WALK == WALK_STAGED;
+  if (STAGED) {
+    stage_table(S, smem);
+    __syncthreads();
+  }
+  // the culled walk's votes need every lane of the warp
+  if (STAGED && !live) return;
   const float3 center = ld3(S.center);
-  const uint32_t fold = (uint32_t)pixfold[i];
-  const float x = px[i], y = py[i];
-  float3 acc = make_float3(0.f, 0.f, 0.f);
-  int rej = 0;
-  Path p;
-  p.act = false;
-  p.it = 0;
-  NoGrad ng;
-  int s = 0;
-  // a lane needs one pass per bounce; the bound can only cut a loop that
-  // would otherwise not end
+  K1cLane l;
+  k1c_init(l, live, live ? (uint32_t)pixfold[i] : 0u, live ? px[i] : 0.f,
+           live ? py[i] : 0.f, n_spp);
+  LaneWarp w;
+  SweepRay& a = w.path[0];
+  SweepRay& sh = w.shadow[0];
+  // a lane needs one pass per bounce and one for its last shadow ray; the
+  // bound can only cut a loop that would otherwise not end
   const long long limit = (long long)n_spp * (S.max_depth + 1) + 1;
-  for (long long guard = 0; s < n_spp && guard < limit; ++guard) {
-    if (!p.act) start_sample(C, fold, x, y, (uint32_t)(s0 + s), p);
-    bounce(S, center, p, ng);
-    if (!p.act || p.it >= S.max_depth) {
-      add_sample(p.L, acc, rej);
-      p.act = false;
-      s += 1;
+  for (long long guard = 0; guard < limit; ++guard) {
+    const bool has = k1c_begin(C, center, s0, n_spp, l, a, sh);
+    if (STAGED) {
+      if (!has) break;
+      // a small table: the whole pair test per row (mega_path.cuh says
+      // why, and at which sizes each form was measured)
+      test_pair_rows<false>(PlainRows{smem},
+                            WordBits{(const uint32_t*)(smem + 12 * T)}, 0, T,
+                            a, sh, !a.done, !sh.done);
+      k1c_end(S, center, l, a.best_i, sh.best_i >= 0, PlainRows{smem + 4 * T});
+    } else {
+      if (!w.vote(has)) break;
+      culled_pair_walk(w, S.boxes, LdgRows{S.coef}, ByteBits{S.blocks}, T);
+      k1c_end(S, center, l, a.best_i, sh.best_i >= 0, LdgRows{S.tri_rec});
     }
   }
-  out_sum[3 * i + 0] = acc.x;
-  out_sum[3 * i + 1] = acc.y;
-  out_sum[3 * i + 2] = acc.z;
-  out_rej[i] = rej;
+  if (!live) return;
+  out_sum[3 * i + 0] = l.acc.x;
+  out_sum[3 * i + 1] = l.acc.y;
+  out_sum[3 * i + 2] = l.acc.z;
+  out_rej[i] = l.rej;
 }
 
 // Radiance and Jacobians of one whole path per ray: mega_path_kernel with
@@ -678,6 +483,7 @@ struct SceneArgs {
   const float* lights;
   const float* pick_cdf;
   int n_lights, max_depth, nee, le0, cosine, nee_kind;
+  const float* boxes;  // the chunk table's boxes (sweep.cuh), or null
 };
 
 static MegaScene prepare(const SceneArgs& a, cudaStream_t stream) {
@@ -689,6 +495,8 @@ static MegaScene prepare(const SceneArgs& a, cudaStream_t stream) {
   S.coef = (const float4*)a.coef;
   S.coef_blocks = (const float4*)a.coef_blocks;
   S.tri_rec = (const float4*)a.tri_rec;
+  S.blocks = a.blocks;
+  S.boxes = (const float4*)a.boxes;
   S.center = a.center;
   S.lights = a.lights;
   S.pick_cdf = a.pick_cdf;
@@ -710,14 +518,19 @@ static MegaScene prepare(const SceneArgs& a, cudaStream_t stream) {
       const uint8_t *blocks, int t_total, const float *center, float *coef,  \
       float *coef_blocks, const float *tri_rec, const float *lights,         \
       const float *pick_cdf, int n_lights, int max_depth, int nee, int le0,  \
-      int cosine, int nee_kind
+      int cosine, int nee_kind, const float *boxes
 #define XRT_SCENE_ARGS                                                       \
   xrt::SceneArgs {                                                           \
     v0, e1, e2, valid, blocks, t_total, center, coef, coef_blocks, tri_rec,  \
-        lights, pick_cdf, n_lights, max_depth, nee, le0, cosine, nee_kind    \
+        lights, pick_cdf, n_lights, max_depth, nee, le0, cosine, nee_kind,   \
+        boxes                                                                \
   }
 
 extern "C" {
+
+// The launchers' interface: 2 = the scene arguments end with the chunk
+// table's boxes.
+int mega_abi(void) { return 2; }
 
 // Each launcher returns cudaGetLastError() after its launches (0 =
 // accepted). ``cam16`` is the host array of path_common.cuh's camera_from.
@@ -756,8 +569,16 @@ int mega_spp_persistent(int s0, int n_spp, const int32_t* pixfold,
   const xrt::MegaScene S = xrt::prepare(XRT_SCENE_ARGS, st);
   const xrt::MegaCamera C = xrt::camera_from(cam16, cam_site);
   const int grid = (n + xrt::MEGA_BLOCK - 1) / xrt::MEGA_BLOCK;
-  xrt::mega_spp_persistent_kernel<<<grid, xrt::MEGA_BLOCK, 0, st>>>(
-      S, C, s0, n_spp, pixfold, px, py, n, out_sum, out_rej);
+  if (boxes != nullptr)
+    xrt::mega_spp_persistent_kernel<xrt::WALK_CULLED>
+        <<<grid, xrt::MEGA_BLOCK, 0, st>>>(S, C, s0, n_spp, pixfold, px, py, n,
+                                           out_sum, out_rej);
+  else if (t_total <= xrt::MEGA_STAGE_ROWS)
+    xrt::mega_spp_persistent_kernel<xrt::WALK_STAGED>
+        <<<grid, xrt::MEGA_BLOCK, xrt::stage_bytes(t_total), st>>>(
+            S, C, s0, n_spp, pixfold, px, py, n, out_sum, out_rej);
+  else  // the caller passes the chunk table's boxes for every larger table
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,8 @@ one device function for a bounce in ``csrc/megakernel.cu``:
 * ``mega_spp_persistent`` replaces ``_mega_spp_persistent_kernel`` with
   ``_make_surface_iteration`` (``persistent=True``, the default and so the
   main path): the same render with the sample loop and the bounce loop
-  merged, so a lane whose path has ended starts its next sample at once.
+  merged, so a lane whose path has ended starts its next sample at once;
+  its sums are ``mega_spp``'s bit for bit.
 * ``mega_grad_path`` replaces ``_mega_grad_kernel`` (through
   ``try_make_fused_grad_path``, the analytic route of
   ``diff.try_make_fast_value_and_grad``): ``mega_path`` plus each lane's
@@ -25,9 +26,16 @@ one device function for a bounce in ``csrc/megakernel.cu``:
 Nothing is compiled per scene: lights go into a device table, the camera
 and the flags are launch arguments (``FusedScene``, ``RenderView``). What
 the Pallas kernels did only for the TPU (feature matmul, packed key,
-one-hot record matmul, 8 x 512 tiles, per-chunk culling) has no counterpart
-here; what bounds the kernels on the card and what the design does about it
-is noted at the top of ``csrc/megakernel.cu``.
+one-hot record matmul, 8 x 512 tiles) has no counterpart here. Their
+per-chunk culling does, in ``mega_spp_persistent`` only: a table of more
+than ``MEGA_STAGE_ROWS`` = 64 rows is walked over the sweeps' chunk table
+(``kernels._chunk_table`` under the ``valid`` mask, built once per table,
+so a render of such a table adds one ``chunk_boxes`` launch), a smaller one
+(the Cornell box's 40 rows) whole from shared memory.
+That kernel walks a lane's path ray and the shadow ray of its previous
+vertex together, one walk per pass; what bounds the kernels on the card
+and what the design does about it is noted at the top of
+``csrc/megakernel.cu`` and ``csrc/mega_path.cuh``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
@@ -75,6 +83,11 @@ MAX_DEPTH = 8
 MAX_LIGHTS_ALL = 8    # "all": one shadow test per light and vertex
 MAX_LIGHTS_PICK = 64  # "one" / "power": one shadow test per vertex
 MAX_GRAD_MATS = 8     # materials the gradient kernel carries (csrc/megakernel.cu)
+# mega_spp_persistent stages a table of at most this many rows (two
+# chunks) whole into shared memory and culls a larger one over its chunk
+# table; csrc/megakernel.cu's MEGA_STAGE_ROWS must equal it, and says where
+# the line was measured
+MEGA_STAGE_ROWS = 64
 LIGHT_STRIDE = 20     # floats per light-table row (csrc/megakernel.cu)
 NEE_KINDS = {"all": 0, "one": 1, "power": 2}
 
@@ -84,7 +97,7 @@ _GOLDEN = 0x9E3779B9
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SCENE_ARGTYPES = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I]
+                   _I, _I, _I, _I, _I, _I, _P]
 _SPP_ARGTYPES = (
     [_I, _I, _P, _P, _P, _I, ctypes.POINTER(ctypes.c_float), ctypes.c_uint]
     + _SCENE_ARGTYPES + [_P, _P, _P]
@@ -211,9 +224,17 @@ class FusedScene:
     def device(self):
         return self.scene.tri_v0.device
 
-    def scene_args(self, tri_rec=None):
+    @property
+    def culls(self):
+        """Whether ``mega_spp_persistent`` walks this table over its chunk
+        table (more than ``MEGA_STAGE_ROWS`` rows) rather than staging it."""
+        return self.scene.tri_v0.shape[0] > MEGA_STAGE_ROWS
+
+    def scene_args(self, tri_rec=None, culled=False):
         """The launchers' scene arguments, in the order of the C interface;
-        ``tri_rec`` in place of the scene's record table."""
+        ``tri_rec`` in place of the scene's record table; ``culled``: with
+        the chunk table's boxes where the table is culled
+        (``mega_spp_persistent`` culls by them)."""
         s = self.scene
         rec = s.tri_rec if tri_rec is None else tri_rec
         t_total = s.tri_v0.shape[0]
@@ -229,8 +250,19 @@ class FusedScene:
             rec.data_ptr(), self.lights.data_ptr(),
             self.pick_cdf.data_ptr(), self.n_lights, self.max_depth,
             int(self.nee), int(self.le0), int(self.cosine),
-            NEE_KINDS[self.nee_mode],
+            NEE_KINDS[self.nee_mode], self.boxes() if culled else None,
         )
+
+    def boxes(self):
+        """Pointer to the boxes of the table's chunk table (the sweeps'
+        ``kernels._chunk_table`` under the ``valid`` mask, built once per
+        table), which ``mega_spp_persistent`` culls by; None for a table it
+        stages (``culls``)."""
+        s = self.scene
+        if not self.culls:
+            return None
+        boxes, _ = sweeps._chunk_table(s.tri_v0, s.tri_e1, s.tri_e2, self.valid)
+        return boxes.data_ptr()
 
     def plain_integrate(self, with_stats=False):
         """The wavefront integrator with the same options over the plain
@@ -444,7 +476,8 @@ def _mega_spp_launch(name, fs, view, s0, n_spp):
         _launch(name, (
             s0, n_spp, view.pixfold_bits.data_ptr(), view.px.data_ptr(),
             view.py.data_ptr(), n, cam, view.cam_site,
-            *fs.scene_args(), out.data_ptr(), rej.data_ptr(),
+            *fs.scene_args(culled=name == "mega_spp_persistent"),
+            out.data_ptr(), rej.data_ptr(),
             sweeps._stream(),
         ))
     LAUNCHES[name] += 1
@@ -462,9 +495,10 @@ def mega_spp(fs, view, s0, n_spp):
 
 def mega_spp_persistent(fs, view, s0, n_spp):
     """``mega_spp`` with the sample loop and the bounce loop merged (a lane
-    starts its next sample as soon as its path ends). Same results up to the
-    compiler's contraction of multiply-adds in two separately compiled
-    loops."""
+    starts its next sample as soon as its path ends), each pass one walk of
+    the lane's path ray and its last light sample's shadow ray. Same sums
+    and rejection counts (``csrc/mega_path.cuh`` says why they are bitwise
+    equal)."""
     if not view.px.is_cuda:
         return mega_spp_persistent_plain(fs, view, s0, n_spp)
     return _mega_spp_launch("mega_spp_persistent", fs, view, s0, n_spp)

@@ -60,10 +60,12 @@ def make_normal_integrator(scene, tri_fn=None):
 
 def _nee_area_lights(
     scene, statics, hit, d_in, throughput, keys, site0, tri_fn,
-    mis=False, cosine_sampling=False, nee_mode="all", pick_dist=None,
+    active, mis=False, cosine_sampling=False, nee_mode="all", pick_dist=None,
     present=None,
 ):
-    """Per-vertex NEE over area lights.
+    """Per-vertex NEE over area lights: the radiance it adds, throughput x
+    the light samples' terms on the lanes in ``active`` (those that reach
+    NEE at this vertex), zero on the others.
 
     ``nee_mode="all"`` (default) sums over ALL lights like the reference
     (Src/integrator.h:93-109 and 250-269: no light selection, no MIS) —
@@ -124,7 +126,9 @@ def _nee_area_lights(
             w = ls.pdf ** 2 / torch.clamp(ls.pdf ** 2 + p_b ** 2, min=1e-20)
             contrib = contrib * torch.where(ok, w, torch.ones_like(w))[:, None]
         direct = direct + contrib
-    return direct
+    return torch.where(
+        active[:, None], throughput * direct, torch.zeros_like(direct)
+    )
 
 
 def make_path_integrator(
@@ -279,15 +283,11 @@ def make_path_integrator(
             # NEE (Src/integrator.h:250-269)
             n_nee = active.sum() if with_stats else None
             if nee and n_lights > 0:
-                direct = _nee_area_lights(
+                radiance = radiance + _nee_area_lights(
                     scene, statics, hit, d, throughput, keys,
-                    site + _SITE_LIGHT0, tri_fn,
+                    site + _SITE_LIGHT0, tri_fn, active,
                     mis=mis, cosine_sampling=cosine_sampling,
                     nee_mode=nee_mode, pick_dist=pick_dist, present=present,
-                )
-                radiance = radiance + torch.where(
-                    active[:, None], throughput * direct,
-                    torch.zeros_like(direct),
                 )
 
             # BSDF bounce (Src/integrator.h:271-283)
