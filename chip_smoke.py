@@ -18,14 +18,15 @@
                                      # __launch_bounds__ caps and times them
     python3 chip_smoke.py --ab-csrc parent=DIR [--ab-only]
                                      # also builds sweep.cu, media.cu,
-                                     # het_megakernel.cu and megakernel.cu
-                                     # from DIR (another copy of csrc/, e.g.
-                                     # the parent commit's; each only where
-                                     # its sources differ from the
-                                     # package's) and holds K1-K5 and
-                                     # K7-K10 of that build against the
+                                     # het_megakernel.cu, megakernel.cu and
+                                     # vol_megakernel.cu from DIR (another
+                                     # copy of csrc/, e.g. the parent
+                                     # commit's; each only where its sources
+                                     # differ from the package's) and holds
+                                     # K1-K10 of that build against the
                                      # package's, bitwise, timing both in
-                                     # turns
+                                     # turns; for the volume kernels also a
+                                     # timeline build and the SASS count
 
 Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
 libraries: the sweeps, the whole-path surface kernels with the
@@ -211,7 +212,7 @@ K1_MESH_SIZE = (40, 38)  # 3,044 triangles in 3,072 rows = 24 tiles of 128
 K1_MESH_ONE_GROUP = (16, 10)
 # 124 triangles in 128 rows, the smallest table above one chunk (those
 # come in steps of 128 rows), culled: one side of the staging line
-# (csrc/megakernel.cu MEGA_STAGE_ROWS); --ab-csrc only
+# (csrc/megakernel.cu MEGA_STAGE_ROWS)
 K1_MESH_SMALL = (10, 6)
 MESH_SPP = 4
 MESH_SIZE = (82, 80)   # the "13k" lat-long sphere mesh
@@ -223,6 +224,7 @@ VOL_CHECK_SPP = 4      # volume whole-path kernel checks at the vpt preset's siz
 # preset's 1024 spp), whose plain version traces this many samples of every
 # pixel as one wavefront (same arithmetic per lane, sums in sample order)
 VOL_PLAIN_BATCH = 32
+ODD_FRAME = (203, 151)  # the work order's check: a width that is not a multiple of 32
 VPT_NEE_SPP = 64       # vpt with next-event estimation, cut from 1024
 VOL_ENTRY_SPP = 4      # vol_path / vol_spp through their entry points
 # the nee and volume presets run their own 1024 and 10240 spp (one chunk
@@ -1363,6 +1365,7 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
     mesh_small, mesh_cam = mesh_scene(device, K1_MESH_SIZE)
     mesh_one, _ = mesh_scene(device, K1_MESH_ONE_GROUP)
+    mesh_128, _ = mesh_scene(device, K1_MESH_SMALL)
     room = many_light_scene(device)
     room_in = many_light_scene(device, face_in=True)
     scenes = [
@@ -1374,6 +1377,8 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
         ("mesh %dx%d, multi-tile table" % K1_MESH_SIZE, mesh_small, mesh_cam,
          dict(max_depth=DEPTH, cosine_sampling=True), (K1_SPP,)),
         ("mesh %dx%d, one group, culled" % K1_MESH_ONE_GROUP, mesh_one, mesh_cam,
+         dict(max_depth=DEPTH, cosine_sampling=True), (K1_SPP,)),
+        ("mesh %dx%d, culled" % K1_MESH_SMALL, mesh_128, mesh_cam,
          dict(max_depth=DEPTH, cosine_sampling=True), (K1_SPP,)),
         ("64 lights, one", room, cornell_camera(),
          dict(max_depth=2, cosine_sampling=True, nee_mode="one"), (K1_SPP,)),
@@ -1911,6 +1916,10 @@ def phase_vol_kernels(device, reps):
             for order in ("raster", "morton")}
         view = render["raster"].view
         n = view.n
+        # the work order, made once per view as the render makes it, and
+        # its own time: what a render's first call pays on top of its launch
+        order = vm.work_order(vc, view)
+        order_ms = median_ms(lambda: vm.work_order(vc, view), reps, flush)
         common = dict(t_total=n_tris, n_lights=int(vc.ic[1]), variant=variant,
                       nee=nee, max_depth=depth, n_iterations=vc.n_iterations)
 
@@ -1932,8 +1941,8 @@ def phase_vol_kernels(device, reps):
             batch = min(n_spp, VOL_PLAIN_BATCH)
             (ref, ref_rej), plain_ms = timed_once(
                 lambda: vm.vol_spp_persistent_plain(vc, view, 0, n_spp, stats, batch))
-            got_c, rej_c = vm.vol_spp_persistent(vc, view, 0, n_spp)
-            got_b, rej_b = vm.vol_spp(vc, view, 0, n_spp)
+            got_c, rej_c = vm.vol_spp_persistent(vc, view, 0, n_spp, order)
+            got_b, rej_b = vm.vol_spp(vc, view, 0, n_spp, order)
             torch.cuda.synchronize()
             bound = vol_bound(n, n_tris, nee, stats, 12, 16)
             for name, got, rej in (("vol_spp_persistent", got_c, rej_c),
@@ -1941,8 +1950,8 @@ def phase_vol_kernels(device, reps):
                 case = compare_radiance(f"{name}, {tag}", got, ref, rej, ref_rej)
                 fn = getattr(vm, name)
                 case.update(case=tag, n_spp=n_spp, plain_ms=plain_ms, plain_batch=batch,
-                            ms=median_ms(lambda: fn(vc, view, 0, n_spp), reps, flush),
-                            **bound, **common)
+                            ms=median_ms(lambda: fn(vc, view, 0, n_spp, order), reps, flush),
+                            work_order_ms=order_ms, **bound, **common)
                 cases[name].append(case)
             ab = torch.abs(got_b - got_c)
             check(bool((ab <= K1_AB_ATOL + K1_AB_RTOL * torch.abs(got_c)).all())
@@ -1962,8 +1971,29 @@ def phase_vol_kernels(device, reps):
                 cases["vol_spp_persistent"][-1].update(morton_bitwise_equal=True)
             del got_c, got_b, ref, ab
 
+    # the work order on a frame whose width is not a multiple of 32: a
+    # permutation of the lanes, longest chord first; both spp kernels
+    # against the plain version there
     tables = presets.build_vpt_scene().build(device)
     st = scene_statics(tables)
+    ow, oh = ODD_FRAME
+    vc = vm._vol_consts(tables, st, depth, True, None, None)
+    view = vm.try_make_fused_volume_spp_render(
+        tables, st, PinholeCamera.make(ow / oh, device=device, **camk), ow, oh, 0, depth,
+        nee=True).view
+    order = vm.work_order(vc, view).to(torch.int64)
+    cost = vm.reach_cost(vc, view)
+    check(bool(torch.equal(torch.sort(order).values,
+                           torch.arange(view.n, device=device)))
+          and bool((cost[order[1:]] <= cost[order[:-1]]).all()),
+          f"the work order of a {ow}x{oh} frame is not a permutation by cost")
+    ref, ref_rej = vm.vol_spp_plain(vc, view, 0, VOL_CHECK_SPP)
+    odd_frame = {}
+    for name in ("vol_spp", "vol_spp_persistent"):
+        got, rej = getattr(vm, name)(vc, view, 0, VOL_CHECK_SPP)
+        torch.cuda.synchronize()
+        odd_frame[name] = compare_radiance(
+            f"{name}, vpt mis nee {ow}x{oh}, {VOL_CHECK_SPP} spp", got, ref, rej, ref_rej)
     rc = vm.try_make_fused_volume_spp_render(tables, st, cam, w, h, 0, depth)
     # a resumed chunk continues the stream: (0, 3) + (3, 1) == (0, 4)
     whole, _ = rc(0, 4)
@@ -1975,7 +2005,7 @@ def phase_vol_kernels(device, reps):
           "depth 65 must route to the wavefront volume integrator")
 
     emit("kernel_checks", kernels="volume whole-path", cases=cases, reps=reps,
-         resumed_chunk_max_abs_diff=resumed_diff,
+         resumed_chunk_max_abs_diff=resumed_diff, odd_frame=odd_frame,
          tolerances=dict(pixel=[K1_RTOL, K1_ATOL], pixel_share=K1_PIXEL_DIFF_SHARE,
                          loose=[K1_LOOSE_RTOL, K1_LOOSE_ATOL],
                          mean=MEAN_BAND_KERNEL_VS_PLAIN,
@@ -2570,7 +2600,8 @@ PTXAS_KERNELS = ("het_path_kernel", "het_spp_kernel", "het_spp_persistent_kernel
                  "het_grad_path_kernel", "track_sample_kernel",
                  "track_transmittance_kernel", "sweep_kernel", "chunk_boxes_kernel",
                  "mega_path_kernel", "mega_spp_kernel", "mega_spp_persistent_kernel",
-                 "mega_grad_path_kernel", "mega_coeffs_kernel")
+                 "mega_grad_path_kernel", "mega_coeffs_kernel", "vol_path_kernel",
+                 "vol_spp_kernel", "vol_spp_persistent_kernel")
 SWEEP_MODES = ("sweep_nearest", "sweep_nearest_rec", "occluded_anyhit")
 MEGA_WALKS = ("staged", "culled")  # csrc/megakernel.cu K1cWalk
 
@@ -2722,6 +2753,7 @@ TRACK_SOURCES = ("media.cu", "het_megakernel.cu", "media.cuh", "het_path.cuh",
                  "path_common.cuh", "tri_test.cuh", "common.cuh")
 MEGA_SOURCES = ("megakernel.cu", "mega_path.cuh", "sweep.cuh", "path_common.cuh",
                 "tri_test.cuh", "common.cuh")
+VOL_SOURCES = ("vol_megakernel.cu", "vol_path.cuh", "path_common.cuh", "common.cuh")
 # the C signatures of a sweep.cu from before the chunk table
 BRUTE_FORCE_ARGTYPES = {
     "sweep_nearest": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -2805,6 +2837,47 @@ class MegaWithoutBoxes:
             raise AttributeError(name)
         fn, box = self._calls[name]
         return lambda *args: fn(*args[:box], *args[box + 1:])
+
+
+def bind_vol(lib):
+    """A volume library of another build, bound through the package's C
+    signatures; a build from before the work order (no ``vol_abi``) takes
+    the spp launchers' arguments without the order."""
+    from xraytracer_tpu_torch.integrators import vol_megakernel as vm
+
+    if hasattr(lib, "vol_abi"):
+        return vm._bind(lib)
+    return VolWithoutOrder(lib)
+
+
+class VolWithoutOrder:
+    """The launchers of a volume library from before the work order, called
+    with the package's argument lists (the order dropped: lane i carries
+    view lane i)."""
+
+    ORDER = 10  # the order's offset in the spp launchers
+
+    def __init__(self, lib):
+        from xraytracer_tpu_torch.integrators import vol_megakernel as vm
+
+        self._calls = {}
+        for name, argtypes in vm._ARGTYPES.items():
+            fn = getattr(lib, name)
+            cut = name != "vol_path"
+            fn.argtypes = (argtypes[:self.ORDER] + argtypes[self.ORDER + 1:]) if cut \
+                else argtypes
+            fn.restype = ctypes.c_int
+            self._calls[name] = (fn, cut)
+        self.lib = lib
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if name not in self._calls:
+            return getattr(self.lib, name)
+        fn, cut = self._calls[name]
+        k = self.ORDER
+        return (lambda *a: fn(*a[:k], *a[k + 1:])) if cut else fn
 
 
 def mega_ab_cases(device, ab_, cornell, builds, reps):
@@ -2892,6 +2965,267 @@ def mega_ab_cases(device, ab_, cornell, builds, reps):
            turns=turns, reps_=4 * reps)
 
 
+def sub_view(view, lanes):
+    """The RenderView of a subset of ``view``'s lanes (an index tensor), in
+    that order: the same pixels, so the same streams and sums."""
+    from xraytracer_tpu_torch.integrators.megakernel import RenderView
+
+    return RenderView(n=int(lanes.shape[0]), cam=view.cam, cam_site=view.cam_site,
+                      pixfold=view.pixfold[lanes],
+                      pixfold_bits=view.pixfold_bits[lanes].contiguous(),
+                      px=view.px[lanes].contiguous(), py=view.py[lanes].contiguous())
+
+
+def vol_ab_cases(device, ab_, builds, reps):
+    """The whole-path volume kernels' cases of ``phase_csrc_ab`` on every
+    volume build (``builds``): K6a on the camera rays of sample 0 (vpt with
+    and without NEE), K6b and K6c at the vpt preset's own launch (512x512,
+    depth 10, 1024 spp), at VPT_NEE_SPP with NEE, at VOL_CHECK_SPP on every
+    medium variant with and without NEE and on a box of g = 0.6, K6c at the
+    main launch on the lanes whose pixels may reach the box alone and on
+    the others alone (``vol_megakernel.reach_cost`` > 0), in two other
+    orders, and on morton lanes. Returns what the timeline and the
+    instruction count need: the main launch's scene, view and work
+    order."""
+    import torch
+
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.integrators import vol_megakernel as vm
+    from xraytracer_tpu_torch.scene import presets
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cfg = get_preset("vpt")
+    w, h, depth = cfg.width, cfg.height, cfg.max_depth
+    cam = PinholeCamera.make(w / h, device=device, **presets.preset_vpt(device=device)[1])
+    turns = MEGA_AB_TURNS
+    main = None
+
+    def ab(*args, **kw):
+        ab_(*args, builds=builds, **kw)
+
+    for variant, g, nee in (("mis", 0.0, False), ("mis", 0.0, True),
+                            ("achromatic", 0.0, False), ("achromatic", 0.0, True),
+                            ("nomis", 0.0, False), ("nomis", 0.0, True),
+                            ("mis", 0.6, False), ("mis", 0.6, True)):
+        label = f"vpt {variant}" + (f" g={g}" if g else "") + (" nee" if nee else "")
+        tables = presets.build_vpt_scene(variant, g).build(device)
+        st = scene_statics(tables)
+        vc = vm._vol_consts(tables, st, depth, nee, None, None)
+        check(vc is not None, f"csrc_ab {label}: not eligible for the fused volume route")
+        view = vm.try_make_fused_volume_spp_render(tables, st, cam, w, h, 0, depth,
+                                                   nee=nee).view
+        order = vm.work_order(vc, view)
+        if variant == "mis" and not g:
+            keys, o, d = mk._camera_rays_plain(view, 0)
+            ab("vol_path", f"{label}, camera rays", lambda: vm.vol_path(vc, o, d, keys),
+               turns=turns, reps_=4 * reps)
+        spps = [VOL_CHECK_SPP]
+        if variant == "mis" and not g:
+            spps.append(VPT_NEE_SPP if nee else cfg.spp)
+        for n_spp in spps:
+            for name in ("vol_spp", "vol_spp_persistent"):
+                fn = getattr(vm, name)
+                big = n_spp == cfg.spp
+                case = f"{label}, {n_spp} spp" + (" (main path's launch)" if big else "")
+                ab(name, case, lambda fn=fn, n_spp=n_spp, order=order: fn(
+                    vc, view, 0, n_spp, order), turns=turns, reps_=3 if big else 4 * reps)
+        if variant == "mis" and not g and not nee:
+            main = (vc, view, order)
+    vc, view, main_order = main
+    reach = vm.reach_cost(vc, view) > 0.0
+    long_, short = torch.nonzero(reach).flatten(), torch.nonzero(~reach).flatten()
+    for cls, lanes in (("long", long_), ("short", short)):
+        sv = sub_view(view, lanes)
+        ab("vol_spp_persistent",
+           f"vpt mis, {cfg.spp} spp, the {lanes.shape[0]} {cls} lanes alone",
+           lambda sv=sv, order=vm.work_order(vc, sv): vm.vol_spp_persistent(
+               vc, sv, 0, cfg.spp, order), turns=turns, reps_=3)
+    for oname, order in (
+            ("lane order", torch.arange(view.n, dtype=torch.int32, device=device)),
+            ("long lanes first, each class in lane order",
+             torch.cat([long_, short]).to(torch.int32))):
+        for name in ("vol_spp", "vol_spp_persistent"):
+            ab(name, f"vpt mis, {cfg.spp} spp, {oname}",
+               lambda name=name, order=order: vm._vol_spp_launch(
+                   name, vc, view, 0, cfg.spp, order),
+               turns=turns, reps_=3)
+    tables = presets.build_vpt_scene().build(device)
+    morton = vm.try_make_fused_volume_spp_render(tables, scene_statics(tables), cam, w, h,
+                                                 0, depth, pixel_order="morton").view
+    order = vm.work_order(vc, morton)
+    ab("vol_spp_persistent", f"vpt mis, {cfg.spp} spp, morton lane order",
+       lambda: vm.vol_spp_persistent(vc, morton, 0, cfg.spp, order), turns=turns, reps_=3)
+    return vc, view, main_order
+
+
+# a build that stamps every warp's start and end (csrc/vol_megakernel.cu)
+VOL_TIMELINE_FLAGS = ["-DVOL_TIMELINE"]
+
+
+def vol_timeline(lib, which, run, n_lanes):
+    """Run ``run`` once on the timeline build ``lib`` and read each warp's
+    start, end (%globaltimer, ns) and SM: over the launch, the mean share of
+    the card's warp slots (resident blocks per SM x 4 x SMs) that hold a
+    working warp, the share of the launch during which fewer than half do,
+    the share after the last warp started, and inside blocks that hold a
+    long warp (one that runs more than half the longest) the share of their
+    warp slots' time spent finished while a sibling still works."""
+    import numpy as np
+    import torch
+
+    n_warps = -(-n_lanes // 32)
+    fn = lib.vol_timeline
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    occ = lib.vol_occupancy
+    occ.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
+    run()
+    torch.cuda.synchronize()
+    t = np.zeros(2 * n_warps, np.uint64)
+    sm = np.zeros(n_warps, np.uint32)
+    check(fn(t.ctypes.data, sm.ctypes.data, n_warps) == 0, "vol_timeline failed")
+    blocks = ctypes.c_int()
+    check(occ(which, ctypes.byref(blocks)) == 0, "vol_occupancy failed")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cap = blocks.value * 4 * n_sm
+    s, e = t[0::2].astype(np.int64), t[1::2].astype(np.int64)
+    t0, t1 = int(s.min()), int(e.max())
+    grid = np.linspace(t0, t1, 4001)[:-1] + (t1 - t0) / 8000.0
+    starts, ends = np.sort(s), np.sort(e)
+    active = np.searchsorted(starts, grid, "right") - np.searchsorted(ends, grid, "right")
+    dur = e - s
+    nb = n_warps // 4
+    bs, be = s[:4 * nb].reshape(nb, 4), e[:4 * nb].reshape(nb, 4)
+    bdur = be - bs
+    long_b = bdur.max(axis=1) > dur.max() / 2
+    span = be.max(axis=1, keepdims=True) - bs.min(axis=1, keepdims=True)
+    idle = (be.max(axis=1, keepdims=True) - be)[long_b].sum()
+    after_last = float((t1 - s.max()) / (t1 - t0))
+    return dict(
+        launch_ms=(t1 - t0) / 1e6, warps=n_warps, blocks_per_sm=blocks.value,
+        sms=n_sm, warp_slots=cap, sms_used=int(len(np.unique(sm))),
+        slot_use_mean=float(active.mean() / cap),
+        share_below_half=float((active < cap / 2).mean()),
+        share_after_last_start=after_last,
+        slot_use_after_last_start=float(active[grid > s.max()].mean() / cap)
+        if (grid > s.max()).any() else None,
+        long_blocks=int(long_b.sum()),
+        long_block_idle_share=float(idle / (4 * span[long_b]).sum()) if long_b.any() else 0.0,
+        warp_ms_percentiles={str(q): float(np.percentile(dur, q) / 1e6)
+                             for q in (5, 25, 50, 75, 95, 100)})
+
+
+def vol_sass_regions(src):
+    """Compile ``src`` (vol_megakernel.cu) with line information into a
+    cubin and count each kernel's SASS instructions by region of
+    ``vol_path.cuh`` (the "// sass: NAME" markers; an instruction counts in
+    the region of the innermost vol_path.cuh line of its inlining chain, an
+    intersection also by the region that called it). Static counts: an
+    inlined copy counts each time it appears."""
+    from xraytracer_tpu_torch import _build
+
+    out = os.path.join(_build.BUILD_DIR, "vol_megakernel_lineinfo.cubin")
+    nvcc = _build.find_nvcc()
+    flags_c = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([nvcc, *flags_c, "-cubin", "-lineinfo", "-o", out, src],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"cubin build failed:\n{proc.stderr}")
+    nvdisasm = os.path.join(os.path.dirname(nvcc), "nvdisasm")
+    proc = subprocess.run([nvdisasm, "-gi", out], capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvdisasm failed:\n{proc.stderr}")
+    with open(out + ".sass", "w") as f:
+        f.write(proc.stdout)
+    return sass_region_counts(proc.stdout, os.path.join(os.path.dirname(src), "vol_path.cuh"))
+
+
+def vol_slot_bound(regions, stats, scale, nee, n_tris):
+    """An instruction-slot figure for the iterations of a whole-path volume
+    launch: each region of ``vol_bounce`` (``sass_region_counts``; the
+    sample loops and the kernel's own code are left out) at its static
+    instruction count times the times a lane runs it (the plain version's
+    counters on the same lanes, ``stats``, at ``scale`` times fewer
+    samples), over 32 lanes a warp instruction, at four warp instructions
+    per SM and clock at the card's top SM clock. The triangle loop's region
+    (its head and its body) runs ``n_tris`` times an intersection; it must
+    be a rolled loop, as the package builds it. Every other region counts
+    whole each time (untaken sub-branches, the accurate transcendentals'
+    slow paths), and warps are taken as converged."""
+    import torch
+
+    rays = int(stats["rays"].sum()) * scale
+    medium = int(stats["active_out"].sum()) * scale
+    scattered = int(stats["scattered"].sum()) * scale
+    shadow = scattered if nee else 0
+    visits = {"bounce": rays, "intersect from bounce": rays,
+              "triangle loop from bounce": rays * n_tris, "roulette and emitter": rays,
+              "medium sample": medium, "escape weight": medium - scattered,
+              "scatter weight": scattered, "advance": medium,
+              "next-event estimation": shadow, "intersect from next-event estimation": shadow,
+              "triangle loop from next-event estimation": shadow * n_tris}
+    warp_instr = {r: regions.get(r, 0) * v / 32.0 for r, v in visits.items()}
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    total = sum(warp_instr.values())
+    return dict(iterations=rays, medium_samples=medium, scattered=scattered,
+                warp_instructions=total, sm_clock_mhz=mhz, sms=n_sm,
+                slot_bound_ms=total / (4 * n_sm * mhz * 1e6) * 1e3,
+                share_by_region={r: v / total for r, v in warp_instr.items()})
+
+
+# the regions of vol_path.cuh's intersect, each counted also by its caller
+INTERSECT_REGIONS = ("intersect", "triangle loop")
+
+
+def sass_region_counts(text, marked):
+    """Instructions per kernel and region of ``nvdisasm -gi`` output
+    ``text``: each instruction counts in the region (a "// sass: NAME"
+    marker of the source ``marked``) of the innermost line of ``marked`` in
+    its inlining chain (the "//##" lines above it, innermost first); an
+    intersection's regions (INTERSECT_REGIONS) count also by the region
+    that called it."""
+    import re
+
+    marks = {}
+    with open(marked) as f:
+        region = "head"
+        for k, ln in enumerate(f, start=1):
+            m = re.match(r"\s*// sass: (.+)", ln)
+            if m:
+                region = m.group(1).strip()
+            marks[k] = region
+    name = os.path.basename(marked)
+    counts, kernel, chain, fresh = {}, None, [], True
+    for ln in text.splitlines():
+        m = re.match(r"\s*\.text\.(\w+):", ln)
+        if m:
+            kernel = next((k for k in ("vol_path_kernel", "vol_spp_persistent_kernel",
+                                       "vol_spp_kernel") if k in m.group(1)), m.group(1))
+            counts.setdefault(kernel, {})
+            chain, fresh = [], True
+            continue
+        if "//##" in ln:
+            if fresh:
+                chain, fresh = [], False
+            chain += re.findall(r'"([^"]+)",\s*line (\d+)', ln)
+            continue
+        if kernel is None or not re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", ln):
+            continue
+        fresh = True
+        frames = [marks.get(int(n)) for f_, n in chain if f_.endswith(name)]
+        frames = [r for r in frames if r]
+        region = frames[0] if frames else "outside " + name
+        if region in INTERSECT_REGIONS:
+            region += " from " + next((r for r in frames[1:] if r not in INTERSECT_REGIONS),
+                                      "kernel")
+        counts[kernel][region] = counts[kernel].get(region, 0) + 1
+    return {k: dict(total=sum(v.values()), **v) for k, v in counts.items() if v}
+
+
 def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     """Other builds of the sources (``others``: {name: a directory holding
     another copy of csrc/, e.g. the parent commit's}) against the package's
@@ -2927,8 +3261,16 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     K1c at the main path's own launch (Cornell uniform, MAIN_SPP samples,
     one chunk), and K5 on the three cases of its default phase; sums,
     rejection counts and K5's planes compared bitwise, each case timed in
-    MEGA_AB_TURNS turns. Each section runs only where some build differs
-    from the package there."""
+    MEGA_AB_TURNS turns.
+
+    The whole-path volume kernels (K6a-c), from every build whose sources
+    of them differ (``vol_ab_cases``): sums and rejection counts
+    bitwise, MEGA_AB_TURNS turns; then the package's timeline build
+    (VOL_TIMELINE) on K6c and K6b at the vpt launch (``vol_timeline``), the
+    package's SASS by region of ``vol_path.cuh`` (``vol_sass_regions``) and
+    the instruction-slot figure of K6c's iterations (``vol_slot_bound``).
+    Each section runs only where some build differs from the package
+    there."""
     import torch
 
     from xraytracer_tpu_torch import _build, cli
@@ -2939,6 +3281,7 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     from xraytracer_tpu_torch.integrators import het_megakernel as hk
     from xraytracer_tpu_torch.integrators import make_path_integrator, make_volume_integrator
     from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.integrators import vol_megakernel as vm
     from xraytracer_tpu_torch.renderer import WavefrontRenderer
     from xraytracer_tpu_torch.scene.builder import scene_statics
     from xraytracer_tpu_torch.tools import fit_volume
@@ -2950,13 +3293,27 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     names = ["package"] + [n for n, d in others.items() if sources_differ(d, TRACK_SOURCES)]
     mega_names = ["package"] + [n for n, d in others.items()
                                 if sources_differ(d, MEGA_SOURCES)]
+    vol_src = os.path.join(_build.CSRC_DIR, "vol_megakernel.cu")
+    # the volume builds: those whose sources differ, and the package's
+    # timeline build
+    vol_flags = {}
+    vol_names = ["package"] + [n for n, d in others.items()
+                               if sources_differ(d, VOL_SOURCES)]
+    if len(vol_names) > 1:
+        vol_flags["timeline"] = VOL_TIMELINE_FLAGS
+        vol_names.append("timeline")
+        dirs["timeline"] = _build.CSRC_DIR
     built = build_sources(
         [(f"ab_{name}_sweep", os.path.join(dirs[name], "sweep.cu"), [])
          for name in sweep_names]
         + [(f"ab_{name}_{lib}", os.path.join(dirs[name], f"{lib}.cu"), [])
            for name in names for lib in ("media", "het_megakernel")]
         + [(f"ab_{name}_megakernel", os.path.join(dirs[name], "megakernel.cu"), [])
-           for name in mega_names])
+           for name in mega_names]
+        + [(f"ab_{name}_vol_megakernel", os.path.join(dirs[name], "vol_megakernel.cu"),
+            vol_flags.get(name, [])) for name in vol_names])
+    vol_libs = {name: bind_vol(ctypes.CDLL(built[f"ab_{name}_vol_megakernel"][0]))
+                for name in vol_names}
     mega_libs = {name: bind_mega(ctypes.CDLL(built[f"ab_{name}_megakernel"][0]))
                  for name in mega_names}
     package_sweep = kernels._bind(ctypes.CDLL(built["ab_package_sweep"][0]))
@@ -2974,7 +3331,7 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     ptxas = {name: {} for name in dirs}
     for tag, (_, table) in built.items():
         ptxas[next(n for n in dirs if tag.startswith(f"ab_{n}_"))].update(table)
-    package_libs = mkk._lib, hk._lib, kernels._lib, mk._lib
+    package_libs = mkk._lib, hk._lib, kernels._lib, mk._lib, vm._lib
     rows = []
 
     def use(name):
@@ -2984,6 +3341,8 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
             hk._lib = lambda lib=libs[name][1]: lib
         if name in mega_libs:
             mk._lib = lambda lib=mega_libs[name]: lib
+        if name in vol_libs:
+            vm._lib = lambda lib=vol_libs[name]: lib
 
     def pack(grid):
         mkk._lib = package_libs[0]
@@ -3043,6 +3402,24 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
                                   device=device)
         if len(mega_names) > 1:
             mega_ab_cases(device, ab, cornell, mega_names, reps)
+        if len(vol_names) > 1:
+            vc, view, order = vol_ab_cases(device, ab, vol_names, reps)
+            cfg = get_preset("vpt")
+            for which, name in ((2, "vol_spp_persistent"), (1, "vol_spp")):
+                use("timeline")
+                fn = getattr(vm, name)
+                emit("vol_timeline", kernel=name, case=f"vpt mis, {cfg.spp} spp",
+                     **vol_timeline(vol_libs["timeline"], which,
+                                    lambda: fn(vc, view, 0, cfg.spp, order), view.n))
+            use("package")
+            regions = vol_sass_regions(vol_src)
+            emit("vol_sass", source="package", regions=regions)
+            stats = {}
+            vm.vol_spp_plain(vc, view, 0, VOL_CHECK_SPP, stats, VOL_CHECK_SPP)
+            emit("vol_slot_bound", kernel="vol_spp_persistent", case=f"vpt mis, {cfg.spp} spp",
+                 **vol_slot_bound(regions["vol_spp_persistent_kernel"], stats,
+                                   cfg.spp / VOL_CHECK_SPP, nee=False,
+                                   n_tris=int(vc.ic[0])))
         # the sweeps, on rays captured from one sample of the wavefront route
         for label, (tables, camk), cosine, which in (() if len(sweep_names) == 1 else (
                 ("cornell", cornell, False, ("camera", "shadow")),
@@ -3228,9 +3605,10 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
                 ab("track_transmittance", f"nee iteration {it} NEE segments",
                    lambda args=args: mkk.track_transmittance(*args))
     finally:
-        mkk._lib, hk._lib, kernels._lib, mk._lib = package_libs
+        mkk._lib, hk._lib, kernels._lib, mk._lib, vm._lib = package_libs
     emit("csrc_ab", builds=dirs, sweep_builds=sweep_names, tracking_builds=names,
-         mega_builds=mega_names, ptxas=ptxas, reps=reps, cases=len(rows))
+         mega_builds=mega_names, vol_builds=vol_names, ptxas=ptxas, reps=reps,
+         cases=len(rows))
 
 
 def phase_het_entry_points(device, nee_scene, main_image_mean):
@@ -4582,11 +4960,11 @@ def main():
                     help="also build the heterogeneous whole-path kernels under "
                          "other __launch_bounds__ caps and time them")
     ap.add_argument("--ab-csrc", action="append", default=[], metavar="NAME=DIR",
-                    help="also build sweep.cu, media.cu, het_megakernel.cu and "
-                         "megakernel.cu from DIR (another copy of "
-                         "xraytracer_tpu_torch/csrc, e.g. the parent commit's; each where "
-                         "its sources differ from the package's) and hold K1-K5 and "
-                         "K7-K10 of that build against the package's own, bitwise, "
+                    help="also build sweep.cu, media.cu, het_megakernel.cu, "
+                         "megakernel.cu and vol_megakernel.cu from DIR (another copy "
+                         "of xraytracer_tpu_torch/csrc, e.g. the parent commit's; each "
+                         "where its sources differ from the package's) and hold "
+                         "K1-K10 of that build against the package's own, bitwise, "
                          "timing both in turns; repeatable")
     ap.add_argument("--ab-only", action="store_true",
                     help="with --ab-csrc: run that comparison alone and stop "

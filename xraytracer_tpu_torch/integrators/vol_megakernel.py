@@ -22,7 +22,12 @@ one homogeneous medium box, no spheres, at most 4 flat area lights, depth
 1..64) is small enough to travel by value with every launch (``VolConsts``),
 so nothing is compiled per scene and no table lies in device memory. What
 bounds the kernels on the card and what the design does about it is noted
-at the top of ``csrc/vol_megakernel.cu``.
+at the top of ``csrc/vol_megakernel.cu``; the lane code is
+``csrc/vol_path.cuh``. The two spp kernels take the lanes of a view in a
+work order (``work_order``: the pixels with the longest chord through the
+medium first, made by the render on its first call) and write each
+lane's sum to its own slot, so their outputs stay in the view's lane order
+and do not depend on the order.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
@@ -63,18 +68,20 @@ PLAIN_CALLS = {name: 0 for name in KERNEL_NAMES}
 MAX_TRIANGLES = 8
 MAX_LIGHTS = 4
 MAX_DEPTH = 64
-_TRI_STRIDE, _LIGHT_STRIDE = 14, 16   # floats per row, csrc/vol_megakernel.cu
+_TRI_STRIDE, _LIGHT_STRIDE = 14, 16   # floats per row, csrc/vol_path.cuh
+_K_EPS = 1.1920928955078125e-07       # constants.K_EPS
 
 _MASK = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FC = ctypes.POINTER(ctypes.c_float)
 _IC = ctypes.POINTER(ctypes.c_int)
-_SPP_ARGTYPES = [_I, _I, _P, _P, _P, _I, _FC, ctypes.c_uint, _FC, _IC, _P, _P, _P]
+_SPP_ARGTYPES = [_I, _I, _P, _P, _P, _I, _FC, ctypes.c_uint, _FC, _IC, _P, _P, _P, _P]
 _ARGTYPES = {
     # o, d, keys, n, scene (fc, ic), out, stream
     "vol_path": [_P, _P, _P, _I, _FC, _IC, _P, _P],
-    # s0, n_spp, pixfold, px, py, n, cam16, cam_site, scene, sum, rej, stream
+    # s0, n_spp, pixfold, px, py, n, cam16, cam_site, scene, work order,
+    # sum, rej, stream
     "vol_spp": _SPP_ARGTYPES,
     "vol_spp_persistent": _SPP_ARGTYPES,
 }
@@ -343,7 +350,22 @@ def vol_spp_persistent_plain(vc, view, s0, n_spp, stats=None, batch=1):
     return _spp_plain(vc, view, s0, n_spp, stats, batch)
 
 
-def _vol_spp_launch(name, vc, view, s0, n_spp):
+def work_order(vc, view):
+    """(N,) int32, the order in which the spp kernels take the lanes of
+    ``view``: by ``reach_cost``, longest chord through the medium first (the
+    longest work in the first waves of blocks, the short pixels filling the
+    last), the pixels that cannot reach the medium last, ties in lane order. A
+    permutation, so every lane is taken once; each lane's sum is still
+    written to its own slot, so results come back in the view's lane order.
+    A caller that renders one view more than once makes it once and passes
+    it to ``vol_spp`` / ``vol_spp_persistent``."""
+    cost = reach_cost(vc, view)
+    return torch.sort(cost, descending=True, stable=True).indices.to(torch.int32)
+
+
+def _vol_spp_launch(name, vc, view, s0, n_spp, order=None):
+    """Launch ``name`` on the lanes of ``view`` taken in ``order`` (int32, a
+    permutation of the lanes; default ``work_order``)."""
     dev = view.px.device
     n = view.n
     sweeps._check("pixfold", view.pixfold_bits, torch.int32, (n,), dev)
@@ -353,36 +375,79 @@ def _vol_spp_launch(name, vc, view, s0, n_spp):
     if s0 < 0 or n_spp < 0 or s0 + n_spp >= 2 ** 31:
         raise ValueError(f"sample range [{s0}, {s0 + n_spp}) out of int32")
     cam = (ctypes.c_float * 16)(*[float(c) for c in view.cam])
+    if order is None:
+        order = work_order(vc, view)
+    sweeps._check("order", order, torch.int32, (n,), dev)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rej = torch.empty((n,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch(name, (
             s0, n_spp, view.pixfold_bits.data_ptr(), view.px.data_ptr(),
             view.py.data_ptr(), n, cam, view.cam_site, vc.fc, vc.ic,
-            out.data_ptr(), rej.data_ptr(), sweeps._stream(),
+            order.data_ptr(), out.data_ptr(), rej.data_ptr(), sweeps._stream(),
         ))
     LAUNCHES[name] += 1
     return out, rej
 
 
-def vol_spp(vc, view, s0, n_spp):
+def vol_spp(vc, view, s0, n_spp, order=None):
     """Samples ``s0 .. s0 + n_spp - 1`` of every pixel lane of ``view``
-    (``megakernel.RenderView``), one sample after the other per lane.
-    Returns the radiance sums (N, 3) f32 and the rejected-sample counts
-    (N,) int32."""
+    (``megakernel.RenderView``), one sample after the other per lane, the
+    lanes taken in ``order`` (default: ``work_order``, made anew). Returns
+    the radiance sums (N, 3) f32 and the rejected-sample counts (N,) int32,
+    in the view's lane order."""
     if not view.px.is_cuda:
         return vol_spp_plain(vc, view, s0, n_spp)
-    return _vol_spp_launch("vol_spp", vc, view, s0, n_spp)
+    return _vol_spp_launch("vol_spp", vc, view, s0, n_spp, order)
 
 
-def vol_spp_persistent(vc, view, s0, n_spp):
+def vol_spp_persistent(vc, view, s0, n_spp, order=None):
     """``vol_spp`` with the sample loop and the iteration loop merged (a
     lane starts its next sample as soon as its path ends). Same results up
     to the compiler's contraction of multiply-adds in two separately
     compiled loops."""
     if not view.px.is_cuda:
         return vol_spp_persistent_plain(vc, view, s0, n_spp)
-    return _vol_spp_launch("vol_spp_persistent", vc, view, s0, n_spp)
+    return _vol_spp_launch("vol_spp_persistent", vc, view, s0, n_spp, order)
+
+
+def reach_cost(vc, view):
+    """(N,) f32 per lane of ``view``: the longest chord through the medium
+    box of the pixel's four corner camera rays, counted only where a ray
+    enters the box before it meets a triangle (a triangle ends a path at
+    once: an emitter, or a surface without medium); 0 for a pixel none of
+    whose corner rays reaches the medium. A pixel's paths are long where its
+    chord is, and only the work order depends on it."""
+    dev = view.px.device
+    fc = np.frombuffer(vc.fc, dtype=np.float32)
+    tri = fc[:MAX_TRIANGLES * _TRI_STRIDE].reshape(MAX_TRIANGLES, -1)[:int(vc.ic[0])]
+    box = fc[MAX_TRIANGLES * _TRI_STRIDE:]
+    lo, hi = (torch.as_tensor(box[k:k + 3], device=dev) for k in (0, 3))
+    m = torch.as_tensor(view.cam[:9].reshape(3, 3), device=dev)
+    scale, soa, inv_w, inv_h = (float(c) for c in view.cam[12:16])
+    origin = torch.as_tensor(view.cam[9:12].copy(), device=dev)
+    # the four corners of every pixel at once: (4, N)
+    cx = torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)[:, None]
+    cy = torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev)[:, None]
+    nx = (2.0 * (view.px + cx) * inv_w - 1.0) * scale
+    ny = (1.0 - 2.0 * (view.py + cy) * inv_h) * soa
+    d = nx[..., None] * m[0] + ny[..., None] * m[1] - m[2]
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    inv = 1.0 / torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)
+    ta, tb = (lo - origin) * inv, (hi - origin) * inv
+    b0 = torch.minimum(ta, tb).amax(dim=-1).clamp_min(0.0)
+    b1 = torch.maximum(ta, tb).amin(dim=-1)
+    reach = (b0 <= b1) & (b1 > 0.0)
+    for row in tri:  # a triangle at or before the box entry ends the path there
+        v0, e1, e2 = (torch.as_tensor(row[k:k + 3], device=dev) for k in (0, 3, 6))
+        pv = torch.linalg.cross(d, e2.expand_as(d))
+        det = pv @ e1
+        tv = origin - v0
+        qv = torch.linalg.cross(tv, e1)
+        u, v, t = (pv @ tv) / det, (d @ qv) / det, (e2 @ qv) / det
+        hit = (det.abs() >= _K_EPS) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > _K_EPS)
+        reach &= ~(hit & (t <= b0))
+    return torch.where(reach, b1 - b0, torch.zeros_like(b0)).amax(dim=0)
 
 
 # --------------------------------------------------------------------------
@@ -430,7 +495,14 @@ def try_make_fused_volume_spp_render(
     if vc is None:
         return None
     kernel = vol_spp_persistent if persistent else vol_spp
+    order = None  # the view's work order, made on the first render
+
+    def launch(view, s0, n_spp):
+        nonlocal order
+        if order is None and view.px.is_cuda:
+            order = work_order(vc, view)
+        return kernel(vc, view, s0, n_spp, order)
+
     return mk.make_spp_render(
-        lambda view, s0, n_spp: kernel(vc, view, s0, n_spp),
-        camera, width, height, seed, pixel_order=pixel_order,
+        launch, camera, width, height, seed, pixel_order=pixel_order,
     )
