@@ -120,11 +120,12 @@ run's data:
   mask once and writes its boxes and coefficient rows once;
 * a whole-path surface kernel needs T pair tests for every camera, bounce
   and shadow ray of its paths, counted by the plain version's per-bounce
-  counters on the same inputs. Where the merged loop culls (a table it
-  does not stage: ``FusedScene.culls``), it needs per ray the culled walk's
-  pair and slab tests in the ray's own visit order (``mega_culled_bound``:
-  ``culled_tests_needed`` on the rays the plain version traced); the
-  brute-force count is printed beside it as ``brute_bound_ms``;
+  counters on the same inputs. Where the merged loop, K1a or K5 culls (a
+  table they do not stage: ``FusedScene.culls``), it needs per ray the
+  culled walk's pair and slab tests in the ray's own visit order
+  (``mega_culled_bound``: ``culled_tests_needed`` on the rays the plain
+  version traced); the brute-force count is printed beside it as
+  ``brute_bound_ms``;
 * a whole-path volume kernel needs, per iteration, for every lane that
   enters it (counter ``rays``) the classic triangle tests (45 flop each: two
   cross products, four dot products, a division, the compares) and the box
@@ -165,7 +166,7 @@ run's data:
   the launch reads per lane and writes per pixel, the density grid once and
   the supergrid once;
 * the analytic-gradient kernel needs the whole-path surface kernel's pair
-  tests and, for its M materials, the Jacobian updates of the events its
+  tests (on a culled table, the culled walk's) and, for its M materials, the Jacobian updates of the events its
   paths take, counted by the plain version's per-bounce counters on the
   same inputs: per entry of the 9M albedo Jacobian 3 flop at every
   roulette a path survives (the sum over channels, the product with the
@@ -1407,21 +1408,28 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
         common = dict(t_total=t_total, n_lights=n_lights, **{
             k: v for k, v in opts.items()})
 
-        # K1a on the camera rays of sample 0
+        # K1a on the camera rays of sample 0; it culls a table it does not
+        # stage, as the merged loop does
+        culled = fs.culls
         keys, o, d = mk._camera_rays_plain(view, 0)
         stats = {}
-        ref, plain_ms = timed_once(
-            lambda: mk.mega_path_plain(fs, o, d, keys, stats))
+        with MegaRayLog(opts["max_depth"], on=culled) as log:
+            ref, plain_ms = timed_once(
+                lambda: mk.mega_path_plain(fs, o, d, keys, stats))
         got = mk.mega_path(fs, o, d, keys)
         torch.cuda.synchronize()
+        bound = mega_bound(n, t_total, n_lights, stats, 28, 12)
+        if culled:
+            bound = dict(bound, **mega_culled_bound(fs, log.paths, 28, 12, n),
+                         brute_bound_ms=bound["bound_ms"])
+        del log
         case = compare_radiance(f"mega_path, {label}", got, ref)
         case.update(case=label, n_spp=1, plain_ms=plain_ms,
                     ms=median_ms(lambda: mk.mega_path(fs, o, d, keys), reps, flush),
-                    **mega_bound(n, t_total, n_lights, stats, 28, 12), **common)
+                    **bound, **common)
         cases["mega_path"].append(case)
         del got, ref
 
-        culled = fs.culls
         for n_spp in spp_list:
             tag = f"{label}, {n_spp} spp"
             stats = {}
@@ -2619,10 +2627,14 @@ def ptxas_table(text):
                         if f"{len(k)}{k}" in m.group(1)), None)
             if cur == "sweep":  # sweep_kernel<MODE>
                 cur = SWEEP_MODES[int(re.search(r"ILi(\d)E", m.group(1)).group(1))]
-            elif cur == "mega_spp_persistent":  # mega_spp_persistent_kernel<WALK>
+            elif cur in ("mega_spp_persistent", "mega_path"):  # <WALK>
                 walk = re.search(r"ILi(\d)E", m.group(1))
                 if walk:
                     cur += "<" + MEGA_WALKS[int(walk.group(1))] + ">"
+            elif cur == "mega_grad_path":  # mega_grad_path_kernel<MB, WALK>
+                mb = re.search(r"ILi(\d)ELi(\d)E", m.group(1))
+                if mb:
+                    cur += f"<{mb.group(1)},{MEGA_WALKS[int(mb.group(2))]}>"
             continue
         if cur is None:
             continue
@@ -2751,8 +2763,8 @@ def bind_launchers(module, lib, names):
 SWEEP_SOURCES = ("sweep.cu", "sweep.cuh", "tri_test.cuh", "common.cuh")
 TRACK_SOURCES = ("media.cu", "het_megakernel.cu", "media.cuh", "het_path.cuh",
                  "path_common.cuh", "tri_test.cuh", "common.cuh")
-MEGA_SOURCES = ("megakernel.cu", "mega_path.cuh", "sweep.cuh", "path_common.cuh",
-                "tri_test.cuh", "common.cuh")
+MEGA_SOURCES = ("megakernel.cu", "mega_path.cuh", "mega_grad.cuh", "sweep.cuh",
+                "path_common.cuh", "tri_test.cuh", "common.cuh")
 VOL_SOURCES = ("vol_megakernel.cu", "vol_path.cuh", "path_common.cuh", "common.cuh")
 # the C signatures of a sweep.cu from before the chunk table
 BRUTE_FORCE_ARGTYPES = {
@@ -2883,8 +2895,6 @@ class VolWithoutOrder:
 def mega_ab_cases(device, ab_, cornell, builds, reps):
     """The whole-path surface kernels' cases of ``phase_csrc_ab``, run
     through its ``ab`` on every megakernel build (``builds``)."""
-    import torch
-
     from xraytracer_tpu_torch.camera import PinholeCamera
     from xraytracer_tpu_torch.config import get_preset
     from xraytracer_tpu_torch.integrators import megakernel as mk
@@ -2938,18 +2948,8 @@ def mega_ab_cases(device, ab_, cornell, builds, reps):
                lambda: mk.mega_spp_persistent(fs, view, 0, MAIN_SPP), reps_=3,
                turns=turns)
     # K5 on the cases of phase_grad_kernels
-    box, box_cam = light_box_scene(device)
-    room4 = many_light_scene(device, n_side=2, face_in=True)
-    alb = cornell_tables.mat_albedo.clone()
-    alb[1] = torch.tensor([0.12, 0.75, 0.1], device=device)
-    alb[2] = torch.tensor([0.8, 0.1, 0.05], device=device)
-    for label, tables, camk, opts, albedo, le_scale in (
-            ("cornell, Le x 1.3, own albedos", cornell_tables, cornell_cam,
-             dict(max_depth=DEPTH, cosine_sampling=True, nee_mode="all"), alb, 1.3),
-            ("16-light box, power", box, box_cam,
-             dict(max_depth=2, cosine_sampling=True, nee_mode="power"), None, 1.0),
-            ("4 lights facing in, all, uniform", room4, cornell_camera(),
-             dict(max_depth=DEPTH, cosine_sampling=False, nee_mode="all"), None, 1.3)):
+    for label, tables, camk, opts, albedo, le_scale in grad_cases(
+            device, cornell_tables, cornell_cam):
         st = scene_statics(tables)
         f = mk.try_make_fused_grad_path(tables, st, opts["max_depth"], nee=True,
                                         cosine_sampling=opts["cosine_sampling"],
@@ -2963,6 +2963,52 @@ def mega_ab_cases(device, ab_, cornell, builds, reps):
             al_le=le)).tri_rec.contiguous()
         ab("mega_grad_path", label, lambda: mk.mega_grad_path(gs, o, d, keys, rec, le),
            turns=turns, reps_=4 * reps)
+
+
+def grad_steps_ab(device, cornell, builds, use, turns=4):
+    """The gradient routes over K5 by every megakernel build (``builds``,
+    bound by ``use``), in turns (the builds in order, then in reverse):
+    ``grad_path``'s analytic step (one warm-up step, then GRAD_STEPS timed
+    steps: camera rays per second) and ``tools.fit_scene.fit`` (FIT_STEPS
+    steps: the median seconds per step), as the default phase runs them."""
+    import numpy as np
+    import torch
+
+    from xraytracer_tpu_torch import diff
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.renderer import pixel_grid
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.tools.fit_scene import fit
+
+    tables, camk = cornell
+    st = scene_statics(tables)
+    cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
+    ids, xy = pixel_grid(WIDTH, HEIGHT, device=device)
+    target = torch.zeros((WIDTH * HEIGHT, 3), device=device)
+    params = {"mat_albedo": tables.mat_albedo, "al_le": tables.al_le}
+    fast = diff.try_make_fast_value_and_grad(tables, st, cam, WIDTH, HEIGHT,
+                                             max_depth=DEPTH, nee=True,
+                                             cosine_sampling=True)
+    check(fast is not None, "csrc_ab grad steps: Cornell did not take the analytic route")
+    res = {name: dict(analytic_rays_per_s=[], fit_seconds_per_step=[]) for name in builds}
+    for k in range(turns):
+        for name in (builds if k % 2 == 0 else builds[::-1]):
+            use(name)
+            fast(params, ids, xy, target, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s in range(1, 1 + GRAD_STEPS):
+                fast(params, ids, xy, target, s)
+            torch.cuda.synchronize()
+            res[name]["analytic_rays_per_s"].append(
+                WIDTH * HEIGHT * GRAD_STEPS / (time.perf_counter() - t0))
+            stats = {}
+            fit(width=WIDTH, height=HEIGHT, max_depth=DEPTH, steps=FIT_STEPS,
+                spp=FIT_SPP, device="cuda", stats=stats)
+            res[name]["fit_seconds_per_step"].append(float(np.median(stats["step_seconds"])))
+    medians = {name: {k: sorted(v)[len(v) // 2] for k, v in r.items()}
+               for name, r in res.items()}
+    emit("csrc_ab_grad_steps", builds=builds, turns=turns, runs=res, median=medians)
 
 
 def sub_view(view, lanes):
@@ -3259,9 +3305,10 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     3,072-, 384- and 128-row meshes and the 64-light rooms facing in
     (``one``, ``power``; all culled),
     K1c at the main path's own launch (Cornell uniform, MAIN_SPP samples,
-    one chunk), and K5 on the three cases of its default phase; sums,
-    rejection counts and K5's planes compared bitwise, each case timed in
-    MEGA_AB_TURNS turns.
+    one chunk), and K5 on the cases of its default phase (``grad_cases``);
+    sums, rejection counts, K1a's radiance and K5's planes compared
+    bitwise, each case timed in MEGA_AB_TURNS turns; then the analytic
+    gradient step and the trainer over each build (``grad_steps_ab``).
 
     The whole-path volume kernels (K6a-c), from every build whose sources
     of them differ (``vol_ab_cases``): sums and rejection counts
@@ -3402,6 +3449,7 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
                                   device=device)
         if len(mega_names) > 1:
             mega_ab_cases(device, ab, cornell, mega_names, reps)
+            grad_steps_ab(device, cornell, mega_names, use)
         if len(vol_names) > 1:
             vc, view, order = vol_ab_cases(device, ab, vol_names, reps)
             cfg = get_preset("vpt")
@@ -4066,10 +4114,13 @@ def sample_rays(camk, device, sample):
     return keys, rays.o.contiguous(), rays.d.contiguous()
 
 
-def grad_bound(gs, stats, t_total):
+def grad_bound(gs, stats, t_total, paths=None):
     """bound_ms of a K5 launch: the whole-path kernel's pair tests and bytes
     (mega_bound) plus the Jacobian updates of the events this run's paths
-    take, from the plain version's per-bounce counters (docstring above)."""
+    take, from the plain version's per-bounce counters (docstring above). On
+    a table the kernel culls, ``paths`` (``MegaRayLog``'s) count the pair,
+    any-hit and slab tests as ``mega_culled_bound`` counts them; the
+    brute-force figure is ``brute_bound_ms``."""
     fs = gs.fs
     n = int(stats["rays"][0])
     m9 = 9 * gs.n_mats
@@ -4085,14 +4136,22 @@ def grad_bound(gs, stats, t_total):
                + 3 * (emits + 2 * nee))
     by_bytes = (n * (28 + 4 * gs.n_planes) + t_total * (36 + 2 + 128)
                 + fs.n_lights * 80) / PEAK_BYTES_PER_S * 1e3
-    by_ops = ((b["rays"] * t_total * FLOPS_PER_TEST
-               + b["shadow_rays"] * t_total * FLOPS_PER_ANYHIT_TEST + jac_ops)
-              / PEAK_F32_FLOPS * 1e3)
+    brute_ops = (b["rays"] * t_total * FLOPS_PER_TEST
+                 + b["shadow_rays"] * t_total * FLOPS_PER_ANYHIT_TEST)
+    walk_ops, extra = brute_ops, {}
+    if paths is not None:
+        culled = mega_culled_bound(fs, paths, 28, 4 * gs.n_planes, n)["culled"]
+        walk_ops = (culled["pair_tests"] * FLOPS_PER_TEST
+                    + culled["anyhit_tests"] * FLOPS_PER_ANYHIT_TEST
+                    + culled["slab_tests"] * FLOPS_PER_SLAB)
+        extra = dict(culled=culled, brute_bound_ms=max(
+            by_bytes, (brute_ops + jac_ops) / PEAK_F32_FLOPS * 1e3))
+    by_ops = (walk_ops + jac_ops) / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
                 rays=b["rays"], shadow_rays=b["shadow_rays"],
                 jacobian_events=dict(roulette=roulette, emission=emits,
-                                     nee=nee, scatter=scatter))
+                                     nee=nee, scatter=scatter), **extra)
 
 
 def compare_grad_lanes(what, got, ref):
@@ -4132,14 +4191,39 @@ def rel_err(got, ref):
     return float(torch.abs(got - ref).max() / torch.clamp(torch.abs(ref).max(), min=1e-30))
 
 
+def grad_cases(device, cornell, cornell_cam):
+    """K5's cases: (label, tables, camera, options, albedo or None, Le
+    scale). Cornell at depth 3 with Le x 1.3 and red / green albedos of its
+    own (white stays 1, the roulette's tie); the 16-light box with power
+    picks at depth 2; 4 facing-in lights with NEE "all" and uniform
+    sampling at depth 3; the 128-row sphere mesh, which the kernel culls."""
+    import torch
+
+    from xraytracer_tpu_torch.scene.presets import cornell_camera
+
+    box, box_cam = light_box_scene(device)
+    room = many_light_scene(device, n_side=2, face_in=True)
+    mesh_128, mesh_cam = mesh_scene(device, K1_MESH_SMALL)
+    alb = cornell.mat_albedo.clone()
+    alb[1] = torch.tensor([0.12, 0.75, 0.1], device=device)
+    alb[2] = torch.tensor([0.8, 0.1, 0.05], device=device)
+    return [
+        ("cornell, Le x 1.3, own albedos", cornell, cornell_cam,
+         dict(max_depth=DEPTH, cosine_sampling=True, nee_mode="all"), alb, 1.3),
+        ("16-light box, power", box, box_cam,
+         dict(max_depth=2, cosine_sampling=True, nee_mode="power"), None, 1.0),
+        ("4 lights facing in, all, uniform", room, cornell_camera(),
+         dict(max_depth=DEPTH, cosine_sampling=False, nee_mode="all"), None, 1.3),
+        ("mesh %dx%d, culled" % K1_MESH_SMALL, mesh_128, mesh_cam,
+         dict(max_depth=DEPTH, cosine_sampling=True, nee_mode="all"), None, 1.0),
+    ]
+
+
 def phase_grad_kernels(device, cornell, cornell_cam, reps):
     """Hold K5 (mega_grad_path) against its plain version (forward-mode
     autodiff of the wavefront integrator along every parameter direction)
-    on the card, on sample GRAD_SAMPLE's camera rays at 780x585: Cornell at
-    depth 3 with Le x 1.3 and red / green albedos of its own (white stays
-    1, the roulette's tie), the 16-light box with power picks at depth 2,
-    and 4 facing-in lights with NEE "all" and uniform sampling at depth 3.
-    Returns the ``kernels`` entry."""
+    on the card, on sample GRAD_SAMPLE's camera rays at 780x585, on the
+    cases of ``grad_cases``. Returns the ``kernels`` entry."""
     import torch
 
     from xraytracer_tpu_torch.geometry import Rays
@@ -4147,24 +4231,10 @@ def phase_grad_kernels(device, cornell, cornell_cam, reps):
     from xraytracer_tpu_torch.integrators import make_path_integrator
     from xraytracer_tpu_torch.integrators import megakernel as mk
     from xraytracer_tpu_torch.scene.builder import scene_statics
-    from xraytracer_tpu_torch.scene.presets import cornell_camera
     from xraytracer_tpu_torch.scene.tables import rejoin_appearance
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
-    box, box_cam = light_box_scene(device)
-    room = many_light_scene(device, n_side=2, face_in=True)
-    alb = cornell.mat_albedo.clone()
-    alb[1] = torch.tensor([0.12, 0.75, 0.1], device=device)
-    alb[2] = torch.tensor([0.8, 0.1, 0.05], device=device)
-    scenes = [
-        # label, tables, camera, options, albedo, Le scale
-        ("cornell, Le x 1.3, own albedos", cornell, cornell_cam,
-         dict(max_depth=DEPTH, cosine_sampling=True, nee_mode="all"), alb, 1.3),
-        ("16-light box, power", box, box_cam,
-         dict(max_depth=2, cosine_sampling=True, nee_mode="power"), None, 1.0),
-        ("4 lights facing in, all, uniform", room, cornell_camera(),
-         dict(max_depth=DEPTH, cosine_sampling=False, nee_mode="all"), None, 1.3),
-    ]
+    scenes = grad_cases(device, cornell, cornell_cam)
     cases = []
     for label, tables, camk, opts, albedo, le_scale in scenes:
         st = scene_statics(tables)
@@ -4197,16 +4267,20 @@ def phase_grad_kernels(device, cornell, cornell_cam, reps):
         case["max_abs_err"] = max(case[w]["max_abs_err"] for w in ("img", "galb", "gle"))
         # the plain version's per-bounce counters on the same inputs, for the bound
         sc = tables._replace(tri_rec=rec, al_le=le)
-        _, stats = make_path_integrator(
-            sc, st, opts["max_depth"], nee=True, cosine_sampling=opts["cosine_sampling"],
-            tri_fn=intersect_triangles_mm, nee_mode=opts["nee_mode"],
-            pick_weights=gs.fs.pick_weights, fused="never", with_stats=True,
-        )(Rays(o=o, d=d), keys)
+        with MegaRayLog(opts["max_depth"], on=gs.fs.culls) as log:
+            _, stats = make_path_integrator(
+                sc, st, opts["max_depth"], nee=True,
+                cosine_sampling=opts["cosine_sampling"], tri_fn=intersect_triangles_mm,
+                nee_mode=opts["nee_mode"], pick_weights=gs.fs.pick_weights,
+                fused="never", with_stats=True,
+            )(Rays(o=o, d=d), keys)
         stats = {k: v.cpu() for k, v in stats.items()}
         case.update(plain_ms=plain_ms,
                     ms=median_ms(lambda: mk.mega_grad_path(gs, o, d, keys, rec, le),
                                  reps, flush),
-                    **grad_bound(gs, stats, case["t_total"]))
+                    **grad_bound(gs, stats, case["t_total"],
+                                 log.paths if gs.fs.culls else None))
+        del log
         cases.append(case)
         del got, ref
     # the cap on materials routes a scene back
@@ -4230,8 +4304,8 @@ def phase_grad_kernels(device, cornell, cornell_cam, reps):
         shape=f"{head['case']}: N={head['n']} T={head['t_total']} "
               f"M={head['n_mats']} L={head['n_lights']} planes={head['planes']}",
         cases=[{k: c[k] for k in ("case", "n", "t_total", "n_mats", "n_lights", "ms",
-                                  "plain_ms", "bound_ms", "bound_by",
-                                  "contracted_rel_err")}
+                                  "plain_ms", "bound_ms", "bound_by", "brute_bound_ms",
+                                  "contracted_rel_err") if k in c}
                for c in cases],
     )]
 

@@ -30,7 +30,9 @@ light), a room of four lights facing in under "all" (every vertex walks
 three shadow rays inline and defers the fourth), the 64-light room facing
 in under "one" and "power" (one group, culled), and a sphere mesh of two
 groups. The shadow rays the merged loop walks are also counted, against
-``chip_smoke.py``'s ray log, which marks them for the culled bound.
+``chip_smoke.py``'s ray log, which marks them for the culled bound. Both
+loops also render the frame of ``tests/test_oracle.py``'s ``GIOracle``
+(depth-2 GI on the Cornell box, 16x12, 2 spp) within its own tolerance.
 """
 
 import ctypes
@@ -313,16 +315,18 @@ class Case:
     """A scene's fused tables, view and host-side copies of what the
     launchers prepare on the card."""
 
-    def __init__(self, lib, name):
-        factory, depth, cosine, nee_mode = SCENES[name]
+    def __init__(self, lib, name, w=W, h=H, depth=None):
+        factory, scene_depth, cosine, nee_mode = SCENES[name]
+        depth = scene_depth if depth is None else depth
         tables, camk = factory()
+        self.tables, self.camk = tables, camk
         st = scene_statics(tables)
-        cam = PinholeCamera.make(W / H, device="cpu", **camk)
+        cam = PinholeCamera.make(w / h, device="cpu", **camk)
         opts = dict(max_depth=depth, cosine_sampling=cosine, nee_mode=nee_mode)
         self.fs = mk._bake(tables, st, depth, True, True, cosine, nee_mode=nee_mode)
         assert self.fs is not None, name
         self.view = mk.try_make_fused_spp_render(
-            tables, st, cam, W, H, 0, nee=True, force=True, **opts).view
+            tables, st, cam, w, h, 0, nee=True, force=True, **opts).view
         t_total = tables.tri_v0.shape[0]
         self.t_total = t_total
         center = kernels._center(tables.tri_v0)
@@ -349,10 +353,10 @@ class Case:
                                      int(fs.le0), int(fs.cosine),
                                      mk.NEE_KINDS[fs.nee_mode])
 
-    def view_args(self):
+    def view_args(self, n_spp=N_SPP):
         v = self.view
         cam = (ctypes.c_float * 16)(*[float(c) for c in v.cam])
-        return (0, N_SPP, _ptr(v.pixfold_bits), _ptr(v.px), _ptr(v.py), v.n, cam,
+        return (0, n_spp, _ptr(v.pixfold_bits), _ptr(v.px), _ptr(v.py), v.n, cam,
                 v.cam_site)
 
     def scene_args(self):
@@ -361,17 +365,18 @@ class Case:
                 _ptr(fs.blocks), _ptr(self.boxes), _ptr(self.center),
                 _ptr(fs.lights), _ptr(fs.pick_cdf), self.ic)
 
-    def per_sample(self, lib):
+    def per_sample(self, lib, n_spp=N_SPP):
         n = self.view.n
         acc, rej = torch.empty((n, 3)), torch.empty((n,), dtype=torch.int32)
-        lib.rh_spp(*self.view_args(), *self.scene_args(), _ptr(acc), _ptr(rej))
+        lib.rh_spp(*self.view_args(n_spp), *self.scene_args(), _ptr(acc), _ptr(rej))
         return acc, rej
 
-    def merged(self, lib, walk):
+    def merged(self, lib, walk, n_spp=N_SPP):
         n = self.view.n
         acc, rej = torch.empty((n, 3)), torch.empty((n,), dtype=torch.int32)
         passes, shadows = ctypes.c_int(), ctypes.c_int()
-        lib.rh_spp_merged(walk, *self.view_args(), *self.scene_args(), _ptr(self.words),
+        lib.rh_spp_merged(walk, *self.view_args(n_spp), *self.scene_args(),
+                          _ptr(self.words),
                           _ptr(acc), _ptr(rej), ctypes.byref(passes), ctypes.byref(shadows))
         return acc, rej, passes.value, shadows.value
 
@@ -469,3 +474,29 @@ def test_ray_log_marks_the_shadow_rays_the_merged_loop_walks(lib, name):
                  for _, _, shadows in path if shadows)
     assert walked > 0, name
     assert marked == walked, (name, marked, walked)
+
+
+def test_gi_depth2_matches_oracle(lib):
+    """K1's lane code renders GIOracle's frame (depth-2 GI with NEE,
+    roulette and cosine bounces on the Cornell box, seed 0) by the
+    per-sample loop and by the merged loop with each of its walks, at the
+    oracle's own 16x12, 2 spp and tolerance (the port of
+    ``test_oracle.py::test_gi_depth2_matches_oracle``)."""
+    from test_oracle import GIOracle
+    from test_oracle import H as OH, SPP as OSPP, W as OW
+
+    case = Case(lib, "cornell cosine", w=OW, h=OH, depth=2)
+    oracle = GIOracle(case.tables, case.camk, OW, OH, seed=0)
+    expect = np.zeros((OH, OW, 3))
+    for py in range(OH):
+        for px in range(OW):
+            for s in range(OSPP):
+                expect[py, px] += oracle.gi(px, py, s)
+    expect /= OSPP
+    assert expect.mean() > 1e-3
+    per_sample, _ = case.per_sample(lib, OSPP)
+    renders = [per_sample] + [case.merged(lib, walk, OSPP)[0]
+                              for walk in (WALK_WORDS, WALK_BYTES)]
+    for got in renders:
+        np.testing.assert_allclose(got.reshape(OH, OW, 3).numpy() / OSPP, expect,
+                                   rtol=1e-3, atol=2e-4)

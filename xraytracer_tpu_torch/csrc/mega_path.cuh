@@ -11,7 +11,8 @@
 //                      (nearest_row), then the shading, whose light samples
 //                      each walk their shadow ray at once over the blocks
 //                      copy of the table (any_hit, which stops at the first
-//                      blocker). K1a, K1b and K5 take this.
+//                      blocker). K1b takes this; it is the reference the
+//                      others are held to.
 //   k1c_begin / walk / k1c_end
 //                      the merged loop's pass: a lane carries two rays into
 //                      the walk, its path ray and the shadow ray of its
@@ -24,7 +25,11 @@
 //                      only when some lane's path ray or shadow ray enters
 //                      its box before its best t resp. its t_max). The
 //                      shadow ray reads the row's blocks bit and does not
-//                      stop at its first blocker.
+//                      stop at its first blocker. K1a and K5 run the same
+//                      pass with one sample a lane and its ray given
+//                      (pass_rays / walk / path_end; K5 without deferring,
+//                      every shadow ray walked at once by a walker over the
+//                      staged rows or the blocks copy).
 //
 // Bitwise the per-sample loop. The nearest rule is the same in both (strict
 // t < best, rows in ascending order, so the first row wins exact ties; a
@@ -43,6 +48,8 @@
 // Of several light samples at one vertex ("all"), only the last is
 // deferred: the others walk inline before it, in light order.
 #pragma once
+
+#include <type_traits>
 
 #include "path_common.cuh"
 #include "sweep.cuh"
@@ -379,14 +386,46 @@ __device__ __forceinline__ void add_term(float3& L, float3 tal, float c) {
   L.z += tal.z * c;
 }
 
+// Whether a light sample's shadow ray is blocked, walked at once: over the
+// blocks copy of the table through L1 (GlobalShadow), or over a table staged
+// in shared memory by the whole pair test and its blocks bits (RowsShadow).
+// Both give any_hit's boolean: a zero row of the blocks copy never passes
+// the pair test, and a row whose bit is clear is not a blocker.
+struct GlobalShadow {
+  const MegaScene& S;
+  __device__ __forceinline__ bool operator()(float3 soc, float3 wi,
+                                             float tm) const {
+    return any_hit(S.coef_blocks, S.t_total, soc, wi, cross3(soc, wi), tm);
+  }
+};
+template <class R, class B>
+struct RowsShadow {
+  R rows;
+  B bits;
+  int t_total;
+  __device__ __forceinline__ bool operator()(float3 soc, float3 wi,
+                                             float tm) const {
+    SweepRay a, s;
+    s.oc = soc;
+    s.d = wi;
+    s.m = cross3(soc, wi);
+    s.best_t = tm;
+    s.best_i = -1;
+    s.done = false;
+    test_pair_rows<false>(rows, bits, 0, t_total, a, s, false, true);
+    return s.best_i >= 0;
+  }
+};
+
 // The term of light sample ``ls`` of light ``li``: added now, its shadow
-// ray walked over the blocks copy of the table, or (``defer``) left in
-// ``pend`` for the next walk.
-template <class J>
+// ray walked by ``sw``, or (``defer``, NoGrad only) left in ``pend`` for
+// the next walk.
+template <class J, class SW>
 __device__ __forceinline__ void nee_term(const MegaScene& S, Path& p, J& jac,
                                          float3 alb, float3 le,
                                          const LightSample& ls, int li,
-                                         bool defer, Pending& pend) {
+                                         bool defer, Pending& pend,
+                                         const SW& sw) {
   const float3 tal = make_float3(p.T.x * alb.x * le.x, p.T.y * alb.y * le.y,
                                  p.T.z * alb.z * le.z);
   if (defer && ls.test) {
@@ -399,9 +438,7 @@ __device__ __forceinline__ void nee_term(const MegaScene& S, Path& p, J& jac,
     return;
   }
   float coef = ls.coef;
-  if (ls.test && any_hit(S.coef_blocks, S.t_total, ls.soc, ls.wi,
-                         cross3(ls.soc, ls.wi), ls.tm))
-    coef = 0.f;
+  if (ls.test && sw(ls.soc, ls.wi, ls.tm)) coef = 0.f;
   add_term(p.L, tal, coef);
   jac.nee(p.T, alb, le, coef, li);
 }
@@ -410,12 +447,13 @@ __device__ __forceinline__ void nee_term(const MegaScene& S, Path& p, J& jac,
 // follows it: ends the path (act = false) on a miss, a roulette kill, an
 // emitter, zero throughput, or after the last bounce. ``rec`` reads the
 // record table; ``jac`` follows the Jacobians (NoGrad: nothing). With
-// DEFER (K1c, NoGrad only) the vertex's last light sample leaves its
-// shadow ray in ``pend``.
-template <class J, bool DEFER, class R>
+// DEFER (NoGrad only: an accumulator's terms would have to wait as well)
+// the vertex's last light sample leaves its shadow ray in ``pend``; ``sw``
+// walks the shadow rays of the others.
+template <class J, bool DEFER, class R, class SW>
 __device__ __forceinline__ void shade(const MegaScene& S, const float3 center,
                                       Path& p, int row, R rec, J& jac,
-                                      Pending& pend) {
+                                      Pending& pend, const SW& sw) {
   const uint32_t base = (uint32_t)p.it * SITES_PER_BOUNCE;
   const float3 o = p.o, d = p.d;
   const int it = p.it;
@@ -499,7 +537,7 @@ __device__ __forceinline__ void shade(const MegaScene& S, const float3 center,
             light_sample(center, P, ng, ns, d, lp, ld3(row_l + 10),
                          is_tri ? 2.0f : 1.0f, 1.0f);
         nee_term(S, p, jac, alb, ld3(row_l + 13), ls, i,
-                 DEFER && i == S.n_lights - 1, pend);
+                 DEFER && i == S.n_lights - 1, pend, sw);
       }
     } else {
       // one light per vertex: pick at site LIGHT0, sample at LIGHT0 + 1
@@ -524,7 +562,7 @@ __device__ __forceinline__ void shade(const MegaScene& S, const float3 center,
       const LightSample ls =
           light_sample(center, P, ng, ns, d, lp, ld3(row_l + 10),
                        is_tri ? 2.0f : 1.0f, __ldg(row_l + 16));
-      nee_term(S, p, jac, alb, ld3(row_l + 13), ls, lidx, DEFER, pend);
+      nee_term(S, p, jac, alb, ld3(row_l + 13), ls, lidx, DEFER, pend, sw);
     }
   }
 
@@ -578,14 +616,65 @@ __device__ __forceinline__ void shade(const MegaScene& S, const float3 center,
 }
 
 // One bounce of an active path with its light samples' shadow rays walked
-// inline (K1a, K1b, K5).
+// inline (K1b; the reference of the single-path lane below).
 template <class J>
 __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
                                        Path& p, J& jac) {
   const float3 oc = sub3(p.o, center);
   const int row = nearest_row(S.coef, S.t_total, oc, p.d, cross3(oc, p.d));
   Pending none;
-  shade<J, false>(S, center, p, row, LdgRows{S.tri_rec}, jac, none);
+  shade<J, false>(S, center, p, row, LdgRows{S.tri_rec}, jac, none,
+                  GlobalShadow{S});
+}
+
+// A fresh path from a given ray and key (K1a, K5); a lane past n starts none.
+__device__ __forceinline__ void start_path(Path& p, bool live, uint32_t key,
+                                           float3 o, float3 d) {
+  p.key = key;
+  p.it = 0;
+  p.act = live;
+  p.L = make_float3(0.f, 0.f, 0.f);
+  p.T = make_float3(1.f, 1.f, 1.f);
+  p.o = o;
+  p.d = d;
+}
+
+// A pass's two rays (K1c, K1a, K5): ``a`` the path ray (done: none), ``s``
+// the pending shadow ray (done: none). Returns whether there is a ray.
+__device__ __forceinline__ bool pass_rays(float3 center, const Path& p,
+                                          const Pending& pend, SweepRay& a,
+                                          SweepRay& s) {
+  a = sweep_ray<NEAREST>(p.o, p.d, center, p.act, 0.f);
+  s.oc = pend.soc;
+  s.d = pend.wi;
+  s.m = cross3(pend.soc, pend.wi);
+  s.inv = make_float3(slab_inv(s.d.x), slab_inv(s.d.y), slab_inv(s.d.z));
+  s.best_t = pend.tm;
+  s.best_i = -1;
+  s.done = !pend.on;
+  return p.act | pend.on;
+}
+
+// The single-path lane (K1a, K5) after a pass's walk found the path ray's
+// row (-1: none) and whether the pending shadow ray is blocked: the pending
+// term joins L, then the hit is shaded. With DEFER (K1a) the vertex's last
+// light sample waits for the next walk, as in K1c; without (K5), its shadow
+// ray is walked at once by ``sw`` as the others are. The path is done when
+// it is no longer active and nothing is pending; every sum is the per-path
+// bounce's (the argument at the top of this file, with one sample a lane).
+template <bool DEFER, class J, class R, class SW>
+__device__ __forceinline__ void path_end(const MegaScene& S, float3 center,
+                                         Path& p, Pending& pend, J& jac,
+                                         int row, bool blocked, R rec,
+                                         const SW& sw) {
+  static_assert(!DEFER || std::is_same<J, NoGrad>::value,
+                "only the render kernels defer a light sample");
+  if (pend.on) {
+    add_term(p.L, pend.tal, blocked ? 0.f : pend.coef);
+    pend.on = false;
+  }
+  if (!p.act) return;
+  shade<J, DEFER>(S, center, p, row, rec, jac, pend, sw);
 }
 
 // Key and camera ray of sample ``s`` of one pixel (path_common.cuh), and a
@@ -646,15 +735,7 @@ __device__ __forceinline__ bool k1c_begin(const MegaCamera& C, float3 center,
     l.p.T = make_float3(1.f, 1.f, 1.f);
     ++l.s_next;
   }
-  a = sweep_ray<NEAREST>(l.p.o, l.p.d, center, l.p.act, 0.f);
-  s.oc = l.pend.soc;
-  s.d = l.pend.wi;
-  s.m = cross3(l.pend.soc, l.pend.wi);
-  s.inv = make_float3(slab_inv(s.d.x), slab_inv(s.d.y), slab_inv(s.d.z));
-  s.best_t = l.pend.tm;
-  s.best_i = -1;
-  s.done = !l.pend.on;
-  return l.p.act | l.pend.on;
+  return pass_rays(center, l.p, l.pend, a, s);
 }
 
 // End of a pass, after the walk found the path ray's row (-1: none) and
@@ -676,7 +757,7 @@ __device__ __forceinline__ void k1c_end(const MegaScene& S, float3 center,
   }
   if (!l.p.act) return;
   NoGrad ng;
-  shade<NoGrad, true>(S, center, l.p, row, rec, ng, l.pend);
+  shade<NoGrad, true>(S, center, l.p, row, rec, ng, l.pend, GlobalShadow{S});
   if (!l.p.act || l.p.it >= S.max_depth) {
     l.p.act = false;
     if (l.pend.on) {

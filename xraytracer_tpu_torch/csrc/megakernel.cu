@@ -9,11 +9,11 @@
 //                           _make_surface_iteration)
 //   mega_grad_path       <- _mega_grad_kernel            (over _trace_body
 //                           with ``grads``)
-// One device function for a bounce (`bounce`), a template over a Jacobian
-// accumulator, four kernels around it, four extern "C" launchers. The
-// render kernels instantiate it with `NoGrad`, whose hooks are empty, so
-// they compile to the bounce alone; mega_grad_path instantiates it with
-// `Grad`.
+// One device function for the shading of a hit (mega_path.cuh's `shade`), a
+// template over a Jacobian accumulator, four kernels around it, four
+// extern "C" launchers. The render kernels instantiate it with `NoGrad`,
+// whose hooks are empty, so they compile to the shading alone;
+// mega_grad_path instantiates it with `Grad` (mega_grad.cuh).
 //
 // What a bounce computes (triangles only, Lambert only, flat area lights):
 // nearest hit over the whole table; exact (t, u, v) of the winner by the
@@ -29,9 +29,10 @@
 // integrator (RR 0, BSDF 1, lights 16+i, stride 2^16 per bounce), in native
 // wrapping uint32 arithmetic, so all routes draw the same numbers.
 //
-// The three kernels.
-//   mega_path            rays and keys in, radiance out: at most max_depth
-//                        bounces per thread.
+// The render kernels.
+//   mega_path            rays and keys in, radiance out: one path per
+//                        thread, by the merged loop's pass (below) with one
+//                        sample a lane and its ray given.
 //   mega_spp             per pixel, a loop over samples s0 .. s0+n_spp-1:
 //                        key = pcg(pixfold + s), jittered pinhole ray, the
 //                        path, rejection of a NaN / Inf / negative sample,
@@ -95,9 +96,16 @@
 //     Lanes past n and lanes done with their samples keep voting until
 //     their warp is done.
 //
-// K1a, K1b and K5 keep the walk of a bounce at a time (mega_path.cuh's
-// `bounce`: the nearest walk, then each light sample's shadow walk over the
-// blocks copy, stopping at its first blocker), through L1.
+// K1a and K5 take the same walks (`single_path`: a pass per bounce and one
+// for the last shadow ray, staged or culled by the same line): on the
+// 3,072-row table K1a's launch fell from 8.31 to 0.57 ms, on Cornell 9%
+// (PERF.md, section 6). K1a defers its last light sample as K1c
+// does; K5 walks every shadow ray at once (over the staged rows, or
+// through L1), since a deferred sample would carry 9M + 3 sums (measured
+// 19% slower on Cornell). K1b keeps the walk of a bounce at a time
+// (mega_path.cuh's `bounce`: the nearest walk, then each light sample's
+// shadow walk over the blocks copy, stopping at its first blocker), through
+// L1.
 //
 // Winner rule: strict t < best while walking rows upwards, first index wins
 // exact ties, as in sweep.cu (the Pallas key keeps the lowest row among hits
@@ -105,180 +113,47 @@
 // replace the best.
 //
 // mega_grad_path carries, beside the path, its Jacobians w.r.t. the
-// material albedos and the light emissions (see `Grad` below): the gradient
-// of the same estimator that autodiff of the wavefront integrator computes,
-// in the forward pass. Its outputs are 3 + 9M + 3L planes of N floats
-// (radiance, dL/dalbedo, dL/dLe); each lane owns its column, so there are no
-// atomics and the stores of a warp are coalesced. Its 9 x MAX_GRAD_MATS
-// throughput Jacobian lives in registers (every loop over materials is
-// unrolled), its sums in the output planes, read and written in place; it
-// moves 28 + 4 (3 + 9M + 3L) bytes per lane, so it is bound by operations
-// for Cornell (M = 3, L = 1) and by bytes once the lights are many.
+// material albedos and the light emissions (`Grad`, mega_grad.cuh): the
+// gradient of the same estimator that autodiff of the wavefront integrator
+// computes, in the forward pass. Its outputs are 3 + 9M + 3L planes of N
+// floats (radiance, dL/dalbedo, dL/dLe); each lane owns its column, so
+// there are no atomics and the stores of a warp are coalesced. Its
+// throughput Jacobian lives in registers, 9 x the bucket of M the launcher
+// picks (1, 2, 4 or 8; every loop over materials is unrolled to it), its
+// sums in the output planes, read and written in place; it moves
+// 28 + 4 (3 + 9M + 3L) bytes per lane, so it is bound by operations for
+// Cornell (M = 3, L = 1) and by bytes once the lights are many.
 //
 // nvcc contracts a*b+c into FMAs; no fast-math flags, so division, sqrtf,
 // sinf and cosf are the accurate ones.
 
-#include "mega_path.cuh"
+#include "mega_grad.cuh"
 
 namespace xrt {
 
 constexpr int MEGA_BLOCK = 128;
-// The largest table K1c stages whole into each block's shared memory
-// (coefficients, records and blocks bits: 192 B a row, 12,296 B at 64
-// rows; Cornell's 40 rows 7,688 B); a larger one is culled over its chunk
-// table. Measured at the two sides (PERF.md, section 6): Cornell's 40 rows
-// ran the main path's launch 17% slower culled than staged, a 128-row
-// sphere mesh 25% faster culled (and the 256-row rooms and 384-row mesh
+// The largest table K1c, K1a and K5 stage whole into each block's shared
+// memory (coefficients, records and blocks bits: 192 B a row, 12,296 B at
+// 64 rows; Cornell's 40 rows 7,688 B); a larger one is culled over its
+// chunk table. Measured at the two sides (PERF.md, section 6): Cornell's
+// 40 rows ran the main path's launch 17% slower culled than staged, a
+// 128-row sphere mesh 25% faster culled (and the 256-row rooms and 384-row mesh
 // about twice as fast culled as with their rows staged). Between 40 and
 // 128 rows the crossover was not measured; the line is drawn at two chunks.
 // integrators/megakernel.py::MEGA_STAGE_ROWS decides which tables get a
 // chunk table, and must equal it.
 constexpr int MEGA_STAGE_ROWS = 64;
-// K1c's blocks per SM: seven at 72 registers (204 B of spill stores) ran
-// the main path's launch 4% faster than no minimum (at most 96 registers,
-// no spills), six 2% faster, eight 4% slower (PERF.md, section 6). A pixel's
-// samples are one lane's sum, so the frame's 3,565 blocks run in whole
-// waves: seven per SM take four waves of 924.
+// K1c's and K1a's blocks per SM: seven at 72 registers (204 B of spill
+// stores) ran the main path's launch 4% faster than no minimum (at most 96
+// registers, no spills), six 2% faster, eight 4% slower (PERF.md, section
+// 6). A pixel's samples are one lane's sum, so the frame's 3,565 blocks run
+// in whole waves: seven per SM take four waves of 924.
 constexpr int MEGA_MIN_BLOCKS = 7;
-// K1a's and K1b's: eight, at most 64 registers (with spills) as before
-// their bounce moved into mega_path.cuh, which let them take 72; at 72, K1b
-// on a 3,072-row table ran 1.0-1.3% slower than at 64, outside its turns'
-// spread (PERF.md, section 6).
+// K1b's: eight, at most 64 registers (with spills) as before its bounce
+// moved into mega_path.cuh, which let it take 72; at 72, K1b on a
+// 3,072-row table ran 1.0-1.3% slower than at 64, outside its turns'
+// spread (PERF.md, section 6). K1a at eight was no faster than at seven.
 constexpr int MEGA_PATH_MIN_BLOCKS = 8;
-
-constexpr int MAX_GRAD_MATS = 8;  // integrators/megakernel.py::MAX_GRAD_MATS
-
-// Per-lane Jacobians of the estimator w.r.t. mat_albedo (M x 3) and al_le
-// (L x 3), the recursion of _trace_body(grads=...):
-//   GT[c][cc][m] = dT_c / dalbedo_{m,cc}   (registers: every loop over m is
-//                                           unrolled to MAX_GRAD_MATS and
-//                                           predicated on n_mats)
-//   dL[c][cc][m] = dL_c / dalbedo_{m,cc}   (plane 3 + (3c + cc) M + m)
-//   dE[c][l]     = dL_c / dLe_{l,c}        (plane 3 + 9M + c L + l)
-// Channels couple through the roulette's boost 1 / mean(T); Le enters no
-// throughput, so dE has no cross-channel terms. dL and dE are summed in the
-// lane's own column of the output, which the constructor zeroes.
-struct Grad {
-  const int32_t* __restrict__ obj_mat;  // object -> material row, -1 none
-  int n_obj, n_mats, n_lights;
-  float* __restrict__ out;  // (3 + 9M + 3L, n) plane-major
-  int n, i;
-  int mat;  // material of the current hit, -1 none
-  float GT[3][3][MAX_GRAD_MATS];
-
-  __device__ __forceinline__ float& dl(int c, int cc, int m) {
-    return out[(size_t)(3 + (3 * c + cc) * n_mats + m) * n + i];
-  }
-  __device__ __forceinline__ float& de(int c, int l) {
-    return out[(size_t)(3 + 9 * n_mats + c * n_lights + l) * n + i];
-  }
-
-  __device__ __forceinline__ Grad(const int32_t* om, int no, int nm, int nl,
-                                  float* o, int n_, int i_)
-      : obj_mat(om), n_obj(no), n_mats(nm), n_lights(nl), out(o), n(n_),
-        i(i_), mat(-1) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-#pragma unroll
-        for (int m = 0; m < MAX_GRAD_MATS; ++m) GT[c][cc][m] = 0.f;
-    const int planes = 3 + 9 * n_mats + 3 * n_lights;
-    for (int k = 3; k < planes; ++k) out[(size_t)k * n + i] = 0.f;
-  }
-
-  // the winner's record column 24 (object id) -> its material row
-  __device__ __forceinline__ void hit(float obj_col) {
-    const int obj = (int)obj_col;
-    const int m = (obj >= 0 && obj < n_obj) ? __ldg(obj_mat + obj) : -1;
-    mat = m < n_mats ? m : -1;
-  }
-
-  // T' = T * boost, boost = 1 / max(min(mean(T), 1), 1e-12): the product
-  // rule with dboost = -boost^2 * gate * sum_c GT / 3, where gate is the
-  // derivative of the two clamps: 1 inside, 0 outside and 1/2 AT a tie, as
-  // autodiff's minimum / maximum. Ties are the rule, not the exception: a
-  // white albedo of exactly 1 keeps the mean at 1, and so does a white
-  // bounce right after a roulette, since mean(T / mean(T)) = 1. Whether the
-  // rounded mean lands on 1 depends on every rounding before it, so the
-  // mean is rounded as the plain version computes it, and the throughput is
-  // returned as the plain version boosts it: divided by the probability
-  // (the render kernels multiply by its reciprocal, an ulp apart).
-  __device__ __forceinline__ float3 roulette(float3 t, float boost,
-                                             float rr_prob) {
-    const float mean_t = XM(XA(XA(t.x, t.y), t.z), THIRD);
-    float gate = mean_t < 1.0f ? 1.0f : (mean_t == 1.0f ? 0.5f : 0.f);
-    gate *= rr_prob > 1e-12f ? 1.0f : (rr_prob == 1e-12f ? 0.5f : 0.f);
-    const float live = XM(XM(gate, -XM(boost, boost)), THIRD);
-    const float tc[3] = {t.x, t.y, t.z};
-#pragma unroll
-    for (int cc = 0; cc < 3; ++cc)
-#pragma unroll
-      for (int m = 0; m < MAX_GRAD_MATS; ++m) {
-        if (m >= n_mats) break;
-        const float db = live * ((GT[0][cc][m] + GT[1][cc][m]) + GT[2][cc][m]);
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          GT[c][cc][m] = GT[c][cc][m] * boost + tc[c] * db;
-      }
-    const float q = fmaxf(rr_prob, 1e-12f);
-    return make_float3(t.x / q, t.y / q, t.z / q);
-  }
-
-  // L += T * Le on an emitter hit of light li
-  __device__ __forceinline__ void emit(float3 t, float3 le, int li) {
-    const float tc[3] = {t.x, t.y, t.z}, lc[3] = {le.x, le.y, le.z};
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-#pragma unroll
-        for (int m = 0; m < MAX_GRAD_MATS; ++m) {
-          if (m >= n_mats) break;
-          dl(c, cc, m) += GT[c][cc][m] * lc[c];
-        }
-      de(c, li) += tc[c];
-    }
-  }
-
-  // L += T * albedo * Le * coef for a light sample of light li; the hit's
-  // own albedo adds the same-channel term T * Le * coef
-  __device__ __forceinline__ void nee(float3 t, float3 alb, float3 le,
-                                      float coef, int li) {
-    if (coef == 0.f) return;
-    const float tc[3] = {t.x, t.y, t.z}, ac[3] = {alb.x, alb.y, alb.z};
-    const float lc[3] = {le.x * coef, le.y * coef, le.z * coef};
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-#pragma unroll
-        for (int m = 0; m < MAX_GRAD_MATS; ++m) {
-          if (m >= n_mats) break;
-          float dd = GT[c][cc][m] * ac[c];
-          if (cc == c && m == mat) dd += tc[c];
-          dl(c, cc, m) += dd * lc[c];
-        }
-      de(c, li) += tc[c] * ac[c] * coef;
-    }
-  }
-
-  // T' = T * w with w = albedo * f (f = 1 cosine, 2 cos(theta) uniform)
-  __device__ __forceinline__ void scatter(float3 t, float3 w, float f) {
-    const float tc[3] = {t.x, t.y, t.z}, wc[3] = {w.x, w.y, w.z};
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-#pragma unroll
-        for (int m = 0; m < MAX_GRAD_MATS; ++m) {
-          if (m >= n_mats) break;
-          float g = GT[c][cc][m] * wc[c];
-          if (cc == c && m == mat) g += tc[c] * f;
-          GT[c][cc][m] = g;
-        }
-  }
-};
 
 __global__ void __launch_bounds__(MEGA_BLOCK)
 mega_coeffs_kernel(const float* __restrict__ v0, const float* __restrict__ e1,
@@ -302,28 +177,6 @@ mega_coeffs_kernel(const float* __restrict__ v0, const float* __restrict__ e1,
   coef_blocks[4 * j + 1] = g.f1;
   coef_blocks[4 * j + 2] = g.f2;
   coef_blocks[4 * j + 3] = g.f3;
-}
-
-__global__ void __launch_bounds__(MEGA_BLOCK, MEGA_PATH_MIN_BLOCKS)
-mega_path_kernel(MegaScene S, const float* __restrict__ o,
-                 const float* __restrict__ d, const int32_t* __restrict__ keys,
-                 int n, float* __restrict__ out) {
-  const int i = blockIdx.x * MEGA_BLOCK + threadIdx.x;
-  if (i >= n) return;
-  const float3 center = ld3(S.center);
-  Path p;
-  p.key = (uint32_t)keys[i];
-  p.it = 0;
-  p.act = true;
-  p.L = make_float3(0.f, 0.f, 0.f);
-  p.T = make_float3(1.f, 1.f, 1.f);
-  p.o = load3(o, i);
-  p.d = load3(d, i);
-  NoGrad ng;
-  while (p.act && p.it < S.max_depth) bounce(S, center, p, ng);
-  out[3 * i + 0] = p.L.x;
-  out[3 * i + 1] = p.L.y;
-  out[3 * i + 2] = p.L.z;
 }
 
 __global__ void __launch_bounds__(MEGA_BLOCK, MEGA_PATH_MIN_BLOCKS)
@@ -351,7 +204,7 @@ mega_spp_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
   out_rej[i] = rej;
 }
 
-// How a K1c launch reads its table, by the table's size alone: at most
+// How a K1c, K1a or K5 launch reads its table, by the table's size alone: at most
 // MEGA_STAGE_ROWS rows are staged into each block's shared memory and
 // walked whole (WALK_STAGED), a larger table is read through L1 by the
 // culled walk (WALK_CULLED).
@@ -441,30 +294,121 @@ mega_spp_persistent_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
   out_rej[i] = l.rej;
 }
 
-// Radiance and Jacobians of one whole path per ray: mega_path_kernel with
-// the Grad accumulator. ``out`` holds 3 + 9M + 3L planes of n floats.
+// The single-path lane of K1a and K5 over a launch's walk: K1c's pass with
+// one sample, its ray given (mega_path.cuh's pass_rays / walk / path_end),
+// staged whole or culled over the chunk table as K1c walks. With DEFER each
+// pass walks the path ray and the shadow ray the last vertex deferred, and
+// a path takes one more pass for its last one; the other shadow rays are
+// walked at once, over the staged rows or through L1.
+template <int WALK, bool DEFER, class J>
+__device__ __forceinline__ void single_path(const MegaScene& S, float3 center,
+                                            Path& p, J& jac,
+                                            const float4* smem) {
+  constexpr bool STAGED = WALK == WALK_STAGED;
+  const int T = S.t_total;
+  const uint32_t* bits = (const uint32_t*)(smem + 12 * T);
+  Pending pend;
+  pend.on = false;
+  LaneWarp w;
+  SweepRay& a = w.path[0];
+  SweepRay& sh = w.shadow[0];
+  for (int pass = 0; pass <= S.max_depth; ++pass) {
+    const bool has = pass_rays(center, p, pend, a, sh);
+    if (STAGED) {
+      if (!has) break;
+      test_pair_rows<false>(PlainRows{smem}, WordBits{bits}, 0, T, a, sh,
+                            !a.done, !sh.done);
+      path_end<DEFER>(S, center, p, pend, jac, a.best_i, sh.best_i >= 0,
+                      PlainRows{smem + 4 * T},
+                     RowsShadow<PlainRows, WordBits>{PlainRows{smem},
+                                                     WordBits{bits}, T});
+    } else {
+      if (!w.vote(has)) break;
+      culled_pair_walk(w, S.boxes, LdgRows{S.coef}, ByteBits{S.blocks}, T);
+      path_end<DEFER>(S, center, p, pend, jac, a.best_i, sh.best_i >= 0,
+                      LdgRows{S.tri_rec}, GlobalShadow{S});
+    }
+  }
+}
+
+// K1a: radiance of one whole path per ray. Lanes past n stage, and (culled)
+// vote until their warp is done.
+template <int WALK>
+__global__ void __launch_bounds__(MEGA_BLOCK, MEGA_MIN_BLOCKS)
+mega_path_kernel(MegaScene S, const float* __restrict__ o,
+                 const float* __restrict__ d, const int32_t* __restrict__ keys,
+                 int n, float* __restrict__ out) {
+  extern __shared__ float4 smem[];
+  const int i = blockIdx.x * MEGA_BLOCK + threadIdx.x;
+  const bool live = i < n;
+  if (WALK == WALK_STAGED) {
+    stage_table(S, smem);
+    __syncthreads();
+    if (!live) return;
+  }
+  const float3 center = ld3(S.center);
+  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  Path p;
+  start_path(p, live, live ? (uint32_t)keys[i] : 0u, live ? load3(o, i) : zero,
+             live ? load3(d, i) : zero);
+  NoGrad ng;
+  // the staged walk walks every shadow ray at once, the culled walk defers
+  // the last light sample of a vertex (PERF.md, section 6)
+  single_path<WALK, WALK == WALK_CULLED>(S, center, p, ng, smem);
+  if (!live) return;
+  out[3 * i + 0] = p.L.x;
+  out[3 * i + 1] = p.L.y;
+  out[3 * i + 2] = p.L.z;
+}
+
+// K5: radiance and Jacobians of one whole path per ray: K1a's lane with the
+// Grad accumulator (mega_grad.cuh) of bucket MB, every light sample's
+// shadow ray walked at once (the deferred form measured slower: PERF.md,
+// section 6). ``out`` holds 3 + 9M + 3L planes of n floats.
+template <int MB, int WALK>
 __global__ void __launch_bounds__(MEGA_BLOCK)
 mega_grad_path_kernel(MegaScene S, const int32_t* __restrict__ obj_mat,
                       int n_obj, int n_mats, const float* __restrict__ o,
                       const float* __restrict__ d,
                       const int32_t* __restrict__ keys, int n,
                       float* __restrict__ out) {
+  extern __shared__ float4 smem[];
   const int i = blockIdx.x * MEGA_BLOCK + threadIdx.x;
-  if (i >= n) return;
+  const bool live = i < n;
+  if (WALK == WALK_STAGED) {
+    stage_table(S, smem);
+    __syncthreads();
+    if (!live) return;
+  }
   const float3 center = ld3(S.center);
-  Grad jac(obj_mat, n_obj, n_mats, S.n_lights, out, n, i);
+  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  // a lane past n (culled: it votes, and shades nothing) has no planes
+  Grad<MB> jac(obj_mat, n_obj, live ? n_mats : 0, live ? S.n_lights : 0, out,
+               n, live ? i : 0);
   Path p;
-  p.key = (uint32_t)keys[i];
-  p.it = 0;
-  p.act = true;
-  p.L = make_float3(0.f, 0.f, 0.f);
-  p.T = make_float3(1.f, 1.f, 1.f);
-  p.o = load3(o, i);
-  p.d = load3(d, i);
-  while (p.act && p.it < S.max_depth) bounce(S, center, p, jac);
+  start_path(p, live, live ? (uint32_t)keys[i] : 0u, live ? load3(o, i) : zero,
+             live ? load3(d, i) : zero);
+  single_path<WALK, false>(S, center, p, jac, smem);
+  if (!live) return;
   out[i] = p.L.x;
   out[(size_t)n + i] = p.L.y;
   out[2 * (size_t)n + i] = p.L.z;
+}
+
+// A K5 launch of bucket MB, its walk by the table (as K1c's).
+template <int MB>
+static void launch_grad(const MegaScene& S, bool culled, const int32_t* obj_mat,
+                        int n_obj, int n_mats, const float* o, const float* d,
+                        const int32_t* keys, int n, float* out,
+                        cudaStream_t st) {
+  const int grid = (n + MEGA_BLOCK - 1) / MEGA_BLOCK;
+  if (culled)
+    mega_grad_path_kernel<MB, WALK_CULLED><<<grid, MEGA_BLOCK, 0, st>>>(
+        S, obj_mat, n_obj, n_mats, o, d, keys, n, out);
+  else
+    mega_grad_path_kernel<MB, WALK_STAGED>
+        <<<grid, MEGA_BLOCK, stage_bytes(S.t_total), st>>>(
+            S, obj_mat, n_obj, n_mats, o, d, keys, n, out);
 }
 
 // What the launchers share: the scene arguments as the C interface takes
@@ -541,8 +485,15 @@ int mega_path(const float* o, const float* d, const int32_t* keys, int n,
   cudaStream_t st = (cudaStream_t)stream;
   const xrt::MegaScene S = xrt::prepare(XRT_SCENE_ARGS, st);
   const int grid = (n + xrt::MEGA_BLOCK - 1) / xrt::MEGA_BLOCK;
-  xrt::mega_path_kernel<<<grid, xrt::MEGA_BLOCK, 0, st>>>(S, o, d, keys, n,
-                                                          out);
+  if (boxes != nullptr)
+    xrt::mega_path_kernel<xrt::WALK_CULLED>
+        <<<grid, xrt::MEGA_BLOCK, 0, st>>>(S, o, d, keys, n, out);
+  else if (t_total <= xrt::MEGA_STAGE_ROWS)
+    xrt::mega_path_kernel<xrt::WALK_STAGED>
+        <<<grid, xrt::MEGA_BLOCK, xrt::stage_bytes(t_total), st>>>(S, o, d,
+                                                                   keys, n, out);
+  else  // the caller passes the chunk table's boxes for every larger table
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -588,11 +539,28 @@ int mega_grad_path(const float* o, const float* d, const int32_t* keys, int n,
                    int n_mats, float* out, void* stream) {
   if (n <= 0) return 0;
   if (n_mats < 0 || n_mats > xrt::MAX_GRAD_MATS) return (int)cudaErrorInvalidValue;
+  const bool culled = boxes != nullptr;
+  // the caller passes the chunk table's boxes for every larger table
+  if (!culled && t_total > xrt::MEGA_STAGE_ROWS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const xrt::MegaScene S = xrt::prepare(XRT_SCENE_ARGS, st);
-  const int grid = (n + xrt::MEGA_BLOCK - 1) / xrt::MEGA_BLOCK;
-  xrt::mega_grad_path_kernel<<<grid, xrt::MEGA_BLOCK, 0, st>>>(
-      S, obj_mat, n_obj, n_mats, o, d, keys, n, out);
+  switch (xrt::grad_bucket(n_mats)) {
+    case 1:
+      xrt::launch_grad<1>(S, culled, obj_mat, n_obj, n_mats, o, d, keys, n, out,
+                          st);
+      break;
+    case 2:
+      xrt::launch_grad<2>(S, culled, obj_mat, n_obj, n_mats, o, d, keys, n, out,
+                          st);
+      break;
+    case 4:
+      xrt::launch_grad<4>(S, culled, obj_mat, n_obj, n_mats, o, d, keys, n, out,
+                          st);
+      break;
+    default:
+      xrt::launch_grad<xrt::MAX_GRAD_MATS>(S, culled, obj_mat, n_obj, n_mats, o,
+                                           d, keys, n, out, st);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -27,15 +27,16 @@ Nothing is compiled per scene: lights go into a device table, the camera
 and the flags are launch arguments (``FusedScene``, ``RenderView``). What
 the Pallas kernels did only for the TPU (feature matmul, packed key,
 one-hot record matmul, 8 x 512 tiles) has no counterpart here. Their
-per-chunk culling does, in ``mega_spp_persistent`` only: a table of more
-than ``MEGA_STAGE_ROWS`` = 64 rows is walked over the sweeps' chunk table
-(``kernels._chunk_table`` under the ``valid`` mask, built once per table,
-so a render of such a table adds one ``chunk_boxes`` launch), a smaller one
-(the Cornell box's 40 rows) whole from shared memory.
-That kernel walks a lane's path ray and the shadow ray of its previous
-vertex together, one walk per pass; what bounds the kernels on the card
-and what the design does about it is noted at the top of
-``csrc/megakernel.cu`` and ``csrc/mega_path.cuh``.
+per-chunk culling does, in ``mega_spp_persistent``, ``mega_path`` and
+``mega_grad_path``: a table of more than ``MEGA_STAGE_ROWS`` = 64 rows is
+walked over the sweeps' chunk table (``kernels._chunk_table`` under the
+``valid`` mask, built once per table, so a render of such a table adds one
+``chunk_boxes`` launch), a smaller one (the Cornell box's 40 rows) whole
+from shared memory. Each pass walks a lane's path ray and, in
+``mega_spp_persistent`` and ``mega_path``, the shadow ray of its previous
+vertex, in one walk; what bounds the kernels on the card and what the
+design does about it is noted at the top of ``csrc/megakernel.cu`` and
+``csrc/mega_path.cuh``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream without
@@ -82,11 +83,11 @@ MAX_TRIANGLES = 4096  # the JAX package's gate, kept as it is
 MAX_DEPTH = 8
 MAX_LIGHTS_ALL = 8    # "all": one shadow test per light and vertex
 MAX_LIGHTS_PICK = 64  # "one" / "power": one shadow test per vertex
-MAX_GRAD_MATS = 8     # materials the gradient kernel carries (csrc/megakernel.cu)
-# mega_spp_persistent stages a table of at most this many rows (two
-# chunks) whole into shared memory and culls a larger one over its chunk
-# table; csrc/megakernel.cu's MEGA_STAGE_ROWS must equal it, and says where
-# the line was measured
+MAX_GRAD_MATS = 8     # materials the gradient kernel carries (csrc/mega_grad.cuh)
+# mega_spp_persistent, mega_path and mega_grad_path stage a table of at most
+# this many rows (two chunks) whole into shared memory and cull a larger one
+# over its chunk table; csrc/megakernel.cu's MEGA_STAGE_ROWS must equal it,
+# and says where the line was measured
 MEGA_STAGE_ROWS = 64
 LIGHT_STRIDE = 20     # floats per light-table row (csrc/megakernel.cu)
 NEE_KINDS = {"all": 0, "one": 1, "power": 2}
@@ -226,15 +227,16 @@ class FusedScene:
 
     @property
     def culls(self):
-        """Whether ``mega_spp_persistent`` walks this table over its chunk
-        table (more than ``MEGA_STAGE_ROWS`` rows) rather than staging it."""
+        """Whether ``mega_path``, ``mega_spp_persistent`` and
+        ``mega_grad_path`` walk this table over its chunk table (more than
+        ``MEGA_STAGE_ROWS`` rows) rather than staging it."""
         return self.scene.tri_v0.shape[0] > MEGA_STAGE_ROWS
 
     def scene_args(self, tri_rec=None, culled=False):
         """The launchers' scene arguments, in the order of the C interface;
         ``tri_rec`` in place of the scene's record table; ``culled``: with
-        the chunk table's boxes where the table is culled
-        (``mega_spp_persistent`` culls by them)."""
+        the chunk table's boxes where the table is culled (``mega_path``,
+        ``mega_spp_persistent`` and ``mega_grad_path`` cull by them)."""
         s = self.scene
         rec = s.tri_rec if tri_rec is None else tri_rec
         t_total = s.tri_v0.shape[0]
@@ -256,8 +258,8 @@ class FusedScene:
     def boxes(self):
         """Pointer to the boxes of the table's chunk table (the sweeps'
         ``kernels._chunk_table`` under the ``valid`` mask, built once per
-        table), which ``mega_spp_persistent`` culls by; None for a table it
-        stages (``culls``)."""
+        table), which the culled walks use; None for a table the kernels
+        stage (``culls``)."""
         s = self.scene
         if not self.culls:
             return None
@@ -384,7 +386,7 @@ def mega_path(fs, o, d, keys):
     with torch.cuda.device(dev):
         _launch("mega_path", (
             o.data_ptr(), d.data_ptr(), keys.data_ptr(), n,
-            *fs.scene_args(), out.data_ptr(), sweeps._stream(),
+            *fs.scene_args(culled=True), out.data_ptr(), sweeps._stream(),
         ))
     LAUNCHES["mega_path"] += 1
     return out
@@ -627,7 +629,7 @@ def mega_grad_path(gs, o, d, keys, tri_rec=None, al_le=None):
     with torch.cuda.device(dev):
         _launch("mega_grad_path", (
             o.data_ptr(), d.data_ptr(), keys.data_ptr(), n,
-            *fs.scene_args(tri_rec), gs.obj_mat.data_ptr(),
+            *fs.scene_args(tri_rec, culled=True), gs.obj_mat.data_ptr(),
             gs.obj_mat.shape[0], gs.n_mats, out.data_ptr(), sweeps._stream(),
         ))
     LAUNCHES["mega_grad_path"] += 1
