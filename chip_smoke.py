@@ -27,6 +27,11 @@
                                      # package's, bitwise, timing both in
                                      # turns; for the volume kernels also a
                                      # timeline build and the SASS count
+    python3 chip_smoke.py --k1b-probe  # builds megakernel.cu with K1b
+                                     # walking every shadow ray at once on
+                                     # a staged table, with and without
+                                     # -fmad=false, counts the pixels where
+                                     # K1b parts from K1c, and stops
 
 Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
 libraries: the sweeps, the whole-path surface kernels with the
@@ -120,7 +125,7 @@ run's data:
   mask once and writes its boxes and coefficient rows once;
 * a whole-path surface kernel needs T pair tests for every camera, bounce
   and shadow ray of its paths, counted by the plain version's per-bounce
-  counters on the same inputs. Where the merged loop, K1a or K5 culls (a
+  counters on the same inputs. Where a kernel culls (K1a-c, K5, on a
   table they do not stage: ``FusedScene.culls``), it needs per ray the
   culled walk's pair and slab tests in the ray's own visit order
   (``mega_culled_bound``: ``culled_tests_needed`` on the rays the plain
@@ -136,7 +141,9 @@ run's data:
   (``scattered``) the light sample (40), a second nearest-hit test and the
   transmittance, phase value and sum (50). An exponential, logarithm, sine,
   cosine, square root or division counts as one operation, which makes the
-  bound a low one;
+  bound a low one. Bytes: what the launch reads per lane (K6a: the ray and
+  its u32 key, 28 B, whatever width the port stores the key in) and writes
+  per lane;
 * a tracking kernel needs, per lane that tracks, the supergrid walk over
   its span (32 per segment the span crosses: three exit times, a minimum,
   a majorant and the running optical depth; counted from the plain
@@ -1349,6 +1356,86 @@ def mega_culled_bound(fs, paths, bytes_in, bytes_out, n):
         anyhit_tests=shadow_tests, slab_tests=slabs + shadow_slabs))
 
 
+# --k1b-probe: megakernel.cu's K1b with every shadow ray walked at once on a
+# staged table (K1a's split: "at_once"), and with the staged walk's shadow
+# rays through L1 as well ("at_once_l1"); each an exact edit of the source
+K1B_PROBE_EDITS = {
+    "at_once": (("single_path<WALK, true>(S, center, p, ng, smem);",
+                 "single_path<WALK, WALK == WALK_CULLED>(S, center, p, ng, smem);"),),
+    "at_once_l1": (("single_path<WALK, true>(S, center, p, ng, smem);",
+                    "single_path<WALK, WALK == WALK_CULLED>(S, center, p, ng, smem);"),
+                   ("RowsShadow<PlainRows, WordBits>{PlainRows{smem},\n"
+                    "                                                     WordBits{bits}, T}",
+                    "GlobalShadow{S}")),
+}
+K1B_PROBE_SPP = (4, 64, MAIN_SPP)
+
+
+def phase_k1b_probe(device, cornell, cornell_cam):
+    """Whether nvcc's contraction is what parts K1b from K1c when K1b walks
+    a vertex's last shadow ray at once on a staged table. megakernel.cu is
+    built as the package holds it and with each of K1B_PROBE_EDITS, each
+    with nvcc's default contraction and with -fmad=false; in every build
+    K1b's sums and reject counts are held against the same build's K1c at
+    K1B_PROBE_SPP on Cornell (uniform and cosine, staged), and the pixels
+    that differ at all are counted. If contraction alone parts them, the
+    edited builds differ under the default and match under -fmad=false."""
+    import shutil
+
+    import torch
+
+    from xraytracer_tpu_torch import _build
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.integrators import megakernel as mk
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    jobs = []
+    for variant, edits in {"package": (), **K1B_PROBE_EDITS}.items():
+        src_dir = _build.CSRC_DIR
+        if edits:
+            src_dir = os.path.join(_build.BUILD_DIR, f"k1b_probe_{variant}")
+            shutil.rmtree(src_dir, ignore_errors=True)
+            shutil.copytree(_build.CSRC_DIR, src_dir)
+            path = os.path.join(src_dir, "megakernel.cu")
+            with open(path) as f:
+                text = f.read()
+            for old, new in edits:
+                check(text.count(old) == 1, f"k1b probe: {variant}: no single {old!r}")
+                text = text.replace(old, new)
+            with open(path, "w") as f:
+                f.write(text)
+        src = os.path.join(src_dir, "megakernel.cu")
+        jobs += [(f"k1b_probe_{variant}", src, []),
+                 (f"k1b_probe_{variant}_nofma", src, ["-fmad=false"])]
+    built = build_sources(jobs)
+    st = scene_statics(cornell)
+    cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **cornell_cam)
+    package_lib = mk._lib
+    try:
+        for cosine in (False, True):
+            fs = mk._bake(cornell, st, DEPTH, True, True, cosine, nee_mode="all")
+            check(fs is not None and not fs.culls, "k1b probe: Cornell must stage")
+            view = mk.try_make_fused_spp_render(
+                cornell, st, cam, WIDTH, HEIGHT, 0, DEPTH, nee=True,
+                cosine_sampling=cosine).view
+            for tag, (path, table) in built.items():
+                lib = mk._bind(ctypes.CDLL(path))
+                mk._lib = lambda lib=lib: lib
+                for n_spp in K1B_PROBE_SPP:
+                    got_c, rej_c = mk.mega_spp_persistent(fs, view, 0, n_spp)
+                    got_b, rej_b = mk.mega_spp(fs, view, 0, n_spp)
+                    differ = (got_b != got_c).any(dim=-1) | (rej_b != rej_c)
+                    emit("k1b_probe", build=tag[len("k1b_probe_"):],
+                         case="cornell cosine" if cosine else "cornell uniform",
+                         n_spp=n_spp, pixels_differing=int(differ.sum()),
+                         max_abs_diff=float(torch.abs(got_b - got_c).max()),
+                         first=[int(i) for i in differ.nonzero()[:4, 0]],
+                         ptxas=table.get("mega_spp<staged>"))
+                    del got_c, got_b
+    finally:
+        mk._lib = package_lib
+
+
 def phase_mega_kernels(device, cornell, cornell_cam, reps):
     """Hold the three whole-path kernels against their plain versions on the
     card: Cornell at the main path's shape and at a few samples (uniform and
@@ -1440,9 +1527,11 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
             got_b, rej_b = mk.mega_spp(fs, view, 0, n_spp)
             torch.cuda.synchronize()
             bound = mega_bound(n, t_total, n_lights, stats, 12, 16)
-            # the merged loop culls a table it does not stage
-            bound_c = dict(bound, **mega_culled_bound(fs, log.paths, 12, 16, n),
-                           brute_bound_ms=bound["bound_ms"]) if culled else bound
+            # both loops cull a table they do not stage, and walk the rays
+            # the plain version traced
+            if culled:
+                bound = dict(bound, **mega_culled_bound(fs, log.paths, 12, 16, n),
+                             brute_bound_ms=bound["bound_ms"])
             del log
             for name, got, rej in (("mega_spp_persistent", got_c, rej_c),
                                    ("mega_spp", got_b, rej_b)):
@@ -1457,8 +1546,7 @@ def phase_mega_kernels(device, cornell, cornell_cam, reps):
                 fn = getattr(mk, name)
                 case.update(case=tag, n_spp=n_spp, plain_ms=plain_b,
                             ms=median_ms(lambda: fn(fs, view, 0, n_spp), reps, flush),
-                            **(bound_c if name == "mega_spp_persistent" else bound),
-                            **common)
+                            **bound, **common)
                 cases[name].append(case)
             # per-sample loop vs merged loop (A/B), raster vs morton (bitwise)
             ab = torch.abs(got_b - got_c)
@@ -1939,6 +2027,7 @@ def phase_vol_kernels(device, reps):
         case = compare_radiance(f"vol_path, {label}", got, ref)
         case.update(case=label, n_spp=1, plain_ms=plain_ms,
                     ms=median_ms(lambda: vm.vol_path(vc, o, d, keys), reps, flush),
+                    # in: the ray (24 B) and its u32 key (4 B); out: 12 B
                     **vol_bound(n, n_tris, nee, stats, 28, 12), **common)
         cases["vol_path"].append(case)
         del got, ref
@@ -2627,7 +2716,7 @@ def ptxas_table(text):
                         if f"{len(k)}{k}" in m.group(1)), None)
             if cur == "sweep":  # sweep_kernel<MODE>
                 cur = SWEEP_MODES[int(re.search(r"ILi(\d)E", m.group(1)).group(1))]
-            elif cur in ("mega_spp_persistent", "mega_path"):  # <WALK>
+            elif cur in ("mega_spp_persistent", "mega_path", "mega_spp"):  # <WALK>
                 walk = re.search(r"ILi(\d)E", m.group(1))
                 if walk:
                     cur += "<" + MEGA_WALKS[int(walk.group(1))] + ">"
@@ -2853,43 +2942,55 @@ class MegaWithoutBoxes:
 
 def bind_vol(lib):
     """A volume library of another build, bound through the package's C
-    signatures; a build from before the work order (no ``vol_abi``) takes
-    the spp launchers' arguments without the order."""
+    signatures; a build of an older interface (``vol_abi`` below 2, or no
+    ``vol_abi``: from before the work order) through ``VolOlderAbi``."""
     from xraytracer_tpu_torch.integrators import vol_megakernel as vm
 
-    if hasattr(lib, "vol_abi"):
-        return vm._bind(lib)
-    return VolWithoutOrder(lib)
+    abi = lib.vol_abi() if hasattr(lib, "vol_abi") else 0
+    return vm._bind(lib) if abi >= 2 else VolOlderAbi(lib, abi)
 
 
-class VolWithoutOrder:
-    """The launchers of a volume library from before the work order, called
-    with the package's argument lists (the order dropped: lane i carries
-    view lane i)."""
+class VolOlderAbi:
+    """The launchers of a volume library of interface 0 (no work order: lane
+    i carries view lane i) or 1 (``vol_path`` reads int32 keys only, no
+    stride), called with the package's argument lists, less what that build
+    does not take. int64 keys reach such a ``vol_path`` as that build's
+    wrapper passed them: converted to int32 bits in the call (the tensor
+    found by its pointer in ``KEYS``, where the caller puts it)."""
 
-    ORDER = 10  # the order's offset in the spp launchers
+    ORDER = 10  # the work order's offset in the spp launchers
+    STRIDE = 3  # the keys' stride's offset in vol_path
+    KEYS = {}   # data pointer -> int64 keys tensor
 
-    def __init__(self, lib):
+    def __init__(self, lib, abi):
         from xraytracer_tpu_torch.integrators import vol_megakernel as vm
 
         self._calls = {}
         for name, argtypes in vm._ARGTYPES.items():
+            k = self.STRIDE if name == "vol_path" else (self.ORDER if abi == 0 else None)
             fn = getattr(lib, name)
-            cut = name != "vol_path"
-            fn.argtypes = (argtypes[:self.ORDER] + argtypes[self.ORDER + 1:]) if cut \
-                else argtypes
+            fn.argtypes = argtypes if k is None else argtypes[:k] + argtypes[k + 1:]
             fn.restype = ctypes.c_int
-            self._calls[name] = (fn, cut)
+            self._calls[name] = (fn, k)
         self.lib = lib
+
+    def _vol_path(self, fn, o, d, keys, stride, *rest):
+        from xraytracer_tpu_torch.integrators import megakernel as mk
+
+        if stride == 1:
+            return fn(o, d, keys, *rest)
+        k32 = mk._i32_bits(self.KEYS[keys])
+        return fn(o, d, k32.data_ptr(), *rest)
 
     def __getattr__(self, name):
         if name.startswith("_"):
             raise AttributeError(name)
         if name not in self._calls:
             return getattr(self.lib, name)
-        fn, cut = self._calls[name]
-        k = self.ORDER
-        return (lambda *a: fn(*a[:k], *a[k + 1:])) if cut else fn
+        fn, k = self._calls[name]
+        if name == "vol_path":
+            return lambda *a: self._vol_path(fn, *a)
+        return fn if k is None else (lambda *a: fn(*a[:k], *a[k + 1:]))
 
 
 def mega_ab_cases(device, ab_, cornell, builds, reps):
@@ -3030,9 +3131,10 @@ def vol_ab_cases(device, ab_, builds, reps):
     medium variant with and without NEE and on a box of g = 0.6, K6c at the
     main launch on the lanes whose pixels may reach the box alone and on
     the others alone (``vol_megakernel.reach_cost`` > 0), in two other
-    orders, and on morton lanes. Returns what the timeline and the
+    orders, and on morton lanes. Returns what the timelines and the
     instruction count need: the main launch's scene, view and work
-    order."""
+    order, and K6a's inputs on vpt mis without and with NEE ({label: (vc,
+    o, d, keys)})."""
     import torch
 
     from xraytracer_tpu_torch.camera import PinholeCamera
@@ -3047,6 +3149,7 @@ def vol_ab_cases(device, ab_, builds, reps):
     cam = PinholeCamera.make(w / h, device=device, **presets.preset_vpt(device=device)[1])
     turns = MEGA_AB_TURNS
     main = None
+    paths = {}
 
     def ab(*args, **kw):
         ab_(*args, builds=builds, **kw)
@@ -3063,10 +3166,17 @@ def vol_ab_cases(device, ab_, builds, reps):
         view = vm.try_make_fused_volume_spp_render(tables, st, cam, w, h, 0, depth,
                                                    nee=nee).view
         order = vm.work_order(vc, view)
+        keys, o, d = mk._camera_rays_plain(view, 0)
+        VolOlderAbi.KEYS[keys.data_ptr()] = keys
+        # int64 keys as the renderer passes them, and their int32 bits made
+        # beforehand (the launch alone)
+        k32 = mk._i32_bits(keys)
+        ab("vol_path", f"{label}, camera rays", lambda: vm.vol_path(vc, o, d, keys),
+           turns=turns, reps_=4 * reps)
+        ab("vol_path", f"{label}, camera rays, int32 keys",
+           lambda: vm.vol_path(vc, o, d, k32), turns=turns, reps_=4 * reps)
         if variant == "mis" and not g:
-            keys, o, d = mk._camera_rays_plain(view, 0)
-            ab("vol_path", f"{label}, camera rays", lambda: vm.vol_path(vc, o, d, keys),
-               turns=turns, reps_=4 * reps)
+            paths[label] = (vc, o, d, keys)
         spps = [VOL_CHECK_SPP]
         if variant == "mis" and not g:
             spps.append(VPT_NEE_SPP if nee else cfg.spp)
@@ -3103,7 +3213,7 @@ def vol_ab_cases(device, ab_, builds, reps):
     order = vm.work_order(vc, morton)
     ab("vol_spp_persistent", f"vpt mis, {cfg.spp} spp, morton lane order",
        lambda: vm.vol_spp_persistent(vc, morton, 0, cfg.spp, order), turns=turns, reps_=3)
-    return vc, view, main_order
+    return vc, view, main_order, paths
 
 
 # a build that stamps every warp's start and end (csrc/vol_megakernel.cu)
@@ -3311,11 +3421,15 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
     gradient step and the trainer over each build (``grad_steps_ab``).
 
     The whole-path volume kernels (K6a-c), from every build whose sources
-    of them differ (``vol_ab_cases``): sums and rejection counts
-    bitwise, MEGA_AB_TURNS turns; then the package's timeline build
-    (VOL_TIMELINE) on K6c and K6b at the vpt launch (``vol_timeline``), the
-    package's SASS by region of ``vol_path.cuh`` (``vol_sass_regions``) and
-    the instruction-slot figure of K6c's iterations (``vol_slot_bound``).
+    of them differ (``vol_ab_cases``): sums, rejection counts and K6a's
+    radiance bitwise, MEGA_AB_TURNS turns (K6a with the int64 keys the
+    renderer passes and with their int32 bits made beforehand); then the
+    package's timeline build (VOL_TIMELINE) on K6c and K6b at the vpt
+    launch and on K6a on the camera rays of vpt mis without and with NEE,
+    with an empty launch of K6a's grid and of the card's resident grid
+    (``vol_timeline``), the package's SASS by region of ``vol_path.cuh``
+    (``vol_sass_regions``) and the instruction-slot figure of K6c's
+    iterations (``vol_slot_bound``).
     Each section runs only where some build differs from the package
     there."""
     import torch
@@ -3451,7 +3565,7 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
             mega_ab_cases(device, ab, cornell, mega_names, reps)
             grad_steps_ab(device, cornell, mega_names, use)
         if len(vol_names) > 1:
-            vc, view, order = vol_ab_cases(device, ab, vol_names, reps)
+            vc, view, order, paths = vol_ab_cases(device, ab, vol_names, reps)
             cfg = get_preset("vpt")
             for which, name in ((2, "vol_spp_persistent"), (1, "vol_spp")):
                 use("timeline")
@@ -3459,6 +3573,23 @@ def phase_csrc_ab(device, nee_scene, volume_scene, others, reps):
                 emit("vol_timeline", kernel=name, case=f"vpt mis, {cfg.spp} spp",
                      **vol_timeline(vol_libs["timeline"], which,
                                     lambda: fn(vc, view, 0, cfg.spp, order), view.n))
+            # K6a on the camera rays of sample 0, and an empty launch of its grid
+            tl = vol_libs["timeline"]
+            tl.vol_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            tl.vol_empty.restype = ctypes.c_int
+            for label, (pvc, o, d, keys) in paths.items():
+                use("timeline")
+                tlr = vol_timeline(tl, 0, lambda: vm.vol_path(pvc, o, d, keys), o.shape[0])
+                # an empty launch of one thread per ray, and of the grid the
+                # card keeps resident
+                empty = {}
+                for what, lanes in (("one_per_ray", o.shape[0]),
+                                    ("resident", tlr["blocks_per_sm"] * tlr["sms"] * 128)):
+                    empty[what] = median_ms(
+                        lambda lanes=lanes: check(tl.vol_empty(lanes, kernels._stream()) == 0,
+                                                  "vol_empty launch failed"), 4 * reps, flush)
+                emit("vol_timeline", kernel="vol_path", case=f"{label}, camera rays",
+                     **tlr, empty_launch_ms=empty)
             use("package")
             regions = vol_sass_regions(vol_src)
             emit("vol_sass", source="package", regions=regions)
@@ -5043,6 +5174,11 @@ def main():
     ap.add_argument("--ab-only", action="store_true",
                     help="with --ab-csrc: run that comparison alone and stop "
                          "(no result line)")
+    ap.add_argument("--k1b-probe", action="store_true",
+                    help="build megakernel.cu with K1b walking every shadow ray "
+                         "at once on a staged table, with and without -fmad=false, "
+                         "count the pixels where K1b parts from K1c, and stop "
+                         "(no result line)")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per kernel and case (median)")
     args = ap.parse_args()
@@ -5091,6 +5227,10 @@ def main():
     check((cfg.width, cfg.height, cfg.max_depth, cfg.integrator) ==
           (WIDTH, HEIGHT, DEPTH, "gi"), "cornellbox_gi preset changed")
     cornell, cornell_cam = cli.build_scene(cfg, device=device)
+    if args.k1b_probe:
+        phase_k1b_probe(device, cornell, cornell_cam)
+        emit("total", seconds=time.perf_counter() - t_start)
+        return 0
     mesh, mesh_cam = mesh_scene(device)
 
     entries = phase_kernels(device, {

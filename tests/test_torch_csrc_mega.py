@@ -6,9 +6,15 @@ g++ compiles ``mega_path.cuh`` under the shim of
 ``tests/test_torch_csrc_tracking.py`` (plus ``make_float4``), without fused
 multiply-adds. A host program runs, per pixel lane,
 
-* the per-sample loop of ``mega_spp`` (``start_sample``, then ``bounce``
+* the per-sample loop over ``bounce`` (``start_sample``, then ``bounce``
   until the path ends: the nearest walk, then each light sample's shadow
-  walk over the blocks copy of the table, stopping at its first blocker);
+  walk over the blocks copy of the table, stopping at its first blocker),
+  the reference every walk is held to;
+* the per-sample loop of ``mega_spp`` (K1b) for a "warp" of 32 lanes: each
+  sample a whole path by K1a's single-path lane (``pass_rays`` / walk /
+  ``path_end``, each vertex's last shadow ray deferred into the next walk),
+  the warp's vote ending the sample, on the staged walk and on the culled
+  walk;
 * the merged loop of ``mega_spp_persistent`` (``k1c_begin``, one walk of
   the lane's path ray and pending shadow ray, ``k1c_end``) for a "warp" of
   32 lanes in lockstep, whose votes are a loop over them, with each of its
@@ -19,8 +25,8 @@ multiply-adds. A host program runs, per pixel lane,
   chunk table's culled walk (``culled_pair_walk`` over
   ``kernels.chunk_boxes``' boxes, plane first);
 
-and holds the merged loop's radiance sums and rejection counts bitwise the
-per-sample loop's on every pixel, and both against the plain version
+and holds the merged loop's and K1b's radiance sums and rejection counts
+bitwise the ``bounce`` loop's on every pixel, and both against the plain version
 ``megakernel.mega_spp_plain`` inside ``chip_smoke.py``'s K1 gates (pixels
 beyond rtol 1e-4 / atol 1e-5 at most max(1, 2e-4 N), the mean within 1e-3,
 reject counts equal; glibc's ``sinf`` / ``cosf`` are not PyTorch's).
@@ -212,6 +218,81 @@ void rh_spp_merged(int walk, int s0, int n_spp, const int32_t* pixfold,
   *out_passes = passes;
   *out_shadows = shadows;
 }
+
+// mega_spp_kernel's lanes, a warp of 32 at a time: per sample, K1a's
+// single-path lane (megakernel.cu's single_path) from each lane's camera
+// ray, a pass at a time, until the warp's vote ends the sample, each
+// vertex's last shadow ray deferred into the next walk; walk 0: every row
+// by the whole pair test, the bits as words, the other shadow rays walked
+// at once over the same rows (a table staged whole); 2: the culled walk,
+// the other shadow rays walked at once over the blocks copy.
+// ``out_passes``: the passes the warps took
+void rh_spp_single(int walk, int s0, int n_spp, const int32_t* pixfold,
+                   const float* px, const float* py, int n, const float* cam16,
+                   unsigned cam_site, SCENE_PARAMS, const uint32_t* words,
+                   float* out_sum, int32_t* out_rej, int* out_passes) {
+  const MegaScene S = scene_from(SCENE_ARGS);
+  const MegaCamera C = camera_from(cam16, cam_site);
+  const float3 center = ld3(S.center);
+  const int T = S.t_total;
+  NoGrad ng;
+  int passes = 0;
+  for (int w0 = 0; w0 < n; w0 += 32) {
+    HostWarp w;
+    Path p[32];
+    Pending pend[32];
+    float3 acc[32];
+    int rej[32];
+    for (int i = 0; i < 32; ++i) {
+      acc[i] = make_float3(0.f, 0.f, 0.f);
+      rej[i] = 0;
+    }
+    for (int s = 0; s < n_spp; ++s) {
+      for (int i = 0; i < 32; ++i) {
+        const int r = w0 + i;
+        const bool live = r < n;
+        start_sample(C, live ? (uint32_t)pixfold[r] : 0u, live ? px[r] : 0.f,
+                     live ? py[r] : 0.f, (uint32_t)(s0 + s), p[i]);
+        p[i].act = live;
+        pend[i].on = false;
+      }
+      for (int pass = 0; pass <= S.max_depth; ++pass) {
+        bool any = false;
+        for (int i = 0; i < 32; ++i)
+          any |= pass_rays(center, p[i], pend[i], w.path[i], w.shadow[i]);
+        if (!w.vote(any)) break;
+        ++passes;
+        if (walk == 2)
+          culled_pair_walk(w, S.boxes, PlainRows{S.coef}, ByteBits{S.blocks}, T);
+        else
+          for (int i = 0; i < 32; ++i)
+            test_pair_rows<false>(PlainRows{S.coef}, WordBits{words}, 0, T,
+                                  w.path[i], w.shadow[i], !w.path[i].done,
+                                  !w.shadow[i].done);
+        for (int i = 0; i < 32; ++i) {
+          const int row = w.path[i].best_i;
+          const bool blocked = w.shadow[i].best_i >= 0;
+          if (walk == 2)
+            path_end<true>(S, center, p[i], pend[i], ng, row, blocked,
+                           PlainRows{S.tri_rec}, GlobalShadow{S});
+          else
+            path_end<true>(S, center, p[i], pend[i], ng, row, blocked,
+                           PlainRows{S.tri_rec},
+                           RowsShadow<PlainRows, WordBits>{PlainRows{S.coef},
+                                                           WordBits{words}, T});
+        }
+      }
+      for (int i = 0; i < 32; ++i) add_sample(p[i].L, acc[i], rej[i]);
+    }
+    for (int i = 0; i < 32 && w0 + i < n; ++i) {
+      out_sum[3 * (w0 + i)] = acc[i].x;
+      out_sum[3 * (w0 + i) + 1] = acc[i].y;
+      out_sum[3 * (w0 + i) + 2] = acc[i].z;
+      out_rej[w0 + i] = rej[i];
+    }
+  }
+  *out_passes = passes;
+}
 }
 """
 
@@ -243,7 +324,8 @@ def lib(tmp_path_factory):
     h.rh_coeffs.argtypes = [_I] + [_P] * 8
     h.rh_spp.argtypes = _VIEW + _SCENE + [_P, _P]
     h.rh_spp_merged.argtypes = [_I] + _VIEW + _SCENE + [_P] * 5
-    for fn in (h.rh_coeffs, h.rh_spp, h.rh_spp_merged):
+    h.rh_spp_single.argtypes = [_I] + _VIEW + _SCENE + [_P] * 4
+    for fn in (h.rh_coeffs, h.rh_spp, h.rh_spp_merged, h.rh_spp_single):
         fn.restype = None
     return h
 
@@ -338,10 +420,10 @@ class Case:
                       _ptr(center), _ptr(self.coef), _ptr(self.coef_blocks))
         self.rec = tables.tri_rec.contiguous()
         self.n_groups = -(-(-(-t_total // kernels.SWEEP_CHUNK)) // kernels.SWEEP_GROUP)
-        self.boxes = None
-        if self.fs.culls:
-            self.boxes, _ = kernels.chunk_boxes(tables.tri_v0, tables.tri_e1,
-                                                tables.tri_e2, self.fs.valid, center)
+        # the chunk table, also for a table the kernels stage, so that the
+        # culled walk can be rehearsed on every scene
+        self.boxes, _ = kernels.chunk_boxes(tables.tri_v0, tables.tri_e1,
+                                            tables.tri_e2, self.fs.valid, center)
         blocks = self.fs.blocks.numpy().astype(np.uint64)
         pad = np.zeros(-(-t_total // 32) * 32, np.uint64)
         pad[:t_total] = blocks
@@ -379,6 +461,14 @@ class Case:
                           _ptr(self.words),
                           _ptr(acc), _ptr(rej), ctypes.byref(passes), ctypes.byref(shadows))
         return acc, rej, passes.value, shadows.value
+
+    def single(self, lib, walk, n_spp=N_SPP):
+        n = self.view.n
+        acc, rej = torch.empty((n, 3)), torch.empty((n,), dtype=torch.int32)
+        passes = ctypes.c_int()
+        lib.rh_spp_single(walk, *self.view_args(n_spp), *self.scene_args(),
+                          _ptr(self.words), _ptr(acc), _ptr(rej), ctypes.byref(passes))
+        return acc, rej, passes.value
 
 
 _CASES = {}
@@ -423,6 +513,27 @@ def test_merged_loop_bitwise_per_sample_loop(lib, name):
 
 
 @pytest.mark.parametrize("name", list(SCENES))
+def test_spp_kernel_lane_bitwise_bounce_loop(lib, name):
+    """``mega_spp``'s lane (a sample at a time, each a whole path by K1a's
+    single-path lane, the warp's vote ending each sample) gives the sums
+    and rejection counts of the per-sample ``bounce`` loop bit for bit, on
+    the staged walk and on the culled walk (which the kernel takes for a
+    table over 64 rows; here on every scene, so that deferred shadow rays
+    meet blockers, as in the Cornell box)."""
+    case = _case(lib, name)
+    ref, ref_rej = case.per_sample(lib)
+    warps = -(-case.view.n // 32)
+    for walk in (WALK_WORDS, WALK_CULLED):
+        got, rej, passes = case.single(lib, walk)
+        assert torch.equal(got, ref), (
+            f"{name}, walk {walk}: {int((got != ref).any(dim=-1).sum())} pixels differ")
+        assert torch.equal(rej, ref_rej), (name, walk)
+        # a sample takes at least one pass a warp, and at most a pass a
+        # bounce and one for its last shadow ray
+        assert N_SPP * warps <= passes <= N_SPP * warps * (case.fs.max_depth + 1)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
 def test_loops_within_k1_gates_of_plain(lib, name):
     """The per-sample loop and the merged loop against ``mega_spp_plain`` (the
     wavefront integrator over the plain sweep, sample by sample) inside the
@@ -455,6 +566,21 @@ def test_stage_rows_match_the_launcher():
         rows = re.search(r"constexpr int MEGA_STAGE_ROWS = (\d+);", f.read())
     assert rows is not None
     assert int(rows.group(1)) == mk.MEGA_STAGE_ROWS
+
+
+@pytest.mark.parametrize("variant", ["at_once", "at_once_l1"])
+def test_k1b_probe_edits_apply_to_the_source(variant):
+    """``chip_smoke.py --k1b-probe`` builds megakernel.cu with exact edits
+    of its text: each edit's text occurs once in the source, so the probe
+    builds the design it names."""
+    import chip_smoke
+
+    with open(os.path.join(CSRC, "megakernel.cu")) as f:
+        text = f.read()
+    for old, new in chip_smoke.K1B_PROBE_EDITS[variant]:
+        assert text.count(old) == 1, (variant, old)
+        text = text.replace(old, new)
+    assert "single_path<WALK, WALK == WALK_CULLED>(S, center, p, ng, smem);" in text
 
 
 @pytest.mark.parametrize("name", list(SCENES))

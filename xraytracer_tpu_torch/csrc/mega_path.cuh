@@ -11,8 +11,10 @@
 //                      (nearest_row), then the shading, whose light samples
 //                      each walk their shadow ray at once over the blocks
 //                      copy of the table (any_hit, which stops at the first
-//                      blocker). K1b takes this; it is the reference the
-//                      others are held to.
+//                      blocker). No kernel launches it: it is the reference
+//                      the host rehearsals (tests/test_torch_csrc_mega.py,
+//                      tests/test_torch_csrc_grad_surface.py) hold the
+//                      other walks to.
 //   k1c_begin / walk / k1c_end
 //                      the merged loop's pass: a lane carries two rays into
 //                      the walk, its path ray and the shadow ray of its
@@ -25,11 +27,12 @@
 //                      only when some lane's path ray or shadow ray enters
 //                      its box before its best t resp. its t_max). The
 //                      shadow ray reads the row's blocks bit and does not
-//                      stop at its first blocker. K1a and K5 run the same
-//                      pass with one sample a lane and its ray given
-//                      (pass_rays / walk / path_end; K5 without deferring,
-//                      every shadow ray walked at once by a walker over the
-//                      staged rows or the blocks copy).
+//                      stop at its first blocker. K1a, K1b and K5 run the
+//                      same pass with one sample a lane at a time, its ray
+//                      given or its sample's camera ray (pass_rays / walk /
+//                      path_end; K5, and K1a on a staged table, without
+//                      deferring: every shadow ray walked at once by a
+//                      walker over the staged rows or the blocks copy).
 //
 // Bitwise the per-sample loop. The nearest rule is the same in both (strict
 // t < best, rows in ascending order, so the first row wins exact ties; a
@@ -616,7 +619,7 @@ __device__ __forceinline__ void shade(const MegaScene& S, const float3 center,
 }
 
 // One bounce of an active path with its light samples' shadow rays walked
-// inline (K1b; the reference of the single-path lane below).
+// inline: the reference of the walks below (no kernel launches it).
 template <class J>
 __device__ __forceinline__ void bounce(const MegaScene& S, const float3 center,
                                        Path& p, J& jac) {
@@ -639,7 +642,7 @@ __device__ __forceinline__ void start_path(Path& p, bool live, uint32_t key,
   p.d = d;
 }
 
-// A pass's two rays (K1c, K1a, K5): ``a`` the path ray (done: none), ``s``
+// A pass's two rays (K1a-c, K5): ``a`` the path ray (done: none), ``s``
 // the pending shadow ray (done: none). Returns whether there is a ray.
 __device__ __forceinline__ bool pass_rays(float3 center, const Path& p,
                                           const Pending& pend, SweepRay& a,
@@ -655,11 +658,12 @@ __device__ __forceinline__ bool pass_rays(float3 center, const Path& p,
   return p.act | pend.on;
 }
 
-// The single-path lane (K1a, K5) after a pass's walk found the path ray's
-// row (-1: none) and whether the pending shadow ray is blocked: the pending
-// term joins L, then the hit is shaded. With DEFER (K1a) the vertex's last
-// light sample waits for the next walk, as in K1c; without (K5), its shadow
-// ray is walked at once by ``sw`` as the others are. The path is done when
+// The single-path lane (K1a, K1b, K5) after a pass's walk found the path
+// ray's row (-1: none) and whether the pending shadow ray is blocked: the
+// pending term joins L, then the hit is shaded. With DEFER (K1b; K1a on a
+// culled table) the vertex's last light sample waits for the next walk, as
+// in K1c; without (K5; K1a on a staged table), its shadow ray is walked at
+// once by ``sw`` as the others are. The path is done when
 // it is no longer active and nothing is pending; every sum is the per-path
 // bounce's (the argument at the top of this file, with one sample a lane).
 template <bool DEFER, class J, class R, class SW>
@@ -678,7 +682,7 @@ __device__ __forceinline__ void path_end(const MegaScene& S, float3 center,
 }
 
 // Key and camera ray of sample ``s`` of one pixel (path_common.cuh), and a
-// fresh path.
+// fresh path (K1b, K1c).
 __device__ __forceinline__ void start_sample(const MegaCamera& C,
                                              uint32_t pixfold, float px,
                                              float py, uint32_t s, Path& p) {

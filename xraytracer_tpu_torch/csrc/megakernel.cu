@@ -35,9 +35,9 @@
 //                        sample a lane and its ray given.
 //   mega_spp             per pixel, a loop over samples s0 .. s0+n_spp-1:
 //                        key = pcg(pixfold + s), jittered pinhole ray, the
-//                        path, rejection of a NaN / Inf / negative sample,
-//                        sum. A warp starts sample s+1 only when its slowest
-//                        lane has finished sample s.
+//                        path by mega_path's lane, rejection of a NaN / Inf
+//                        / negative sample, sum. A warp starts sample s+1
+//                        only when its slowest lane has finished sample s.
 //   mega_spp_persistent  the same render with the sample loop and the bounce
 //                        loop merged: each pass of the single loop runs one
 //                        bounce, and a lane whose path has ended starts its
@@ -96,16 +96,22 @@
 //     Lanes past n and lanes done with their samples keep voting until
 //     their warp is done.
 //
-// K1a and K5 take the same walks (`single_path`: a pass per bounce and one
-// for the last shadow ray, staged or culled by the same line): on the
-// 3,072-row table K1a's launch fell from 8.31 to 0.57 ms, on Cornell 9%
-// (PERF.md, section 6). K1a defers its last light sample as K1c
-// does; K5 walks every shadow ray at once (over the staged rows, or
-// through L1), since a deferred sample would carry 9M + 3 sums (measured
-// 19% slower on Cornell). K1b keeps the walk of a bounce at a time
-// (mega_path.cuh's `bounce`: the nearest walk, then each light sample's
-// shadow walk over the blocks copy, stopping at its first blocker), through
-// L1.
+// K1a, K1b and K5 take the same walks (`single_path`: a pass per bounce
+// and one for the last shadow ray, staged or culled by the same line; K1b
+// runs it once per sample, from the sample's camera ray): on the 3,072-row
+// table K1a's launch fell from 8.31 to 0.57 ms and K1b's (4 spp) from 30.7
+// to 2.1 ms, on Cornell 9% and 16% (PERF.md, section 6). K1a on a culled
+// table and K1b on both defer a vertex's last light sample as K1c does, and
+// walk it on the next pass (K1b: so that its sums stay K1c's on the card);
+// K1a on a staged table walks every shadow ray at once over the staged
+// rows. Carrying a sample's last shadow ray into the next sample's
+// camera-ray pass (K1c's way across samples) measured no faster for K1b,
+// nor did eight blocks per SM. K5 walks every shadow ray
+// at once (over the staged rows, or through L1), since a deferred sample
+// would carry 9M + 3 sums (measured 19% slower on Cornell). mega_path.cuh's
+// `bounce` (the nearest walk, then each light sample's shadow walk over the
+// blocks copy, stopping at its first blocker, through L1) is launched by no
+// kernel: it is the reference the host rehearsals hold every walk to.
 //
 // Winner rule: strict t < best while walking rows upwards, first index wins
 // exact ties, as in sweep.cu (the Pallas key keeps the lowest row among hits
@@ -143,17 +149,13 @@ constexpr int MEGA_BLOCK = 128;
 // integrators/megakernel.py::MEGA_STAGE_ROWS decides which tables get a
 // chunk table, and must equal it.
 constexpr int MEGA_STAGE_ROWS = 64;
-// K1c's and K1a's blocks per SM: seven at 72 registers (204 B of spill
-// stores) ran the main path's launch 4% faster than no minimum (at most 96
-// registers, no spills), six 2% faster, eight 4% slower (PERF.md, section
-// 6). A pixel's samples are one lane's sum, so the frame's 3,565 blocks run
-// in whole waves: seven per SM take four waves of 924.
+// The render kernels' blocks per SM (K1a-c): seven at 72 registers (204 B
+// of spill stores) ran K1c's main-path launch 4% faster than no minimum (at
+// most 96 registers, no spills), six 2% faster, eight 4% slower; K1a and
+// K1b at eight (64 registers, more spills) were no faster (PERF.md,
+// section 6). A pixel's samples are one lane's sum, so the frame's 3,565
+// blocks run in whole waves: seven per SM take four waves of 924.
 constexpr int MEGA_MIN_BLOCKS = 7;
-// K1b's: eight, at most 64 registers (with spills) as before its bounce
-// moved into mega_path.cuh, which let it take 72; at 72, K1b on a
-// 3,072-row table ran 1.0-1.3% slower than at 64, outside its turns'
-// spread (PERF.md, section 6). K1a at eight was no faster than at seven.
-constexpr int MEGA_PATH_MIN_BLOCKS = 8;
 
 __global__ void __launch_bounds__(MEGA_BLOCK)
 mega_coeffs_kernel(const float* __restrict__ v0, const float* __restrict__ e1,
@@ -179,32 +181,7 @@ mega_coeffs_kernel(const float* __restrict__ v0, const float* __restrict__ e1,
   coef_blocks[4 * j + 3] = g.f3;
 }
 
-__global__ void __launch_bounds__(MEGA_BLOCK, MEGA_PATH_MIN_BLOCKS)
-mega_spp_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
-                const int32_t* __restrict__ pixfold,
-                const float* __restrict__ px, const float* __restrict__ py,
-                int n, float* __restrict__ out_sum, int* __restrict__ out_rej) {
-  const int i = blockIdx.x * MEGA_BLOCK + threadIdx.x;
-  if (i >= n) return;
-  const float3 center = ld3(S.center);
-  const uint32_t fold = (uint32_t)pixfold[i];
-  const float x = px[i], y = py[i];
-  float3 acc = make_float3(0.f, 0.f, 0.f);
-  int rej = 0;
-  Path p;
-  NoGrad ng;
-  for (int s = 0; s < n_spp; ++s) {
-    start_sample(C, fold, x, y, (uint32_t)(s0 + s), p);
-    while (p.act && p.it < S.max_depth) bounce(S, center, p, ng);
-    add_sample(p.L, acc, rej);
-  }
-  out_sum[3 * i + 0] = acc.x;
-  out_sum[3 * i + 1] = acc.y;
-  out_sum[3 * i + 2] = acc.z;
-  out_rej[i] = rej;
-}
-
-// How a K1c, K1a or K5 launch reads its table, by the table's size alone: at most
+// How a launch reads its table, by the table's size alone: at most
 // MEGA_STAGE_ROWS rows are staged into each block's shared memory and
 // walked whole (WALK_STAGED), a larger table is read through L1 by the
 // culled walk (WALK_CULLED).
@@ -331,6 +308,49 @@ __device__ __forceinline__ void single_path(const MegaScene& S, float3 center,
   }
 }
 
+// K1b: per pixel lane, samples s0 .. s0 + n_spp - 1 one after the other,
+// each a whole path by K1a's lane (single_path), its sum joined in sample
+// order. On both walks a vertex's last light sample is deferred into the
+// next walk, as K1c walks it. Walked at once inside the pass (K1a's split),
+// 4 of Cornell's 456,300 pixels at 512 spp parted from K1c's sums, and none
+// with both built under -fmad=false: nvcc contracts the two walks'
+// arithmetic differently (chip_smoke.py --k1b-probe; PERF.md, section 6).
+// On the culled walk a warp's votes end each sample: lanes past n and lanes
+// whose sample has ended vote until their warp's slowest lane has finished.
+template <int WALK>
+__global__ void __launch_bounds__(MEGA_BLOCK, MEGA_MIN_BLOCKS)
+mega_spp_kernel(MegaScene S, MegaCamera C, int s0, int n_spp,
+                const int32_t* __restrict__ pixfold,
+                const float* __restrict__ px, const float* __restrict__ py,
+                int n, float* __restrict__ out_sum, int* __restrict__ out_rej) {
+  extern __shared__ float4 smem[];
+  const int i = blockIdx.x * MEGA_BLOCK + threadIdx.x;
+  const bool live = i < n;
+  if (WALK == WALK_STAGED) {
+    stage_table(S, smem);
+    __syncthreads();
+    if (!live) return;
+  }
+  const float3 center = ld3(S.center);
+  const uint32_t fold = live ? (uint32_t)pixfold[i] : 0u;
+  const float x = live ? px[i] : 0.f, y = live ? py[i] : 0.f;
+  float3 acc = make_float3(0.f, 0.f, 0.f);
+  int rej = 0;
+  Path p;
+  NoGrad ng;
+  for (int s = 0; s < n_spp; ++s) {
+    start_sample(C, fold, x, y, (uint32_t)(s0 + s), p);
+    p.act = live;
+    single_path<WALK, true>(S, center, p, ng, smem);
+    add_sample(p.L, acc, rej);
+  }
+  if (!live) return;
+  out_sum[3 * i + 0] = acc.x;
+  out_sum[3 * i + 1] = acc.y;
+  out_sum[3 * i + 2] = acc.z;
+  out_rej[i] = rej;
+}
+
 // K1a: radiance of one whole path per ray. Lanes past n stage, and (culled)
 // vote until their warp is done.
 template <int WALK>
@@ -353,7 +373,8 @@ mega_path_kernel(MegaScene S, const float* __restrict__ o,
              live ? load3(d, i) : zero);
   NoGrad ng;
   // the staged walk walks every shadow ray at once, the culled walk defers
-  // the last light sample of a vertex (PERF.md, section 6)
+  // the last light sample of a vertex (PERF.md, section 6); staged, a path
+  // is therefore not always bitwise K1c's (see K1b above)
   single_path<WALK, WALK == WALK_CULLED>(S, center, p, ng, smem);
   if (!live) return;
   out[3 * i + 0] = p.L.x;
@@ -505,8 +526,15 @@ int mega_spp(int s0, int n_spp, const int32_t* pixfold, const float* px,
   const xrt::MegaScene S = xrt::prepare(XRT_SCENE_ARGS, st);
   const xrt::MegaCamera C = xrt::camera_from(cam16, cam_site);
   const int grid = (n + xrt::MEGA_BLOCK - 1) / xrt::MEGA_BLOCK;
-  xrt::mega_spp_kernel<<<grid, xrt::MEGA_BLOCK, 0, st>>>(
-      S, C, s0, n_spp, pixfold, px, py, n, out_sum, out_rej);
+  if (boxes != nullptr)
+    xrt::mega_spp_kernel<xrt::WALK_CULLED><<<grid, xrt::MEGA_BLOCK, 0, st>>>(
+        S, C, s0, n_spp, pixfold, px, py, n, out_sum, out_rej);
+  else if (t_total <= xrt::MEGA_STAGE_ROWS)
+    xrt::mega_spp_kernel<xrt::WALK_STAGED>
+        <<<grid, xrt::MEGA_BLOCK, xrt::stage_bytes(t_total), st>>>(
+            S, C, s0, n_spp, pixfold, px, py, n, out_sum, out_rej);
+  else  // the caller passes the chunk table's boxes for every larger table
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

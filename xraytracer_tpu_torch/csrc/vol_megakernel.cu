@@ -23,6 +23,16 @@
 // a lane starts its next sample at once; each lane still adds its own
 // samples in ascending order, so its sums are those of vol_spp.
 //
+// K6a (vol_path) runs one thread per ray. Its launch on the vpt camera
+// rays lasts about as long as its longest path (a chain of up to 22
+// dependent iterations: the longest warp 0.0195 ms of a 0.024 ms launch,
+// PERF.md section 6), so no order of the rays can shorten it much; a queue
+// of rays taken by resident lanes measured 21% slower (a refill mixes rays
+// that miss the box with rays that enter it in one warp). It reads the path
+// keys as the callers hold them (uint32 values in int64, each one's low
+// word), so they need no conversion around the launch: five tensor
+// operations that took as long as the launch itself (PERF.md, section 6).
+//
 // A pixel's samples are one lane's sum in order, so a pixel is the smallest
 // unit of work, and on the vpt preset 56% of the pixels reach the medium
 // (paths of ~2.4 iterations a sample) while the others end after one. The
@@ -39,7 +49,8 @@
 //
 // VOL_TIMELINE (a measurement build, compiled by chip_smoke.py only): every
 // warp of the last launch writes the %globaltimer at its start and end and
-// its %smid into a device buffer that vol_timeline copies out.
+// its %smid into a device buffer that vol_timeline copies out; vol_empty
+// launches an empty kernel of a given grid (a launch's fixed cost).
 
 #include "vol_path.cuh"
 
@@ -70,25 +81,34 @@ __device__ __forceinline__ void timeline_stamp(bool end) {
   }
 }
 #define VOL_STAMP(end) timeline_stamp(end)
+
+__global__ void __launch_bounds__(VOL_BLOCK) vol_empty_kernel() {}
 #else
 #define VOL_STAMP(end)
 #endif
 
+// K6a: one volume path per ray, one thread per ray. ``keys`` holds the
+// rays' path keys as int32 words, one every ``key_stride`` words: 1 for
+// int32 bits, 2 for the uint32 values the port keeps in int64 (the low word
+// of each, little-endian as the card is: the same 32 bits).
 __global__ void __launch_bounds__(VOL_BLOCK)
 vol_path_kernel(VolScene S, const float* __restrict__ o,
                 const float* __restrict__ d, const int32_t* __restrict__ keys,
-                int n, float* __restrict__ out) {
+                int key_stride, int n, float* __restrict__ out) {
+  VOL_STAMP(false);
   const int i = blockIdx.x * VOL_BLOCK + threadIdx.x;
-  if (i >= n) return;
-  VolPath p;
-  start_path(p);
-  p.key = (uint32_t)keys[i];
-  p.o = load3(o, i);
-  p.d = load3(d, i);
-  while (p.act && p.it < S.n_iterations) vol_bounce(S, p);
-  out[3 * i + 0] = p.L.x;
-  out[3 * i + 1] = p.L.y;
-  out[3 * i + 2] = p.L.z;
+  if (i < n) {
+    VolPath p;
+    start_path(p);
+    p.key = (uint32_t)keys[(size_t)i * key_stride];
+    p.o = load3(o, i);
+    p.d = load3(d, i);
+    while (p.act && p.it < S.n_iterations) vol_bounce(S, p);
+    out[3 * i + 0] = p.L.x;
+    out[3 * i + 1] = p.L.y;
+    out[3 * i + 2] = p.L.z;
+  }
+  VOL_STAMP(true);
 }
 
 // K6b: grid lane i carries the pixel of view lane order[i] and writes that
@@ -149,13 +169,16 @@ extern "C" {
 // ``fc``, ``ic`` and ``cam16`` are HOST arrays (vol_scene_from; camera_from
 // of path_common.cuh).
 
-int vol_path(const float* o, const float* d, const int32_t* keys, int n,
-             const float* fc, const int* ic, float* out, void* stream) {
+// ``key_stride``: 1 (int32 keys) or 2 (int64 keys, their low words).
+int vol_path(const float* o, const float* d, const int32_t* keys,
+             int key_stride, int n, const float* fc, const int* ic, float* out,
+             void* stream) {
   if (n <= 0) return 0;
+  if (key_stride != 1 && key_stride != 2) return (int)cudaErrorInvalidValue;
   const xrt::VolScene S = xrt::vol_scene_from(fc, ic);
   const int grid = (n + xrt::VOL_BLOCK - 1) / xrt::VOL_BLOCK;
   xrt::vol_path_kernel<<<grid, xrt::VOL_BLOCK, 0, (cudaStream_t)stream>>>(
-      S, o, d, keys, n, out);
+      S, o, d, keys, key_stride, n, out);
   return (int)cudaGetLastError();
 }
 
@@ -189,8 +212,9 @@ int vol_spp_persistent(int s0, int n_spp, const int32_t* pixfold,
   return (int)cudaGetLastError();
 }
 
-// The launchers' interface: 1 = the spp launchers take the work order.
-int vol_abi() { return 1; }
+// The launchers' interface: 1 = the spp launchers take the work order; 2 =
+// vol_path takes the keys' stride.
+int vol_abi() { return 2; }
 
 #ifdef VOL_TIMELINE
 // The stamps of the last launch's first n_warps warps: t (2 per warp: start,
@@ -212,6 +236,14 @@ int vol_occupancy(int which, int* blocks) {
                              : (const void*)xrt::vol_spp_persistent_kernel;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k,
                                                             xrt::VOL_BLOCK, 0);
+}
+
+// An empty kernel on the grid of n lanes (VOL_BLOCK threads a block): the
+// fixed cost of a launch of that shape; returns cudaGetLastError().
+int vol_empty(int n, void* stream) {
+  const int grid = (n + xrt::VOL_BLOCK - 1) / xrt::VOL_BLOCK;
+  xrt::vol_empty_kernel<<<grid, xrt::VOL_BLOCK, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 #endif
 

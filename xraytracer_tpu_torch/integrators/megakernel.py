@@ -27,13 +27,13 @@ Nothing is compiled per scene: lights go into a device table, the camera
 and the flags are launch arguments (``FusedScene``, ``RenderView``). What
 the Pallas kernels did only for the TPU (feature matmul, packed key,
 one-hot record matmul, 8 x 512 tiles) has no counterpart here. Their
-per-chunk culling does, in ``mega_spp_persistent``, ``mega_path`` and
-``mega_grad_path``: a table of more than ``MEGA_STAGE_ROWS`` = 64 rows is
-walked over the sweeps' chunk table (``kernels._chunk_table`` under the
-``valid`` mask, built once per table, so a render of such a table adds one
-``chunk_boxes`` launch), a smaller one (the Cornell box's 40 rows) whole
-from shared memory. Each pass walks a lane's path ray and, in
-``mega_spp_persistent`` and ``mega_path``, the shadow ray of its previous
+per-chunk culling does, in every kernel: a table of more than
+``MEGA_STAGE_ROWS`` = 64 rows is walked over the sweeps' chunk table
+(``kernels._chunk_table`` under the ``valid`` mask, built once per table,
+so a render of such a table adds one ``chunk_boxes`` launch), a smaller
+one (the Cornell box's 40 rows) whole from shared memory. Each pass walks
+a lane's path ray and, in ``mega_spp_persistent`` (and in ``mega_path``
+and ``mega_spp`` on a culled table), the shadow ray of its previous
 vertex, in one walk; what bounds the kernels on the card and what the
 design does about it is noted at the top of ``csrc/megakernel.cu`` and
 ``csrc/mega_path.cuh``.
@@ -227,16 +227,14 @@ class FusedScene:
 
     @property
     def culls(self):
-        """Whether ``mega_path``, ``mega_spp_persistent`` and
-        ``mega_grad_path`` walk this table over its chunk table (more than
-        ``MEGA_STAGE_ROWS`` rows) rather than staging it."""
+        """Whether the kernels walk this table over its chunk table (more
+        than ``MEGA_STAGE_ROWS`` rows) rather than staging it."""
         return self.scene.tri_v0.shape[0] > MEGA_STAGE_ROWS
 
-    def scene_args(self, tri_rec=None, culled=False):
+    def scene_args(self, tri_rec=None):
         """The launchers' scene arguments, in the order of the C interface;
-        ``tri_rec`` in place of the scene's record table; ``culled``: with
-        the chunk table's boxes where the table is culled (``mega_path``,
-        ``mega_spp_persistent`` and ``mega_grad_path`` cull by them)."""
+        ``tri_rec`` in place of the scene's record table; the chunk table's
+        boxes where the table is culled (every launcher culls by them)."""
         s = self.scene
         rec = s.tri_rec if tri_rec is None else tri_rec
         t_total = s.tri_v0.shape[0]
@@ -252,7 +250,7 @@ class FusedScene:
             rec.data_ptr(), self.lights.data_ptr(),
             self.pick_cdf.data_ptr(), self.n_lights, self.max_depth,
             int(self.nee), int(self.le0), int(self.cosine),
-            NEE_KINDS[self.nee_mode], self.boxes() if culled else None,
+            NEE_KINDS[self.nee_mode], self.boxes(),
         )
 
     def boxes(self):
@@ -386,7 +384,7 @@ def mega_path(fs, o, d, keys):
     with torch.cuda.device(dev):
         _launch("mega_path", (
             o.data_ptr(), d.data_ptr(), keys.data_ptr(), n,
-            *fs.scene_args(culled=True), out.data_ptr(), sweeps._stream(),
+            *fs.scene_args(), out.data_ptr(), sweeps._stream(),
         ))
     LAUNCHES["mega_path"] += 1
     return out
@@ -478,7 +476,7 @@ def _mega_spp_launch(name, fs, view, s0, n_spp):
         _launch(name, (
             s0, n_spp, view.pixfold_bits.data_ptr(), view.px.data_ptr(),
             view.py.data_ptr(), n, cam, view.cam_site,
-            *fs.scene_args(culled=name == "mega_spp_persistent"),
+            *fs.scene_args(),
             out.data_ptr(), rej.data_ptr(),
             sweeps._stream(),
         ))
@@ -629,7 +627,7 @@ def mega_grad_path(gs, o, d, keys, tri_rec=None, al_le=None):
     with torch.cuda.device(dev):
         _launch("mega_grad_path", (
             o.data_ptr(), d.data_ptr(), keys.data_ptr(), n,
-            *fs.scene_args(tri_rec, culled=True), gs.obj_mat.data_ptr(),
+            *fs.scene_args(tri_rec), gs.obj_mat.data_ptr(),
             gs.obj_mat.shape[0], gs.n_mats, out.data_ptr(), sweeps._stream(),
         ))
     LAUNCHES["mega_grad_path"] += 1

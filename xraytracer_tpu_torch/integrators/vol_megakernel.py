@@ -5,7 +5,9 @@ Counterpart of ``xraytracer_tpu/integrators/vol_megakernel.py``. Three
 kernels, one device function for an iteration in ``csrc/vol_megakernel.cu``:
 
 * ``vol_path`` replaces the kernel of ``try_make_fused_volume_integrator``
-  (over ``_vol_trace_body``): rays and path keys in, radiance out.
+  (over ``_vol_trace_body``): rays and path keys in, radiance out, one
+  thread per ray; it reads the keys as the caller holds them (uint32 values
+  in int64, or their int32 bits), so its wrapper converts nothing.
 * ``vol_spp`` replaces ``try_make_fused_volume_spp_render(persistent=False)``
   (``megakernel.py::_mega_spp_kernel`` over ``_vol_trace_body``): per pixel
   a loop over a chunk of samples, each with its key, its jittered pinhole
@@ -78,8 +80,8 @@ _FC = ctypes.POINTER(ctypes.c_float)
 _IC = ctypes.POINTER(ctypes.c_int)
 _SPP_ARGTYPES = [_I, _I, _P, _P, _P, _I, _FC, ctypes.c_uint, _FC, _IC, _P, _P, _P, _P]
 _ARGTYPES = {
-    # o, d, keys, n, scene (fc, ic), out, stream
-    "vol_path": [_P, _P, _P, _I, _FC, _IC, _P, _P],
+    # o, d, keys, keys' stride in int32 words, n, scene (fc, ic), out, stream
+    "vol_path": [_P, _P, _P, _I, _I, _FC, _IC, _P, _P],
     # s0, n_spp, pixfold, px, py, n, cam16, cam_site, scene, work order,
     # sum, rej, stream
     "vol_spp": _SPP_ARGTYPES,
@@ -297,14 +299,13 @@ def vol_path(vc, o, d, keys):
     n = o.shape[0]
     sweeps._check("o", o, torch.float32, (n, 3), dev)
     sweeps._check("d", d, torch.float32, (n, 3), dev)
-    if keys.dtype != torch.int32:
-        sweeps._check("keys", keys, torch.int64, (n,), dev)
-        keys = mk._i32_bits(keys)
-    sweeps._check("keys", keys, torch.int32, (n,), dev)
+    # the kernel reads int32 bits, or the low word of each int64 value
+    stride = 2 if keys.dtype == torch.int64 else 1
+    sweeps._check("keys", keys, torch.int64 if stride == 2 else torch.int32, (n,), dev)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("vol_path", (
-            o.data_ptr(), d.data_ptr(), keys.data_ptr(), n, vc.fc, vc.ic,
+            o.data_ptr(), d.data_ptr(), keys.data_ptr(), stride, n, vc.fc, vc.ic,
             out.data_ptr(), sweeps._stream(),
         ))
     LAUNCHES["vol_path"] += 1
