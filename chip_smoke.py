@@ -40,8 +40,11 @@ heterogeneous tracking kernels, the whole-path heterogeneous volume
 kernels with the analytic volume-gradient kernel), holds each of the
 sixteen kernels (and two helpers: the chunk table the sweeps walk and the
 corner table of the volume gradient's route) against its plain PyTorch
-version on the card at the shapes its path gives it, reproduces the two CPU golden images through the
-kernels, and then drives, through the port's public entry points:
+version on the card at the shapes its path gives it (the sweeps also on the
+rays the delta-light paths give them: shadow rays toward a distant light, with
+t_max = INF, and rays leaving mirror and glass spheres), reproduces the two CPU
+golden images through the kernels, and then drives, through the port's public
+entry points:
 
 * ``main_path``: the ``cornellbox_gi`` preset (780x585, depth 3) by its
   default route, the whole-render kernel ``mega_spp_persistent`` (one launch
@@ -54,6 +57,18 @@ kernels, and then drives, through the port's public entry points:
 * ``mesh_path``: the 13k-triangle mesh GI scene, which is over the
   whole-path kernels' row gate and so shows the routing to the wavefront
   route;
+* ``whitted_path``, ``example_path``, ``direct_path``, ``furnace_path``: the
+  ``whitted`` preset (the example scene under the Whitted integrator, depth
+  3), the ``example`` preset with the normal integrator, and ``cornellbox``
+  with ``--integrator direct`` and ``furnace``, each at 780x585 and its
+  preset's 16 spp through ``cli.build_scene`` / ``cli.make_integrator`` by
+  the wavefront route (``sweep_nearest_rec`` per hit, ``occluded_anyhit`` per
+  shadow ray: the delta lights' with t_max = INF toward the distant light);
+* ``obj_path``: the Cornell box and the 13k mesh scene written as ``.obj`` +
+  ``.mtl`` and loaded back through ``--obj`` (the native IO tier's parser),
+  their triangle rows and the normal integrator's images bitwise those of
+  the directly built scenes, and the image written as PNG and P6 PPM by
+  the native writers and decoded back;
 * ``vpt_path``: the ``vpt`` preset (512x512, depth 10, its own 1024 spp; one
   homogeneous box) by its default route, the whole-render volume kernel
   ``vol_spp_persistent``; ``vpt_nee_path``: the same with next-event
@@ -100,9 +115,10 @@ There is no fallback: without a card, or when any phase fails, the script
 exits non-zero and prints no result line.
 
 Output: one JSON object per line (``device``, ``build``, ``kernel_checks``
-seven times (sweeps, whole-path, volume whole-path, tracking, heterogeneous
-whole-path, surface gradient, heterogeneous gradient), ``golden`` three
-times, then one line per driven path), then
+once per family (sweeps, their chunk table, the sweeps on the delta-light
+and mirror/glass rays, whole-path, volume whole-path, tracking,
+heterogeneous whole-path, surface gradient, heterogeneous gradient, the
+corner table), ``golden`` three times, then one line per driven path), then
 ``{"kernels": [...]}`` with one entry per kernel, the card's name and power
 limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -408,15 +424,15 @@ def median_ms(fn, reps, flush):
     return times[len(times) // 2]
 
 
-def mesh_scene(device, size=MESH_SIZE):
+def mesh_scene(device, size=MESH_SIZE, builder=None):
     """The mesh GI scene of bench_mesh.py: lat-long sphere mesh + floor +
-    quad light, built with the port's SceneBuilder."""
+    quad light, built with the port's SceneBuilder (or ``builder``)."""
     import numpy as np
 
     from xraytracer_tpu_torch.math import from_rows
     from xraytracer_tpu_torch.scene.builder import SceneBuilder
 
-    b = SceneBuilder()
+    b = builder or SceneBuilder()
     white = b.add_lambert((0.8, 0.8, 0.8))
     b.add_sphere_mesh((0.0, 0.0, 0.0), 1.0, *size, material=white)
     floor = np.asarray(
@@ -1942,6 +1958,413 @@ def phase_mesh(device, mesh, mesh_cam):
                 route="wavefront (table over the fused route's row gate)")
     emit("mesh_path", **line)
     return counts
+
+
+# --------------------------------------------------------------------------
+# the delta-light slice: the furnace, direct and Whitted integrators, the
+# example preset and the OBJ / native IO tier, on the sweep kernels
+# --------------------------------------------------------------------------
+SURFACE_SPP = 16        # the example / whitted / cornellbox presets' own spp
+SURFACE_REF_SPP = 4     # their 128x96 renders, kernels against plain
+MIRROR_GLASS_DEPTH = 4  # tests/test_integrators.py's Whitted depth there
+
+
+def surface_integrator(name, tables, statics, depth, tri_fn=None):
+    """The CLI's normal / furnace / direct / Whitted integrators with an
+    explicit triangle sweep (``tri_fn`` = the plain matmul form: no kernel)."""
+    from xraytracer_tpu_torch.integrators import (
+        make_direct_integrator,
+        make_furnace_integrator,
+        make_normal_integrator,
+        make_whitted_integrator,
+    )
+
+    if name == "normal":
+        return make_normal_integrator(tables, tri_fn=tri_fn)
+    if name == "furnace":
+        return make_furnace_integrator(tables, tri_fn=tri_fn)
+    if name == "direct":
+        return make_direct_integrator(tables, statics, tri_fn=tri_fn)
+    check(name == "whitted", f"no surface integrator {name!r}")
+    return make_whitted_integrator(tables, statics, depth, tri_fn=tri_fn)
+
+
+def surface_references(tables, camk, statics, name, depth, device):
+    """The same scene at the reference size, 4 spp: through the kernels and
+    through the plain path (the matmul-form sweep, which launches nothing)."""
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.geometry.intersect import intersect_triangles_mm
+    from xraytracer_tpu_torch.renderer import render
+
+    cam = PinholeCamera.make(REF_W / REF_H, device=device, **camk)
+    return [render(tables, cam, surface_integrator(name, tables, statics, depth, tri_fn),
+                   REF_W, REF_H, SURFACE_REF_SPP, seed=0)
+            for tri_fn in (None, intersect_triangles_mm)]
+
+
+def surface_expected(integrator, statics, spp, depth, tables_swept):
+    """Launches of a counted wavefront render with one of those integrators:
+    a record sweep per hit, an any-hit sweep per shadow ray, one chunk table
+    per (table, mask) swept."""
+    hits, shadows = 1, 0
+    if integrator == "whitted":
+        hits, shadows = depth + 1, (depth + 1) * statics["n_delta_lights"]
+    elif integrator == "direct":
+        shadows = statics["n_area_lights"]
+    out = {"sweep_nearest_rec": spp * hits,
+           "chunk_boxes": sum(chunk_builds(t, 2 if shadows else 1) for t in tables_swept)}
+    if shadows:
+        out["occluded_anyhit"] = spp * shadows
+    return out
+
+
+def phase_surface_path(label, device, cfg):
+    """One preset and integrator at full width through the CLI's entry points
+    (``cli.build_scene``, ``cli.make_integrator``) and the renderer, by the
+    wavefront route. Returns the run's launch counts and its result."""
+    from xraytracer_tpu_torch import cli
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    tables, camk = cli.build_scene(cfg, device=device)
+    statics = scene_statics(tables)
+    cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+    integ = cli.make_integrator(cfg, tables, statics)
+    renderer = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height,
+                                 seed=cfg.seed)
+    renderer.render(1)  # warm-up
+    ref_k, ref_p = surface_references(tables, camk, statics, cfg.integrator,
+                                      cfg.max_depth, device)
+    reset_all_counts()
+    result = renderer.render(cfg.spp)
+    counts = all_counts()
+    line = render_checks(label, result, cfg.spp, counts, surface_expected(
+        cfg.integrator, statics, cfg.spp, cfg.max_depth, [tables]), ref_k, ref_p)
+    line.update(preset=cfg.preset, integrator=cfg.integrator, depth=cfg.max_depth,
+                ref_spp=SURFACE_REF_SPP, n_delta_lights=statics["n_delta_lights"],
+                n_area_lights=statics["n_area_lights"],
+                route="wavefront (record sweep per hit, any-hit sweep per shadow ray)")
+    emit(label, **line)
+    return counts, result
+
+
+def mirror_glass_scene(device):
+    """Floor, mirror sphere and glass sphere under a point light: the Whitted
+    scene of tests/test_integrators.py, whose bounce rays leave the spheres
+    (origins 0.001 ng off the surface, on the far side after a refraction)."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.math import from_rows
+    from xraytracer_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    floor = np.asarray([[[-10, 0, -10], [10, 0, -10], [-10, 0, 10]],
+                        [[10, 0, -10], [10, 0, 10], [-10, 0, 10]]], np.float32)
+    b.add_mesh(floor, material=b.add_lambert((0.8, 0.2, 0.2)))
+    b.add_sphere((-1.5, 1.0, 0.0), 1.0, material=b.add_mirror())
+    b.add_sphere((1.5, 1.0, 0.0), 1.0, material=b.add_glass())
+    b.add_point_light((0.0, 8.0, 4.0), (1, 1, 1), 200.0)
+    c2w = from_rows(1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0, 0, 1.5, 8.0, 1)
+    return b.build(device), dict(c2w=c2w, fov_deg=45.0)
+
+
+def pane_scene(device):
+    """A Lambert floor, a mirror wall and a glass pane (six triangles) under a
+    point and a distant light: the Whitted scene of tests/test_oracle.py, by
+    the port's builder. Its distant light's shadow rays (t_max = INF) meet
+    blockers, and its bounce rays leave mirror and glass triangles."""
+    import numpy as np
+
+    from xraytracer_tpu_torch.math import from_rows
+    from xraytracer_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    lam = b.add_lambert((0.7, 0.6, 0.5))
+    mir = b.add_mirror((0.8, 0.8, 0.8))
+    gls = b.add_glass(1.3, (0.9, 0.9, 0.9))
+
+    def quad(p00, p10, p01):
+        p00, p10, p01 = map(np.asarray, (p00, p10, p01))
+        p11 = p10 + (p01 - p00)
+        return np.asarray([[p00, p10, p11], [p00, p11, p01]], np.float32)
+
+    b.add_mesh(quad((-4, 0, 2), (4, 0, 2), (-4, 0, -6)), material=lam)
+    b.add_mesh(quad((-3, 0, -4), (3, 0, -4), (-3, 4, -4)), material=mir)
+    b.add_mesh(quad((-1.2, 0.2, -1), (1.2, 0.2, -1), (-1.2, 2.6, -1)), material=gls)
+    b.add_point_light((0.0, 3.5, 1.0), color=(1.0, 0.9, 0.8), intensity=40.0)
+    b.add_distant_light((0.2, -1.0, -0.4), color=(0.9, 1.0, 1.0), intensity=0.6)
+    c2w = from_rows(1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0, 0, 1.2, 3.0, 1)
+    return b.build(device), dict(c2w=c2w, fov_deg=55.0)
+
+
+def leaving_rays(nearest, depths, what):
+    """The rays of the given bounces whose origin or direction changed since
+    the bounce before: the lanes a mirror or glass surface sent on."""
+    out = {}
+    for k in depths:
+        (o0, d0), (o1, d1) = nearest[k - 1], nearest[k]
+        moved = (o1 != o0).any(dim=1) | (d1 != d0).any(dim=1)
+        check(int(moved.sum()) > 0, f"{what}: no ray left a surface at depth {k}")
+        out[f"{what} depth-{k} rays leaving mirror / glass"] = (
+            o1[moved].contiguous(), d1[moved].contiguous())
+    return out
+
+
+def phase_delta_kernels(device, reps):
+    """K4 and K3 on inputs no earlier path gives them, captured from one
+    sample at full width under the Whitted integrator: shadow rays toward a
+    distant light (t_max = INF, FLT_MAX) and toward a point light, from the
+    whitted preset (whose one-chunk triangle table, the ground plane, blocks
+    none of them) and from ``pane_scene`` (whose mirror wall and glass pane
+    block many); and the rays that leave mirror and glass surfaces: the
+    spheres of ``mirror_glass_scene`` (swept against its floor) and the
+    panes of ``pane_scene`` (swept against the panes they leave). Returns
+    {kernel: [cases]}."""
+    import torch
+
+    from xraytracer_tpu_torch import cli
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    inf = torch.finfo(torch.float32).max
+    cfg = get_preset("whitted")
+    whitted = cli.build_scene(cfg, device=device)
+    cases = {}
+    for label, (tables, camk), depth in (
+            ("whitted", whitted, cfg.max_depth),
+            ("mirror/glass", mirror_glass_scene(device), MIRROR_GLASS_DEPTH),
+            ("pane", pane_scene(device), cfg.max_depth)):
+        st = scene_statics(tables)
+        cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
+        got = capture_sweep_inputs(WavefrontRenderer(
+            tables, cam, surface_integrator("whitted", tables, st, depth),
+            WIDTH, HEIGHT, seed=0))
+        n_dl = st["n_delta_lights"]
+        check(len(got["nearest"]) == depth + 1 and
+              len(got["shadow"]) == n_dl * (depth + 1), f"{label}: sweeps of one sample")
+        sets = dict(nearest={}, shadow={})
+        if label != "whitted":
+            sets["nearest"] = leaving_rays(got["nearest"], (1, 2), label)
+        if n_dl == 2:  # depth 0's two shadow sweeps, one per delta light
+            kinds = {}
+            for o, d, tm in got["shadow"][:2]:
+                far = bool((tm == inf).all())
+                check(far or bool((tm < inf).all()),
+                      f"{label}: a shadow sweep mixes INF and finite t_max")
+                kinds["distant-light shadow rays (t_max = INF)" if far
+                      else "point-light shadow rays"] = (o, d, tm)
+            check(len(kinds) == 2, f"{label}: one distant and one point light expected")
+            sets["shadow"] = {f"{label} {k}": v for k, v in kinds.items()}
+        for name, v in kernel_cases(tables, sets, flush, reps).items():
+            cases.setdefault(name, []).extend(v)
+    emit("kernel_checks", kernels="sweeps on the delta-light and mirror/glass rays",
+         cases=cases, reps=reps)
+    return cases
+
+
+def merge_cases(entries, cases):
+    """Add the cases of ``phase_delta_kernels`` to the sweeps' entries of the
+    ``kernels`` line, their worst error into ``max_abs_err``."""
+    for e in entries:
+        new = cases.get(e["name"], [])
+        if not new:
+            continue
+        if e["name"] == "occluded_anyhit":
+            err = max(c["mismatch_share"] for c in new)
+        else:
+            err = max(c["t_max_abs_err"] for c in new)
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["cases"] += [{k: c[k] for k in ("case", "n", "t_total", "ms", "plain_ms",
+                                           "bound_ms", "bound_by", "brute_bound_ms")}
+                       for c in new]
+
+
+def mesh_log():
+    """A port SceneBuilder that also keeps every mesh it is given, in order,
+    with its material's albedo (``.meshes``): what ``write_obj`` writes."""
+    from xraytracer_tpu_torch.scene.builder import SceneBuilder
+
+    class MeshLog(SceneBuilder):
+        def __init__(self):
+            super().__init__()
+            self.meshes = []
+
+        def add_mesh(self, vertices, normals=None, uvs=None, material=-1, light=-1):
+            self.meshes.append(dict(
+                name=f"mesh{len(self.meshes)}", vertices=vertices, normals=normals,
+                kd=None if material < 0 else self._materials[material][1]))
+            return super().add_mesh(vertices, normals, uvs, material, light)
+
+    return MeshLog()
+
+
+def write_obj(path, meshes):
+    """Write triangle meshes as an OBJ file and an MTL library beside it,
+    in the subset the port's ``objloader.parse_obj`` / ``load_obj_into``
+    read back: one ``o``
+    shape per mesh, in order, its corners unshared; per-corner normals when
+    the mesh has them; one Lambert material per mesh that has a ``kd``.
+    Every float is written as ``%.9g``, so float32 values read back exactly.
+
+    ``meshes``: dicts with ``name``, ``vertices`` (T,3,3) and optional
+    ``normals`` (T,3,3) and ``kd`` (3,)."""
+    import numpy as np
+
+    stem = os.path.splitext(os.path.basename(path))[0]
+    mtl = stem + ".mtl"
+
+    def row(tag, values):
+        return tag + " " + " ".join("%.9g" % float(x) for x in values) + "\n"
+
+    with open(os.path.join(os.path.dirname(path), mtl), "w") as f:
+        for m in meshes:
+            if m.get("kd") is not None:
+                f.write(f"newmtl {m['name']}_mat\n" + row("Kd", m["kd"]))
+    n_v = n_vn = 0
+    with open(path, "w") as f:
+        f.write(f"mtllib {mtl}\n")
+        for m in meshes:
+            verts = np.asarray(m["vertices"], np.float32).reshape(-1, 3)
+            norms = m.get("normals")
+            f.write(f"o {m['name']}\n")
+            if m.get("kd") is not None:
+                f.write(f"usemtl {m['name']}_mat\n")
+            f.writelines(row("v", v) for v in verts)
+            if norms is not None:
+                norms = np.asarray(norms, np.float32).reshape(-1, 3)
+                f.writelines(row("vn", n) for n in norms)
+            for t in range(len(verts) // 3):
+                ids = [3 * t + k + 1 for k in range(3)]
+                if norms is not None:
+                    f.write("f " + " ".join(
+                        f"{n_v + i}//{n_vn + i}" for i in ids) + "\n")
+                else:
+                    f.write("f " + " ".join(str(n_v + i) for i in ids) + "\n")
+            n_v += len(verts)
+            n_vn += 0 if norms is None else len(norms)
+
+
+def decode_png(data):
+    """RGB8 PNG bytes (filter 0 rows, as both writers make them) -> (H, W, 3)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
+    off, idat, shape = 8, b"", None
+    while off < len(data):
+        (ln,) = struct.unpack(">I", data[off:off + 4])
+        tag = data[off + 4:off + 8]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", data[off + 8:off + 16])
+            shape = (h, w)
+        elif tag == b"IDAT":
+            idat += data[off + 8:off + 8 + ln]
+        off += 12 + ln
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(shape[0], -1)
+    check(bool((rows[:, 0] == 0).all()), "PNG rows: filter 0 expected")
+    return rows[:, 1:].reshape(shape[0], shape[1], 3)
+
+
+def phase_obj_path(device):
+    """The Cornell box and the 13k mesh scene written as .obj + .mtl, loaded
+    back through ``--obj`` (``cli.build_scene``: the native IO tier's parser,
+    the builder) and rendered with the normal integrator at full width: the
+    triangle rows and normals bitwise the directly built tables', each image
+    bitwise the directly built scene's image; then the Cornell image written
+    as PNG and P6 PPM by ``film.write_image`` and decoded back. Returns the
+    launch counts of the two OBJ renders."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from xraytracer_tpu_torch import cli, film, native
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.renderer import WavefrontRenderer
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.scene.presets import build_cornell_box, cornell_camera
+
+    # the card's host builds native/xrt_native.cpp (g++ with zlib.h), so the
+    # native tier is required: no fallback to the Python parser and writers
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None,
+          "obj_path: the native IO tier did not build (g++ with zlib.h)")
+    build_s = time.perf_counter() - t0
+    cornell_log = build_cornell_box(mesh_log())
+    mesh_builder = mesh_log()
+    scenes = {"cornell": (cornell_log, cornell_log.build(device), cornell_camera()),
+              "mesh13k": (mesh_builder, *mesh_scene(device, builder=mesh_builder))}
+    tmp = tempfile.mkdtemp(prefix="xrt_obj_")
+    try:
+        loaded, renderers, direct_images, parse_s = {}, {}, {}, {}
+        for label, (log, direct, camk) in scenes.items():
+            path = os.path.join(tmp, f"{label}.obj")
+            write_obj(path, log.meshes)
+            cfg = get_preset("cornellbox", integrator="normal", obj=path,
+                             width=WIDTH, height=HEIGHT, spp=SURFACE_SPP)
+            t1 = time.perf_counter()
+            tables, obj_camk = cli.build_scene(cfg, device=device)
+            parse_s[label] = time.perf_counter() - t1
+            check(np.array_equal(obj_camk["c2w"], cornell_camera()["c2w"]),
+                  "obj_path: --obj takes the Cornell camera")
+            for k in ("tri_v0", "tri_e1", "tri_e2"):
+                check(torch.equal(getattr(tables, k), getattr(direct, k)),
+                      f"obj_path {label}: {k} differs from the directly built table")
+            # the rows' shading normals (the first 9 record columns)
+            check(torch.equal(tables.tri_rec[:, :9], direct.tri_rec[:, :9]),
+                  f"obj_path {label}: normals differ from the directly built table")
+            cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
+            direct_r, obj_r = (
+                WavefrontRenderer(t, cam, cli.make_integrator(cfg, t, scene_statics(t)),
+                                  WIDTH, HEIGHT, seed=0) for t in (direct, tables))
+            direct_images[label] = direct_r.render(SURFACE_SPP).image
+            obj_r.render(1)  # warm-up
+            renderers[label] = obj_r
+            loaded[label] = (tables, camk, cfg)
+        tables, camk, cfg = loaded["cornell"]
+        ref_k, ref_p = surface_references(tables, camk, scene_statics(tables),
+                                          "normal", cfg.max_depth, device)
+        reset_all_counts()
+        results = {label: r.render(SURFACE_SPP) for label, r in renderers.items()}
+        counts = all_counts()
+        for label, res in results.items():
+            check(np.array_equal(res.image, direct_images[label]),
+                  f"obj_path {label}: the image differs from the directly built scene's")
+            check(bool(np.isfinite(res.image).all()) and res.n_rejected == 0,
+                  f"obj_path {label}: non-finite pixels or rejected samples")
+        line = render_checks("obj_path", results["cornell"], SURFACE_SPP, counts,
+                             surface_expected("normal", None, len(results) * SURFACE_SPP, 0,
+                                              [loaded[k][0] for k in loaded]),
+                             ref_k, ref_p)
+        # the image files, by the native writers, decoded back
+        png, ppm = os.path.join(tmp, "cornell.png"), os.path.join(tmp, "cornell.ppm")
+        u8 = film.write_image(png, results["cornell"].image, gamma=cfg.gamma)
+        check(np.array_equal(decode_png(open(png, "rb").read()), u8),
+              "obj_path: the PNG does not decode to the image's bytes")
+        film.write_image(ppm, results["cornell"].image, gamma=cfg.gamma)
+        data = open(ppm, "rb").read()
+        head = f"P6\n{WIDTH} {HEIGHT}\n255\n".encode()
+        check(data.startswith(head) and data[len(head):] == u8.tobytes(),
+              "obj_path: the P6 PPM does not hold the image's bytes")
+        line.update(
+            io_tier="native", native_build_s=build_s, parse_s=parse_s,
+            mesh13k_msamples_per_s=results["mesh13k"].samples_per_sec / 1e6,
+            triangles={k: int((v[0].tri_obj >= 0).sum()) for k, v in loaded.items()},
+            images_bitwise_direct=True, png_bytes=len(open(png, "rb").read()),
+            ppm_bytes=len(data), integrator="normal", depth=cfg.max_depth,
+            route="wavefront (record sweep per hit)")
+        emit("obj_path", **line)
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -5237,6 +5660,7 @@ def main():
         "cornell": (cornell, cornell_cam, False),
         "mesh13k": (mesh, mesh_cam, True),
     }, args.reps, args.fmad_ab)
+    merge_cases(entries, phase_delta_kernels(device, args.reps))
     entries += phase_mega_kernels(device, cornell, cornell_cam, args.reps)
     entries += phase_vol_kernels(device, args.reps)
     nee_scene = cli.build_scene(get_preset("nee"), device=device)
@@ -5256,6 +5680,16 @@ def main():
         device, cfg, cornell, cornell_cam, main_mean)
     by_path.update(phase_wavefront(device, cfg, cornell, cornell_cam, main_mean))
     by_path["mesh_path"] = phase_mesh(device, mesh, mesh_cam)
+    # the furnace, direct and Whitted integrators and the example preset, each
+    # through the CLI's entry points at its preset's own size, and --obj
+    for label, cfg_s in (("whitted_path", get_preset("whitted")),
+                         ("example_path", get_preset("example")),
+                         ("direct_path", get_preset("cornellbox", integrator="direct")),
+                         ("furnace_path", get_preset("cornellbox", integrator="furnace"))):
+        check((cfg_s.width, cfg_s.height, cfg_s.spp) == (WIDTH, HEIGHT, SURFACE_SPP),
+              f"{label}: preset size changed")
+        by_path[label], _ = phase_surface_path(label, device, cfg_s)
+    by_path["obj_path"] = phase_obj_path(device)
     # the volume paths, each by its default route
     by_path["vpt_path"], vpt_result = phase_volume_path(
         "vpt_path", device, "vpt", "vpt", None,

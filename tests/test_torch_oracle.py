@@ -7,9 +7,15 @@ at the same (seed, pixel, sample, site) draws. Here the same oracles, fed
 the port's CPU tables, hold the port's wavefront renders, at each oracle's
 own frame size, sample count and tolerance:
 
+* ``Oracle``: the direct integrator (NEE over the quad light, 0.18 on a
+  miss) on the Cornell box, 16x12, 2 spp, rtol 5e-4 / atol 5e-5, and the
+  normal integrator, 1 spp, atol 1e-4;
 * ``GIOracle``: GI at depth 2 (NEE, roulette, cosine bounce) and the
   indirect integrator at depth 3 on the Cornell box, 16x12, 2 spp,
   rtol 1e-3 / atol 2e-4;
+* ``WhittedOracle``: Whitted at depth 3 (mirror, Fresnel glass, point and
+  distant light, sky) on ``test_oracle.py``'s pane scene
+  (``chip_smoke.pane_scene``), 16x12, 2 spp, rtol 1e-3 / atol 2e-4;
 * ``VPTOracle``: the achromatic homogeneous box without NEE at depth 3,
   16x12, 2 spp, rtol 1e-3 / atol 2e-4;
 * ``HetVolumeOracle`` / ``HetVolumeNEEOracle``: a 5^3 cloud under a sphere
@@ -24,12 +30,19 @@ port's own builder and rendered on CPU tensors.
 import numpy as np
 import torch
 
-from test_oracle import GIOracle, VPTOracle
+from chip_smoke import pane_scene
+from test_oracle import GIOracle, Oracle, VPTOracle, WhittedOracle
 from test_oracle import H as OH, SPP as OSPP, W as OW
 from test_oracle_volume import H as VH, SPP as VSPP, W as VW
 from test_oracle_volume import HetVolumeNEEOracle, HetVolumeOracle
 from xraytracer_tpu_torch.camera import PinholeCamera
-from xraytracer_tpu_torch.integrators import make_path_integrator, make_volume_integrator
+from xraytracer_tpu_torch.integrators import (
+    make_direct_integrator,
+    make_normal_integrator,
+    make_path_integrator,
+    make_volume_integrator,
+    make_whitted_integrator,
+)
 from xraytracer_tpu_torch.math import from_rows
 from xraytracer_tpu_torch.renderer import render
 from xraytracer_tpu_torch.scene.builder import SceneBuilder, scene_statics
@@ -46,6 +59,44 @@ def _expect(fn, w, h, spp):
             for s in range(spp):
                 out[py, px] += fn(px, py, s)
     return out / spp
+
+
+def test_direct_matches_oracle():
+    """The port of ``test_oracle.py::test_direct_matches_oracle``."""
+    tables = build_cornell_box().build("cpu")
+    camk = cornell_camera()
+    cam = PinholeCamera.make(OW / OH, device="cpu", **camk)
+    integ = make_direct_integrator(tables, scene_statics(tables))
+    image = render(tables, cam, integ, OW, OH, OSPP, seed=0).image
+    oracle = Oracle(tables, camk, OW, OH, seed=0)
+    expect = _expect(oracle.direct, OW, OH, OSPP)
+    np.testing.assert_allclose(image, expect, rtol=5e-4, atol=5e-5)
+
+
+def test_normal_matches_oracle():
+    """The port of ``test_oracle.py::test_normal_matches_oracle``."""
+    tables = build_cornell_box().build("cpu")
+    camk = cornell_camera()
+    cam = PinholeCamera.make(OW / OH, device="cpu", **camk)
+    image = render(tables, cam, make_normal_integrator(tables), OW, OH, 1,
+                   seed=0).image
+    oracle = Oracle(tables, camk, OW, OH, seed=0)
+    expect = _expect(oracle.normal_viz, OW, OH, 1)
+    np.testing.assert_allclose(image, expect, atol=1e-4)
+
+
+def test_whitted_matches_oracle():
+    """The port of ``test_oracle.py::test_whitted_matches_oracle``: mirror,
+    glass, delta-light NEE and sky."""
+    tables, camk = pane_scene("cpu")
+    cam = PinholeCamera.make(OW / OH, device="cpu", **camk)
+    integ = make_whitted_integrator(tables, scene_statics(tables), max_depth=3)
+    image = render(tables, cam, integ, OW, OH, OSPP, seed=0).image
+    oracle = WhittedOracle(tables, camk, OW, OH, seed=0)
+    expect = _expect(oracle.whitted, OW, OH, OSPP)
+    np.testing.assert_allclose(image, expect, rtol=1e-3, atol=2e-4)
+    # the scene must actually exercise all three materials
+    assert expect.mean() > 0.01
 
 
 def _cornell_render(max_depth, nee):

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``xraytracer_tpu/cli.py``. The reference ships five
 binaries each hard-coding resolution/spp/depth/camera/scene/integrator and
 ignoring argv entirely (reference: Src/examples/example.cpp:19-103 etc.;
-SURVEY.md §2.3). Here a single entry point selects a preset and lets every
-knob be overridden:
+SURVEY.md §2.3). Here a single entry point selects a preset (or an ``.obj``
+file, or a density grid for the cloud presets) and lets every knob be
+overridden:
 
     python -m xraytracer_tpu_torch.cli --preset cornellbox_gi --spp 64 -o out.png
 
@@ -16,52 +17,65 @@ composable wavefront route. The ``vpt`` preset (one homogeneous box) takes
 the whole-render volume kernel in the same way, and ``volume`` and ``nee``
 (a heterogeneous cloud under a sphere light) the whole-render heterogeneous
 kernel; with ``--stats`` they run the wavefront loop with the two tracking
-kernels.
-Presets and integrators that are not ported yet raise ``NotImplementedError`` naming
-the ROADMAP.md item they wait for.
+kernels. The normal, furnace, direct and Whitted integrators (the
+``example`` and ``whitted`` presets among them) run the wavefront route:
+the record sweep for every hit, the any-hit sweep for every shadow ray.
+Every preset, integrator and flag of the JAX package's CLI is here but
+``--shard`` (multi-device rendering is not ported; ROADMAP.md).
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
+
+import numpy as np
 
 from .camera import PinholeCamera
 from .config import PRESETS, get_preset
 from .device import resolve_device
 from .film import write_image
 from .integrators import (
+    make_direct_integrator,
+    make_furnace_integrator,
     make_normal_integrator,
     make_path_integrator,
     make_volume_integrator,
+    make_whitted_integrator,
 )
 from .renderer import Accumulator, render
 from .scene import presets as scene_presets
-from .scene.builder import scene_statics
-
-# integrator / preset -> the ROADMAP.md item that ports it
-_WAITING_INTEGRATORS = {
-    "furnace": "queue 1, direct/furnace/Whitted integrators and delta lights",
-    "direct": "queue 1, direct/furnace/Whitted integrators and delta lights",
-    "whitted": "queue 1, direct/furnace/Whitted integrators and delta lights",
-}
-_WAITING_PRESETS = {
-    "example": "queue 1, direct/furnace/Whitted integrators and delta lights",
-}
+from .scene.builder import SceneBuilder, scene_statics
 
 
-def build_scene(cfg, device=None):
-    """Preset name -> (tables, camera_kwargs)."""
+def build_scene(cfg, device=None, density_grid=None):
+    """Preset name (or ``cfg.obj`` path) -> (tables, camera_kwargs).
+    ``density_grid``: a ``.npy`` / ``.npz`` dense grid that replaces the
+    procedural cloud of the ``volume`` and ``nee`` presets."""
     if cfg.obj:
-        raise NotImplementedError(
-            "--obj is not ported yet (ROADMAP.md: objloader.py and the "
-            "ctypes IO tier)"
+        from .scene.objloader import load_obj_into
+
+        b = SceneBuilder()
+        load_obj_into(b, cfg.obj)
+        return b.build(device), scene_presets.cornell_camera()
+    if density_grid and cfg.preset in ("volume", "nee"):
+        # replace the procedural stand-in cloud with a converted grid
+        # (reference analogue: the NanoVDBConvert offline tool feeding
+        # examples/volume.cpp)
+        loaded = np.load(density_grid)
+        if isinstance(loaded, np.lib.npyio.NpzFile):
+            key = "density" if "density" in loaded else loaded.files[0]
+            loaded = loaded[key]
+        kwargs = (
+            dict(absorption=(0.01,) * 3, scattering=(0.05,) * 3, le=30.0,
+                 light_center=(0.0, 400.0, 0.0))
+            if cfg.preset == "nee" else {}
         )
-    if cfg.preset in _WAITING_PRESETS:
-        raise NotImplementedError(
-            f"preset scene {cfg.preset!r} is not ported yet "
-            f"(ROADMAP.md: {_WAITING_PRESETS[cfg.preset]})"
-        )
+        tables = scene_presets.build_volume_scene(
+            density=loaded.astype("float32"), **kwargs
+        ).build(device)
+        return tables, scene_presets.cloud_camera()
     fn = getattr(scene_presets, f"preset_{cfg.preset}")
     tables, cam_kwargs, _ = fn(device=device)
     return tables, cam_kwargs
@@ -70,6 +84,12 @@ def build_scene(cfg, device=None):
 def make_integrator(cfg, tables, statics, with_stats=False):
     if cfg.integrator == "normal":
         return make_normal_integrator(tables)
+    if cfg.integrator == "furnace":
+        return make_furnace_integrator(
+            tables, cosine_sampling=cfg.cosine_sampling
+        )
+    if cfg.integrator == "direct":
+        return make_direct_integrator(tables, statics)
     if cfg.integrator == "indirect":
         return make_path_integrator(
             tables, statics, cfg.max_depth, nee=False,
@@ -87,15 +107,12 @@ def make_integrator(cfg, tables, statics, with_stats=False):
             cosine_sampling=cfg.cosine_sampling, with_stats=with_stats,
             nee_mode=cfg.nee_mode,
         )
+    if cfg.integrator == "whitted":
+        return make_whitted_integrator(tables, statics, cfg.max_depth)
     if cfg.integrator in ("vpt", "vpt_nee"):
         return make_volume_integrator(
             tables, statics, cfg.max_depth, nee=cfg.integrator == "vpt_nee",
             max_steps=cfg.max_steps or None, with_stats=with_stats,
-        )
-    if cfg.integrator in _WAITING_INTEGRATORS:
-        raise NotImplementedError(
-            f"integrator {cfg.integrator!r} is not ported yet "
-            f"(ROADMAP.md: {_WAITING_INTEGRATORS[cfg.integrator]})"
         )
     raise ValueError(f"unknown integrator {cfg.integrator!r}")
 
@@ -140,7 +157,8 @@ def main(argv=None):
     )
     p.add_argument("--preset", choices=sorted(PRESETS), default="cornellbox")
     p.add_argument("--integrator", default=None,
-                   help="normal|gi|gi_mis|indirect|vpt|vpt_nee")
+                   help="normal|furnace|direct|indirect|gi|gi_mis|whitted|"
+                        "vpt|vpt_nee")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--spp", type=int, default=None)
@@ -163,6 +181,13 @@ def main(argv=None):
                    help=".npz path for chunked accumulation checkpoints")
     p.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint if it exists")
+    p.add_argument("--obj", default=None, help="render an .obj scene file")
+    p.add_argument("--density-grid", default=None, dest="density_grid",
+                   help=".npy / .npz dense density grid for the volume/nee "
+                        "presets")
+    p.add_argument("--profile", default=None,
+                   help="directory for a torch.profiler Chrome trace of the "
+                        "render")
     p.add_argument("--stats", action="store_true",
                    help="collect + print per-bounce ray/occupancy/RR metrics"
                         " (SURVEY.md §5; path and volume integrators)")
@@ -178,11 +203,12 @@ def main(argv=None):
         spp=args.spp, max_depth=args.max_depth, gamma=args.gamma,
         seed=args.seed, spp_chunk=args.spp_chunk,
         cosine_sampling=args.cosine_sampling,
-        checkpoint=args.checkpoint, output=args.output,
+        checkpoint=args.checkpoint, obj=args.obj, output=args.output,
         nee_mode=args.nee_mode, max_steps=args.max_steps,
     )
 
-    tables, cam_kwargs = build_scene(cfg, device=device)
+    tables, cam_kwargs = build_scene(cfg, device=device,
+                                     density_grid=args.density_grid)
     statics = scene_statics(tables)
     camera = PinholeCamera.make(
         cfg.width / cfg.height, device=device, **cam_kwargs
@@ -200,11 +226,25 @@ def main(argv=None):
         f"device={device}"
     )
     t0 = time.perf_counter()
-    result = render(
-        tables, camera, integrate, cfg.width, cfg.height, cfg.spp,
-        seed=cfg.seed, spp_chunk=cfg.spp_chunk or None,
-        accumulator=accumulator, checkpoint_path=cfg.checkpoint,
-    )
+    trace_cm = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        trace_cm = profile(activities=activities)
+    with trace_cm as prof:
+        result = render(
+            tables, camera, integrate, cfg.width, cfg.height, cfg.spp,
+            seed=cfg.seed, spp_chunk=cfg.spp_chunk or None,
+            accumulator=accumulator, checkpoint_path=cfg.checkpoint,
+        )
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, "render.trace.json")
+        prof.export_chrome_trace(trace)
+        print(f"[render] wrote the profiler trace {trace}")
     print(
         f"[render] done in {result.seconds:.2f}s "
         f"({result.samples_per_sec/1e6:.2f} Msamples/s, "

@@ -1,13 +1,12 @@
-"""Framebuffer: gamma and pure-Python image writers.
+"""Framebuffer: gamma, and the image writers.
 
 PyTorch counterpart of ``xraytracer_tpu/film.py`` and of the reference's
 ``Image`` (reference: Src/image.h:11-150). Accumulation happens on the
 device in float32 (renderer.py); gamma and 8-bit quantization run on the
 host image and mirror ``gammaCorrection``/``writeMat`` (Src/image.h:80-90,
-116-143). The OpenCV dependency is replaced with PPM and zlib-PNG writers.
-The ctypes tier over ``native/libxrt_native.so`` is not ported yet
-(ROADMAP.md); the pure-Python writers below are the JAX package's fallback
-path.
+116-143). The OpenCV dependency is replaced with PPM and zlib-PNG writers:
+the native C++ tier's (``native.py``) when it loads, the pure-Python ones
+below otherwise; these are also the writers' plain versions.
 """
 
 import struct
@@ -63,11 +62,18 @@ def write_png(path, img_u8):
 
 
 def write_image(path, img, gamma=2.2):
-    """Gamma-correct float HDR (H,W,3) -> 8-bit file by extension (ASCII
-    P3 PPM for ``.ppm``, PNG otherwise)."""
+    """Gamma-correct float HDR (H,W,3) -> 8-bit file by extension.
+
+    Encoding uses the native C++ tier when available (ascii-P3 PPM parity
+    with the reference is kept on the Python path; the native PPM is binary
+    P6)."""
+    from . import native
+
     u8 = to_u8(gamma_correct(img, gamma))
     if str(path).endswith(".ppm"):
-        write_ppm(path, u8)
+        if not native.write_ppm(path, u8):
+            write_ppm(path, u8)
     else:
-        write_png(path, u8)
+        if not native.write_png(path, u8):
+            write_png(path, u8)
     return u8

@@ -1,4 +1,4 @@
-"""Surface integrators: Normal and Indirect/GI path tracing.
+"""Surface integrators: Normal, Furnace, Direct, Indirect/GI, Whitted.
 
 PyTorch counterpart of ``xraytracer_tpu/integrators/surface.py`` and of the
 reference's recursive/iterative per-ray integrators (reference:
@@ -6,8 +6,7 @@ Src/integrator.h:22-398). Every integrator is a factory closing over the
 scene tables and scene statics; the returned ``integrate(rays, keys) ->
 (N, 3)`` runs the whole wavefront through a Python loop over bounce index
 with per-lane active masks — break becomes mask-kill, Russian roulette
-becomes masked kill + throughput boost (SURVEY.md §7). The furnace, direct
-and Whitted integrators follow (see ROADMAP.md).
+becomes masked kill + throughput boost (SURVEY.md §7).
 
 RNG site layout: each bounce reserves ``SITES_PER_BOUNCE`` sites; within a
 bounce, site 0 is RR, 1 is the BSDF 2-uniform, 2 the BSDF lobe choice, and
@@ -26,6 +25,7 @@ from ..lights import (
     light_power_weights,
     pick_uniform_light,
     sample_area_light,
+    sample_delta_light,
 )
 from ..materials import bsdf_pdf_direct, eval_bsdf_direct, sample_bsdf_direct
 from ..math import dot, local_to_world, world_to_local
@@ -45,6 +45,13 @@ _THIRD = 1.0 / 3.0   # a Python float: rounded to float32 where it multiplies
 STAT_KEYS = ("rays", "shadow_rays", "rr_killed", "emitter_hits", "active_out")
 
 
+def _obj_light(scene, obj):
+    """Object id -> area-light row (-1 = none), the ``hasAreaLight`` check
+    (reference: Src/primitive.h:56-58)."""
+    row = scene.obj_light[torch.clamp(obj, min=0).to(torch.int64)]
+    return torch.where(obj >= 0, row, torch.full_like(row, -1))
+
+
 def make_normal_integrator(scene, tri_fn=None):
     """Normal visualization 0.5*(ns+1) (reference: Src/integrator.h:22-36).
     Black on miss."""
@@ -54,6 +61,26 @@ def make_normal_integrator(scene, tri_fn=None):
         hit = intersect_scene(scene, rays, tri_fn=tri_fn, present=present)
         viz = 0.5 * (hit.ns + 1.0)
         return torch.where(hit.hit[:, None], viz, torch.zeros_like(viz))
+
+    return integrate
+
+
+def make_furnace_integrator(scene, tri_fn=None, cosine_sampling=False):
+    """The reference's latent furnace test (dead code at
+    Src/integrator.h:59-66), resurrected live: one BSDF sample, returns
+    fr * cos / pdf whose expectation is the albedo — the analytic
+    correctness gate for sampler + BSDF plumbing (SURVEY.md §4a)."""
+    present = tables_present(scene)
+
+    def integrate(rays: Rays, keys):
+        hit = intersect_scene(scene, rays, tri_fn=tri_fn, present=present)
+        wo = world_to_local(-rays.d, hit.dpdu, hit.ns, hit.dpdv)
+        u2 = uniform2(keys, _SITE_BSDF)
+        ul = uniform1(keys, _SITE_LOBE)
+        bs = sample_bsdf_direct(
+            hit.mtype, hit.albedo, hit.ior, wo, u2, ul, cosine_sampling
+        )
+        return torch.where(hit.hit[:, None], bs.weight, torch.zeros_like(bs.weight))
 
     return integrate
 
@@ -129,6 +156,29 @@ def _nee_area_lights(
     return torch.where(
         active[:, None], throughput * direct, torch.zeros_like(direct)
     )
+
+
+def make_direct_integrator(scene, statics, tri_fn=None):
+    """One-bounce direct lighting (reference: Src/integrator.h:76-120):
+    emitter hit -> Le; surface -> NEE over all area lights; miss -> 0.18
+    background."""
+    present = tables_present(scene)
+
+    def integrate(rays: Rays, keys):
+        hit = intersect_scene(scene, rays, tri_fn=tri_fn, present=present)
+        lrow = hit.light
+        le = area_light_le(scene, lrow, -rays.d, hit.ns)
+        is_emitter = lrow >= 0
+        # unit throughput; the lanes that take the NEE term are the
+        # non-emitter hits, the others take Le or the background below
+        direct = _nee_area_lights(
+            scene, statics, hit, rays.d, torch.ones_like(le), keys,
+            _SITE_LIGHT0, tri_fn, hit.hit & ~is_emitter, present=present,
+        )
+        out = torch.where(is_emitter[:, None], le, direct)
+        return torch.where(hit.hit[:, None], out, torch.full_like(le, 0.18))
+
+    return integrate
 
 
 def make_path_integrator(
@@ -331,5 +381,90 @@ def make_path_integrator(
             )
             return radiance, {k: stats[:, i] for i, k in enumerate(STAT_KEYS)}
         return radiance
+
+    return integrate
+
+
+_SKY = np.array([0.235294, 0.67451, 0.843137], np.float32)
+
+
+def make_whitted_integrator(scene, statics, max_depth=3, tri_fn=None):
+    """Whitted-style tracing (reference: Src/integrator.h:294-398).
+
+    The reference's BFS ray queue becomes a single wavefront ray per lane:
+    Lambert terminates with delta-light NEE; Metals reflect (throughput
+    x0.8); Glass picks reflect/refract stochastically by Fresnel weight
+    (throughput x0.9) — the queue's both-branch splitting
+    (Src/integrator.h:355-381) replaced by unbiased one-sample selection,
+    which averages to the same image over spp. Sky color on miss and on
+    depth overflow (Src/integrator.h:317-320,385-389). Reference quirks kept:
+    shadow bias 0.1 (not 0.01), shadow range t_max (not t_max - bias), NEE
+    cos against the SHADING normal (Src/integrator.h:334-339). One Python
+    loop over the ``max_depth + 1`` hits, whatever the depth.
+    """
+    present = tables_present(scene)
+    n_delta = statics["n_delta_lights"]
+
+    def integrate(rays: Rays, keys):
+        n = rays.o.shape[0]
+        dev = rays.o.device
+        sky = torch.from_numpy(_SKY).to(dev)
+        radiance = torch.zeros((n, 3), device=dev)
+        throughput = torch.ones((n, 3), device=dev)
+        o, d = rays.o, rays.d
+        active = torch.ones((n,), dtype=torch.bool, device=dev)
+
+        for depth in range(max_depth + 1):
+            site = depth * SITES_PER_BOUNCE
+            hit = intersect_scene(
+                scene, Rays(o=o, d=d), tri_fn=tri_fn, present=present
+            )
+
+            missed = active & ~hit.hit
+            radiance = radiance + torch.where(
+                missed[:, None], throughput * sky, 0.0
+            )
+            active = active & hit.hit
+
+            # Lambert: delta-light NEE, terminate (Src/integrator.h:328-343)
+            is_lambert = active & (hit.mtype == 0)
+            direct = torch.zeros((n, 3), device=dev)
+            wo_l = world_to_local(-d, hit.dpdu, hit.ns, hit.dpdv)
+            for i in range(n_delta):
+                lidx = torch.full((n,), i, dtype=torch.int32, device=dev)
+                ls = sample_delta_light(scene, lidx, hit.position)
+                srays = Rays(o=hit.position + hit.ng * 0.1, d=ls.wi)
+                vis = ~occluded(
+                    scene, srays, ls.t_max, tri_fn=tri_fn, present=present
+                )
+                cos = torch.clamp(dot(hit.ns, ls.wi), min=0.0)
+                wi_l = world_to_local(ls.wi, hit.dpdu, hit.ns, hit.dpdv)
+                fr = eval_bsdf_direct(hit.mtype, hit.albedo, wo_l, wi_l)
+                pdf = torch.where(ls.pdf == 0.0, 1.0, ls.pdf)
+                direct = direct + vis[:, None] * fr * ls.le * (cos / pdf)[:, None]
+            radiance = radiance + torch.where(
+                is_lambert[:, None], throughput * direct, 0.0
+            )
+            # unknown/no material also terminates (reference default: break)
+            active = active & (hit.mtype >= 1)
+
+            # Metals / Glass via the delta lobes of sample_bsdf
+            u2 = uniform2(keys, site + _SITE_BSDF)
+            ul = uniform1(keys, site + _SITE_LOBE)
+            bs = sample_bsdf_direct(hit.mtype, hit.albedo, hit.ior, wo_l, u2, ul)
+            wi = local_to_world(bs.wi, hit.dpdu, hit.ns, hit.dpdv)
+            throughput = torch.where(
+                active[:, None], throughput * bs.weight, throughput
+            )
+            incoming_sign = -torch.sign(dot(d, hit.ng))
+            sign = torch.where(bs.flip_side, -incoming_sign, incoming_sign)
+            o = torch.where(
+                active[:, None],
+                hit.position + (sign * 0.001)[:, None] * hit.ng,
+                o,
+            )
+            d = torch.where(active[:, None], wi, d)
+        # depth-overflow rays: sky (Src/integrator.h:317-320)
+        return radiance + torch.where(active[:, None], throughput * sky, 0.0)
 
     return integrate

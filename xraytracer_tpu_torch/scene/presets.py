@@ -1,8 +1,7 @@
 """Built-in scenes reproducing the reference's example workloads.
 
-PyTorch counterpart of ``xraytracer_tpu/scene/presets.py``; the Cornell box
-and the three volume scenes (vpt, volume, nee) are ported, the example scene
-follows with its integrators (see ROADMAP.md).
+PyTorch counterpart of ``xraytracer_tpu/scene/presets.py``: the Cornell box,
+the example scene and the three volume scenes (vpt, volume, nee).
 
 Each preset mirrors one of the reference's hard-coded example mains
 (reference: Src/examples/*.cpp, see SURVEY.md §2.3). Geometry is generated
@@ -105,6 +104,49 @@ def preset_cornellbox(device=None):
     )
 
 
+def build_example_scene():
+    """Cube-over-plane + analytic diffuse sphere + distant & point lights
+    (reference: Src/examples/example.cpp:45-72). The cube.obj's cube faces are
+    commented out in the data; only the ground plane has faces."""
+    b = SceneBuilder()
+    mat = b.add_lambert((0.58, 0.58, 0.58))
+    plane = [
+        [(15.0, -2.2, 15.0), (15.0, -2.2, -15.0), (-15.0, -2.2, -15.0),
+         (-15.0, -2.2, 15.0)]
+    ]
+    b.add_mesh(_quads_to_tris(plane), material=mat)
+    b.add_sphere((0.0, 0.0, 0.0), 1.0, material=mat)
+    # distant light: travel dir = (0,0,-1) rows-transformed by l2w, taken
+    # in float32 from the float32 matrix
+    l2w = np.array(
+        [
+            [0.95292, 0.289503, 0.0901785],
+            [-0.0960954, 0.5704, -0.815727],
+            [-0.287593, 0.768656, 0.571365],
+        ],
+        np.float32,
+    )
+    d = -l2w[2]  # (0,0,-1) @ rot
+    b.add_distant_light(d, (1.0, 1.0, 1.0), 1.0)
+    b.add_point_light((5.0, 5.0, -1.0), (0.63, 0.33, 0.03), 50.0)
+    return b
+
+
+def preset_example(device=None):
+    tables = build_example_scene().build(device)
+    c2w = from_rows(
+        1.0, 0, 0, 0,
+        0, 1.0, 0, 0,
+        0, 0, 1.0, 0,
+        0, 0, 8.0, 1,
+    )
+    return (
+        tables,
+        dict(c2w=c2w, fov_deg=60.0),
+        dict(width=780, height=585, spp=16, max_depth=3, gamma=1.2),
+    )
+
+
 def build_vpt_scene(variant="mis", g=0.0):
     """Homogeneous unit box + overhead quad light
     (reference: Src/examples/vpt.cpp:47-71). ``g`` is the medium's phase
@@ -185,7 +227,8 @@ def build_volume_scene(res=(64, 64, 64), absorption=(0.5, 0.5, 0.5),
     return b
 
 
-def _cloud_camera():
+def cloud_camera():
+    """The camera of the cloud presets (volume, nee) and of ``--density-grid``."""
     c2w = from_rows(
         1.0, 0, 0, 0,
         0, 1.0, 0, 0,
@@ -199,7 +242,7 @@ def preset_volume(device=None):
     tables = build_volume_scene().build(device)
     return (
         tables,
-        _cloud_camera(),
+        cloud_camera(),
         dict(width=512, height=512, spp=10240, max_depth=100, gamma=2.2),
     )
 
@@ -211,6 +254,6 @@ def preset_nee(device=None):
     ).build(device)
     return (
         tables,
-        _cloud_camera(),
+        cloud_camera(),
         dict(width=780, height=585, spp=1024, max_depth=32, gamma=2.2),
     )
