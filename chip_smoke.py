@@ -27,6 +27,10 @@
                                      # package's, bitwise, timing both in
                                      # turns; for the volume kernels also a
                                      # timeline build and the SASS count
+    python3 chip_smoke.py --nccl     # on a box of two cards or more:
+                                     # shard_path's split, one rank per
+                                     # card under NCCL, against the single
+                                     # render on cuda:0, and stops
     python3 chip_smoke.py --k1b-probe  # builds megakernel.cu with K1b
                                      # walking every shadow ray at once on
                                      # a staged table, with and without
@@ -56,7 +60,9 @@ entry points:
   sends both sweeps through ``sweep_nearest``;
 * ``mesh_path``: the 13k-triangle mesh GI scene, which is over the
   whole-path kernels' row gate and so shows the routing to the wavefront
-  route;
+  route, whose bounce rays it sorts (``sort_rays="auto"``); the same render
+  unsorted must give the same image bit for bit, and both are timed in
+  turns;
 * ``whitted_path``, ``example_path``, ``direct_path``, ``furnace_path``: the
   ``whitted`` preset (the example scene under the Whitted integrator, depth
   3), the ``example`` preset with the normal integrator, and ``cornellbox``
@@ -104,7 +110,25 @@ entry points:
   depth 6, three views, two pairs, 600 steps through ``het_path`` and
   ``het_grad_path`` (per view and pair one launch of each pass over both
   streams; its 16^3 grid is read by corner loads, not packed), whose loss
-  and density error must fall.
+  and density error must fall;
+* ``shard_path``: ``parallel/`` over two gloo ranks, spawned processes both
+  on cuda:0 (NCCL refuses two ranks on one device): each rank renders its
+  contiguous half of the lanes of ``cornellbox_gi`` (512 spp, K1c), ``vpt``
+  (64 spp, K6c) and ``nee`` (16 spp, K9c), each bitwise the single render;
+  Cornell's spp axis (8 samples through ``mega_path``) within 1e-5 of
+  single; one analytic gradient step (K5) against single at ``grad_path``'s
+  gates; then ``--shard`` through the CLI in a world of one, bitwise
+  ``main_path``'s image. A rank that fails or hangs fails the script;
+* ``tools_path``: the 64^3 procedural cloud written as ``.vdb`` (zip) by
+  ``tools.vdb.write_vdb``, converted by ``tools.grid_convert``, which must
+  give the cloud's window of active voxels bit for bit, and rendered by the
+  CLI as ``--preset nee --density-grid`` (780x585, 16 spp, K9c), bitwise
+  the render fed the same window as an array.
+
+The sweep checks also take the 13k mesh's rays of the sorted route (depth-1
+bounce rays sorted, depth-0 shadow rays parked, depth-1 shadow rays sorted
+and parked), and hold each kernel's outputs on them bitwise under a seeded
+permutation of the lanes (a lane's result must not depend on its warp).
 
 Every launch count is set to 0 just before each of these runs and read just
 after it; the script checks that the run went through exactly the kernels
@@ -240,6 +264,8 @@ K1_MESH_ONE_GROUP = (16, 10)
 K1_MESH_SMALL = (10, 6)
 MESH_SPP = 4
 MESH_SIZE = (82, 80)   # the "13k" lat-long sphere mesh
+SORT_ROWS = 4096       # make_path_integrator's sort_rays="auto": sorted past these real rows
+MESH_SORT_TURNS = 2    # mesh_path: sorted / unsorted renders timed in turns
 MESH51_SIZE = (161, 160)  # bench_mesh.py's "51k" mesh (--ab-csrc only)
 MESH51_PLAIN_RAYS = 65536  # rays of the 51k case held against the plain version
 REF_W, REF_H = 128, 96
@@ -774,6 +800,13 @@ def kernel_cases(tables, rays_sets, flush, reps):
             got, ref = run_k(), run_p()
             torch.cuda.synchronize()
             case = compare_nearest(got, ref, with_rec)
+            case["bitwise_vs_plain_mismatch"] = int(
+                ((got[0] != ref[0]) | (got[1] != ref[1])).sum())
+            if "sorted" in label:
+                case["shuffled_lanes_bitwise"] = lanes_independent(
+                    lambda oo, dd: kernels.sweep_nearest_rec(oo, dd, v0, e1, e2, valid, rec_tab)
+                    if with_rec else kernels.sweep_nearest(oo, dd, v0, e1, e2, valid),
+                    got, o, d, f"{name} {label}")
             del got, ref
             b_ms, b_by = bound_ms(n_bytes, tests * FLOPS_PER_TEST + slabs * FLOPS_PER_SLAB, 1)
             case.update(
@@ -796,6 +829,11 @@ def kernel_cases(tables, rays_sets, flush, reps):
         check(mism <= max(1, BLOCKED_MISMATCH_SHARE * n),
               f"occluded_anyhit {label}: {mism} of {n} lanes disagree")
         check(not bool(got[tm <= 0].any()), "a lane with t_max <= 0 was blocked")
+        shuffled = None
+        if "sorted" in label or "parked" in label:
+            shuffled = lanes_independent(
+                lambda oo, dd, tt: (kernels.occluded_anyhit(oo, dd, v0, e1, e2, blocks, tt),),
+                (got,), o, d, f"occluded_anyhit {label}", tm)
         # the tri_fn route sweeps the same rays with sweep_nearest over the
         # blocks mask and derives blocked = t < t_max
         run_k2 = lambda: kernels.sweep_nearest(o, d, v0, e1, e2, blocks)
@@ -837,6 +875,7 @@ def kernel_cases(tables, rays_sets, flush, reps):
             case=label, n=n, t_total=t_total,
             blocked=int(ref.sum()), parked=int((tm <= 0).sum()),
             blocked_mismatch=mism, mismatch_share=mism / max(n, 1),
+            shuffled_lanes_bitwise=shuffled,
             tests_needed=tests, slabs_needed=slabs, tests_brute_needed=brute,
             tests_brute=n * t_total,
             ms=median_ms(run_k, reps, flush),
@@ -844,7 +883,31 @@ def kernel_cases(tables, rays_sets, flush, reps):
             bound_ms=b_ms, bound_by=b_by,
             brute_bound_ms=bound_ms(n_bytes, brute, FLOPS_PER_ANYHIT_TEST)[0],
         ))
+    for cases in out.values():
+        for c in cases:
+            c["ms_over_bound"] = c["ms"] / c["bound_ms"]
     return out
+
+
+def lanes_independent(run, got, o, d, what, t_max=None):
+    """A sweep's result for a lane must not depend on which lanes share its
+    warp (the sorted route's images are bitwise the unsorted route's only
+    if so): run the kernel on a seeded permutation of the lanes and hold
+    every output, put back in lane order, bitwise against ``got``."""
+    import torch
+
+    gen = torch.Generator(device=o.device).manual_seed(0)
+    perm = torch.randperm(o.shape[0], device=o.device, generator=gen)
+    args = (o[perm], d[perm]) + (() if t_max is None else (t_max[perm],))
+    again = run(*args)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(got, again)):
+        back = torch.empty_like(b)
+        back[perm] = b
+        n_diff = int((back != a).reshape(a.shape[0], -1).any(dim=1).sum())
+        check(n_diff == 0, f"{what}: output {k} of {n_diff} lanes changed with "
+                           f"the lanes' order")
+    return True
 
 
 def edge_cases(device):
@@ -1148,18 +1211,34 @@ def phase_kernels(device, scenes_in, reps, fmad_ab):
     for label, (tables, camk, cosine) in scenes_in.items():
         st = scene_statics(tables)
         cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **camk)
-        integ = make_path_integrator(tables, st, DEPTH, nee=True,
-                                     cosine_sampling=cosine, fused="never")
-        r = WavefrontRenderer(tables, cam, integ, WIDTH, HEIGHT, seed=0)
-        got = capture_sweep_inputs(r)
-        check(len(got["nearest"]) == DEPTH and len(got["shadow"]) == DEPTH,
-              f"{label}: expected {DEPTH} sweeps of each kind in one sample")
-        scenes[label] = (tables, dict(
+
+        def capture(sort):
+            integ = make_path_integrator(tables, st, DEPTH, nee=True,
+                                         cosine_sampling=cosine, fused="never",
+                                         sort_rays=sort)
+            r = WavefrontRenderer(tables, cam, integ, WIDTH, HEIGHT, seed=0)
+            got = capture_sweep_inputs(r)
+            check(len(got["nearest"]) == DEPTH and len(got["shadow"]) == DEPTH,
+                  f"{label}: expected {DEPTH} sweeps of each kind in one sample")
+            return got
+
+        got = capture(False)
+        sets = dict(
             nearest={f"{label} depth-0 camera rays": got["nearest"][0],
                      f"{label} depth-1 bounce rays": got["nearest"][1]},
             shadow={f"{label} depth-0 shadow rays": got["shadow"][0],
                     f"{label} depth-1 shadow rays": got["shadow"][1]},
-        ))
+        )
+        if int((tables.tri_obj >= 0).sum()) > SORT_ROWS:
+            # the rays of the sorted route (sort_rays="auto" on this table):
+            # bounce rays sorted with the dead lanes parked, shadow rays
+            # sorted with the dead ones parked at t_max = 0
+            got = capture(True)
+            sets["nearest"][f"{label} depth-1 bounce rays, sorted"] = got["nearest"][1]
+            sets["shadow"][f"{label} depth-0 shadow rays, parked"] = got["shadow"][0]
+            sets["shadow"][f"{label} depth-1 shadow rays, sorted and parked"] = (
+                got["shadow"][1])
+        scenes[label] = (tables, sets)
 
     def run_all_cases():
         merged = {k: [] for k in kernels.SWEEPS}
@@ -1925,6 +2004,8 @@ def phase_profile(device, cfg, cornell, cornell_cam, top=12):
 def phase_mesh(device, mesh, mesh_cam):
     """The 13k-triangle mesh GI scene at full width. Returns the run's
     launch counts."""
+    import numpy as np
+
     from xraytracer_tpu_torch.camera import PinholeCamera
     from xraytracer_tpu_torch.integrators import make_path_integrator
     from xraytracer_tpu_torch.renderer import WavefrontRenderer
@@ -1933,18 +2014,34 @@ def phase_mesh(device, mesh, mesh_cam):
     statics = scene_statics(mesh)
     cam = PinholeCamera.make(WIDTH / HEIGHT, device=device, **mesh_cam)
     # the default route: 13,184 rows are over the whole-path kernels' gate,
-    # so the factory routes this scene to the wavefront integrator
+    # so the factory routes this scene to the wavefront integrator, which
+    # sorts the bounce rays (sort_rays="auto": over 4096 real rows)
     integ = make_path_integrator(mesh, statics, DEPTH, nee=True,
                                  cosine_sampling=True)
     check(getattr(integ, "fused_spec", None) is None,
           "mesh_path: a table over the row gate took the fused route")
+    check(integ.sort_rays, "mesh_path: the default route did not sort")
     renderer = WavefrontRenderer(mesh, cam, integ, WIDTH, HEIGHT, seed=0)
     renderer.render(1)  # warm-up
+    unsorted = WavefrontRenderer(mesh, cam, make_path_integrator(
+        mesh, statics, DEPTH, nee=True, cosine_sampling=True, sort_rays=False),
+        WIDTH, HEIGHT, seed=0)
+    unsorted.render(1)  # warm-up
     ref_k, ref_p = reference_renders(mesh, mesh_cam, statics, MESH_SPP, True,
                                      device)
     reset_all_counts()
     result = renderer.render(MESH_SPP)
     counts = all_counts()
+    # the same render unsorted: bitwise the same image; both timed in turns
+    # (sorted, unsorted, unsorted, sorted, ...) after the counted run
+    ms_per_spp = {"sorted": [1e3 * result.seconds / MESH_SPP], "unsorted": []}
+    for turn in range(MESH_SORT_TURNS):
+        for which in (("unsorted", "sorted") if turn % 2 == 0 else
+                      ("sorted", "unsorted")):
+            r = (unsorted if which == "unsorted" else renderer).render(MESH_SPP)
+            ms_per_spp[which].append(1e3 * r.seconds / MESH_SPP)
+            check(np.array_equal(r.image, result.image),
+                  f"mesh_path: the {which} image differs from the sorted one")
     line = render_checks(
         "mesh_path", result, MESH_SPP, counts,
         {"sweep_nearest_rec": MESH_SPP * DEPTH,
@@ -1955,7 +2052,9 @@ def phase_mesh(device, mesh, mesh_cam):
                 triangles=int((mesh.tri_obj >= 0).sum()),
                 table_rows=int(mesh.tri_v0.shape[0]), cosine_sampling=True,
                 pixel_order=renderer.pixel_order,
-                route="wavefront (table over the fused route's row gate)")
+                route="wavefront (table over the fused route's row gate), "
+                      "bounce rays sorted",
+                sorted_vs_unsorted_bitwise=True, ms_per_spp=ms_per_spp)
     emit("mesh_path", **line)
     return counts
 
@@ -5574,6 +5673,344 @@ def phase_fit_volume_path(device):
     return counts
 
 
+# --------------------------------------------------------------------------
+# the last modules: parallel/ over torch.distributed, and the grid tools
+# --------------------------------------------------------------------------
+SHARD_WORLD = 2           # gloo ranks on one card (NCCL refuses two on one device)
+SHARD_VPT_SPP = 64        # vpt through K6c on each rank's block, cut from 1024
+SHARD_NEE_SPP = 16        # nee through K9c on each rank's block, cut from 1024
+SHARD_SPP_AXIS = 8        # Cornell's spp axis: samples k, k + 2, ... on rank k
+SHARD_COLLECTIVE_TIMEOUT_S = 120
+SHARD_JOIN_TIMEOUT_S = 300
+TOOLS_CLOUD = 64          # tools_path: the procedural cloud's resolution
+TOOLS_SPP = 16            # tools_path: the nee preset's render, cut from 1024
+
+
+def sum_counts(*runs):
+    """Launch and plain-call counts of several counted runs, added."""
+    out = {}
+    for counts in runs:
+        for name, c in counts.items():
+            o = out.setdefault(name, {"launches": 0, "plain_calls": 0})
+            o["launches"] += c["launches"]
+            o["plain_calls"] += c["plain_calls"]
+    return out
+
+
+def check_counts(label, counts, expected):
+    for name, c in counts.items():
+        want = expected.get(name, 0)
+        check(c["launches"] == want,
+              f"{label}: {name} launched {c['launches']}x, expected {want}")
+        check(c["plain_calls"] == 0, f"{label}: {c['plain_calls']} plain calls of {name}")
+
+
+def shard_cases(device, group):
+    """The cases of shard_path on ``group`` (a world of one: the single
+    references), each counted from 0: (results, counts by case, expected
+    launches by case)."""
+    import torch
+
+    from xraytracer_tpu_torch import cli, diff, parallel
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.renderer import (
+        WavefrontRenderer,
+        make_sample_fn,
+        pixel_grid,
+        pixel_sharding,
+    )
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    sharding = pixel_sharding(group) if group.world > 1 else None
+    out, counts, expected = {}, {}, {}
+    cornell = None
+    for label, cfg, kernel in (
+            ("main", get_preset("cornellbox_gi", width=WIDTH, height=HEIGHT,
+                                spp=MAIN_SPP), "mega_spp_persistent"),
+            ("vpt", get_preset("vpt", spp=SHARD_VPT_SPP), "vol_spp_persistent"),
+            ("nee", get_preset("nee", spp=SHARD_NEE_SPP), "het_spp_persistent")):
+        tables, camk = cli.build_scene(cfg, device=device)
+        # every rank renders rank 0's tables
+        tables = parallel.replicated(group, tables)
+        st = scene_statics(tables)
+        cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+        integ = cli.make_integrator(cfg, tables, st)
+        r = WavefrontRenderer(tables, cam, integ, cfg.width, cfg.height,
+                              seed=cfg.seed, sharding=sharding)
+        if label == "main":
+            cornell, cornell_cfg, cornell_st, cornell_cam, cornell_integ = (
+                tables, cfg, st, cam, integ)
+        reset_all_counts()
+        res = r.render(cfg.spp)
+        counts[label] = all_counts()
+        expected[label] = {kernel: 1}
+        check(res.n_rejected == 0, f"shard_path {label}: {res.n_rejected} rejected")
+        out[label] = res.image
+        out[f"{label}_seconds"] = res.seconds
+
+    # Cornell's spp axis, one mega_path launch per sample of the rank
+    ids, xy = pixel_grid(WIDTH, HEIGHT, order="raster", device=device)
+    sample_once = make_sample_fn(cornell, cornell_cam, cornell_integ, WIDTH, HEIGHT,
+                                 cornell_cfg.seed)
+    reset_all_counts()
+    acc, rej = parallel.spp_parallel_render(cornell, sample_once, ids, xy,
+                                            SHARD_SPP_AXIS, group)
+    counts["spp_axis"] = all_counts()
+    expected["spp_axis"] = {"mega_path": len(range(group.rank, SHARD_SPP_AXIS, group.world))}
+    check(int(rej) == 0, "shard_path spp_axis: rejected samples")
+    out["spp_axis"] = (acc / SHARD_SPP_AXIS).cpu().numpy()
+
+    # one analytic gradient step (K5) over the pixel split
+    fast = diff.try_make_fast_value_and_grad(
+        cornell, cornell_st, cornell_cam, WIDTH, HEIGHT, max_depth=DEPTH,
+        cosine_sampling=True, group=group if sharding is not None else None)
+    check(fast is not None, "shard_path: Cornell did not take the analytic route")
+    params = {"mat_albedo": cornell.mat_albedo, "al_le": cornell.al_le}
+    target = torch.zeros((WIDTH * HEIGHT, 3), device=device)
+    reset_all_counts()
+    loss, g = fast(params, ids, xy, target, GRAD_SAMPLE)
+    counts["grad_step"] = all_counts()
+    expected["grad_step"] = {"mega_grad_path": 1}
+    out["grad_loss"] = float(loss)
+    for k, v in g.items():
+        out[f"grad_{k}"] = v.cpu().numpy()
+    return out, counts, expected
+
+
+def shard_rank(rank, world, backend, device, store, out_dir):
+    """One rank of a split run on ``device``: join the group, run
+    ``shard_cases``, save the results. Any failure exits non-zero."""
+    import pickle
+
+    import torch
+
+    from xraytracer_tpu_torch import parallel
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    parallel.multihost_init(f"file://{store}", world, rank, backend=backend,
+                            timeout=SHARD_COLLECTIVE_TIMEOUT_S)
+    group = parallel.make_mesh(device)
+    check((group.rank, group.world, group.backend) == (rank, world, backend),
+          f"shard_path: rank {rank} joined as {group}")
+    got = shard_cases(device, group)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(got, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_split(label, backend, devices):
+    """Spawn one ``shard_rank`` per entry of ``devices``, wait for all of
+    them (killing any left at the time limit), check their exit codes,
+    launch counts and that every rank returned the same results, and hold
+    those against ``shard_cases`` in a world of one on ``devices[0]``.
+    Returns (the ranks' results, the single ones, the checks' line fields,
+    the counts summed over the ranks, the temporary directory)."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from xraytracer_tpu_torch import parallel
+
+    world = len(devices)
+    tmp = tempfile.mkdtemp(prefix="xrt_shard_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(
+        r, world, backend, str(devices[r]), os.path.join(tmp, "store"), tmp))
+        for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, SHARD_JOIN_TIMEOUT_S - (time.perf_counter() - t0)))
+    hung = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    ranks_s = time.perf_counter() - t0
+    check(not hung, f"{label}: ranks {hung} did not finish in {SHARD_JOIN_TIMEOUT_S} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"{label}: rank exit codes {codes}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    got = ranks[0][0]
+    for other in ranks[1:]:
+        for k, v in got.items():
+            if not k.endswith("_seconds"):
+                check(np.array_equal(v, other[0][k]), f"{label}: ranks differ on {k}")
+    per_rank = []
+    for r, (_, counts, expected) in enumerate(ranks):
+        for case, c in counts.items():
+            check_counts(f"{label} rank {r} {case}", c, expected[case])
+        per_rank.append(sum_counts(*counts.values()))
+
+    # the single references, on one process (a world of one)
+    want, _, _ = shard_cases(devices[0], parallel.PixelGroup(0, 1, devices[0]))
+    bitwise = {}
+    for case in ("main", "vpt", "nee"):
+        bitwise[case] = bool(np.array_equal(got[case], want[case]))
+        check(bitwise[case], f"{label} {case}: the split image differs from the "
+                             f"single render at "
+                             f"{int((got[case] != want[case]).any(axis=-1).sum())} pixels")
+    spp_err = float(np.abs(got["spp_axis"] - want["spp_axis"]).max())
+    check(spp_err <= 1e-5, f"{label} spp_axis: {spp_err} from single")
+    check(abs(got["grad_loss"] - want["grad_loss"]) <= GRAD_LOSS_RTOL * abs(want["grad_loss"]),
+          f"{label} grad_step: loss {got['grad_loss']} vs {want['grad_loss']}")
+    grad_err = {}
+    for k in ("mat_albedo", "al_le"):
+        a, b = got[f"grad_{k}"], want[f"grad_{k}"]
+        grad_err[k] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        check(bool((np.abs(a - b) <= GRAD_RTOL * np.abs(b)
+                    + GRAD_ATOL_REL * np.abs(b).max()).all()),
+              f"{label} grad_step: d loss / d {k} off by {grad_err[k]}")
+    line = dict(
+        world=world, backend=backend, devices=[str(d) for d in devices],
+        ranks_seconds=ranks_s,
+        cases=dict(main=dict(preset="cornellbox_gi", width=WIDTH, height=HEIGHT,
+                             depth=DEPTH, spp=MAIN_SPP, route="mega_spp_persistent"),
+                   vpt=dict(preset="vpt", spp=SHARD_VPT_SPP, route="vol_spp_persistent"),
+                   nee=dict(preset="nee", spp=SHARD_NEE_SPP, route="het_spp_persistent"),
+                   spp_axis=dict(preset="cornellbox_gi", spp=SHARD_SPP_AXIS,
+                                 route="mega_path per sample"),
+                   grad_step=dict(route="mega_grad_path", sample=GRAD_SAMPLE)),
+        split_bitwise_single=bitwise, spp_axis_max_abs_err=spp_err,
+        grad_loss=[got["grad_loss"], want["grad_loss"]], grad_rel_err=grad_err,
+        render_seconds_rank0={c: got[f"{c}_seconds"] for c in ("main", "vpt", "nee")},
+        render_seconds_single={c: want[f"{c}_seconds"] for c in ("main", "vpt", "nee")},
+        launches_by_rank=[{k: v["launches"] for k, v in c.items() if v["launches"]}
+                          for c in per_rank])
+    return want, line, sum_counts(*per_rank), tmp
+
+
+def phase_shard(device, main_result):
+    """shard_path: the port's parallel/ on the card. Two gloo ranks on
+    cuda:0 (spawned processes) each render their block of the lanes:
+    cornellbox_gi at its 512 spp through K1c, vpt through K6c and nee through
+    K9c at reduced spp, each bitwise the single render; Cornell's spp axis
+    through K1a within 1e-5 of single; one analytic gradient step (K5) split
+    against single; then ``--shard`` through the CLI in a world of one,
+    bitwise main_path's image. Returns the counts summed over the ranks."""
+    import numpy as np
+
+    from xraytracer_tpu_torch import cli
+
+    want, line, rank_counts, tmp = run_split(
+        "shard_path", "gloo", [device] * SHARD_WORLD)
+    check(np.array_equal(want["main"], main_result.image),
+          "shard_path: the single render differs from main_path's")
+
+    # --shard through the CLI: no launcher, so a world of one
+    images = []
+    write = cli.write_image
+    cli.write_image = lambda path, img, gamma: images.append(img)
+    os.environ.pop("WORLD_SIZE", None)
+    try:
+        reset_all_counts()
+        check(cli.main(["--preset", "cornellbox_gi", "--shard",
+                        "-o", os.path.join(tmp, "shard.png")]) == 0,
+              "shard_path: the CLI failed")
+        cli_counts = all_counts()
+    finally:
+        cli.write_image = write
+    check_counts("shard_path cli", cli_counts, {"mega_spp_persistent": 1})
+    check(len(images) == 1 and np.array_equal(images[0], main_result.image),
+          "shard_path: --shard in a world of one differs from main_path's image")
+    counts = sum_counts(rank_counts, cli_counts)
+    emit("shard_path", **line, cli_world_of_one_bitwise_main=True,
+         launches_cli={k: v["launches"] for k, v in cli_counts.items() if v["launches"]},
+         plain_calls=sum(c["plain_calls"] for c in counts.values()))
+    return counts
+
+
+def phase_shard_nccl():
+    """The same split over every card of the box, one rank per card under
+    NCCL (``--nccl``; needs two cards or more): each rank renders its block
+    of the lanes on its own card, the images bitwise the single render on
+    cuda:0."""
+    import torch
+
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--nccl: needs two cards or more, found {n}")
+    _, line, _, _ = run_split("shard_nccl", "nccl",
+                              [torch.device("cuda", r) for r in range(n)])
+    emit("shard_nccl", **line)
+
+
+def phase_tools(device):
+    """tools_path: the 64^3 procedural cloud written as .vdb (zip) by
+    ``tools.vdb.write_vdb``, converted to .npy by ``tools.grid_convert``, and
+    rendered by the CLI as ``--preset nee --density-grid`` at 780x585
+    through K9c. The converted grid must be the window of the active voxels
+    of the cloud, bitwise, and the image bitwise the render fed that window
+    as an in-memory array."""
+    import tempfile
+
+    import numpy as np
+
+    from xraytracer_tpu_torch import cli
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.renderer import render
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+    from xraytracer_tpu_torch.scene.presets import procedural_cloud
+    from xraytracer_tpu_torch.tools import grid_convert, vdb
+
+    tmp = tempfile.mkdtemp(prefix="xrt_tools_")
+    cloud = procedural_cloud((TOOLS_CLOUD,) * 3)
+    p_vdb, p_npy = os.path.join(tmp, "cloud.vdb"), os.path.join(tmp, "cloud.npy")
+    vdb.write_vdb(p_vdb, cloud, compression="zip")
+    grid_convert.main([p_vdb, p_npy])
+    conv = np.load(p_npy)
+    g = vdb.read_vdb(p_vdb)
+    lo, shape = np.asarray(g.bbox_min), conv.shape
+    window = cloud[lo[0]:lo[0] + shape[0], lo[1]:lo[1] + shape[1], lo[2]:lo[2] + shape[2]]
+    check(conv.dtype == np.float32 and np.array_equal(conv, window),
+          "tools_path: the converted grid is not the cloud's active window")
+    check(np.count_nonzero(window) == np.count_nonzero(cloud),
+          "tools_path: an active voxel of the cloud lies outside the window")
+
+    cfg = get_preset("nee", spp=TOOLS_SPP)
+    images = []
+    write = cli.write_image
+    cli.write_image = lambda path, img, gamma: images.append(img)
+    try:
+        reset_all_counts()
+        check(cli.main(["--preset", "nee", "--density-grid", p_npy, "--spp",
+                        str(TOOLS_SPP), "-o", os.path.join(tmp, "nee.png")]) == 0,
+              "tools_path: the CLI failed")
+        counts = all_counts()
+    finally:
+        cli.write_image = write
+    check_counts("tools_path", counts, {"het_spp_persistent": 1})
+    tables, camk = cli.build_scene(cfg, device=device, density_grid=window.copy())
+    st = scene_statics(tables)
+    ref = render(tables, PinholeCamera.make(cfg.width / cfg.height, device=device, **camk),
+                 cli.make_integrator(cfg, tables, st), cfg.width, cfg.height, cfg.spp,
+                 seed=cfg.seed)
+    check(len(images) == 1 and images[0].shape == (cfg.height, cfg.width, 3),
+          "tools_path: no image")
+    check(bool(np.isfinite(images[0]).all()) and float(images[0].mean()) > 0,
+          "tools_path: the image is not finite and positive")
+    check(np.array_equal(images[0], ref.image),
+          "tools_path: the CLI's image differs from the in-memory window's")
+    emit("tools_path", cloud=[TOOLS_CLOUD] * 3, vdb_bytes=os.path.getsize(p_vdb),
+         compression="zip", window_min=lo.tolist(), window_shape=list(shape),
+         width=cfg.width, height=cfg.height, depth=cfg.max_depth, spp=TOOLS_SPP,
+         spp_cut=f"cut from {get_preset('nee').spp} to {TOOLS_SPP}",
+         mean_radiance=float(images[0].mean()), bitwise_in_memory=True,
+         route="fused (het_spp_persistent)",
+         launches={k: v["launches"] for k, v in counts.items() if v["launches"]},
+         plain_calls=sum(c["plain_calls"] for c in counts.values()))
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fmad-ab", action="store_true",
@@ -5602,6 +6039,10 @@ def main():
                          "at once on a staged table, with and without -fmad=false, "
                          "count the pixels where K1b parts from K1c, and stop "
                          "(no result line)")
+    ap.add_argument("--nccl", action="store_true",
+                    help="run shard_path's split over every card of the box, one "
+                         "rank per card under NCCL (two cards or more), against "
+                         "the single render, and stop (no result line)")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per kernel and case (median)")
     args = ap.parse_args()
@@ -5646,6 +6087,10 @@ def main():
             return 0
     check(not args.ab_only, "--ab-only needs --ab-csrc")
 
+    if args.nccl:
+        phase_shard_nccl()
+        emit("total", seconds=time.perf_counter() - t_start)
+        return 0
     cfg = get_preset("cornellbox_gi", width=WIDTH, height=HEIGHT, spp=MAIN_SPP)
     check((cfg.width, cfg.height, cfg.max_depth, cfg.integrator) ==
           (WIDTH, HEIGHT, DEPTH, "gi"), "cornellbox_gi preset changed")
@@ -5716,6 +6161,9 @@ def main():
     # the volume gradients: both routes of one loss, and the trainer
     by_path.update(phase_vol_grad_path(device, nee_scene))
     by_path["fit_volume_path"] = phase_fit_volume_path(device)
+    # the last modules: the pixel split over two ranks, and the grid tools
+    by_path["shard_path"] = phase_shard(device, main_result)
+    by_path["tools_path"] = phase_tools(device)
     # the path on which each kernel must have run, by that path's own count
     runs_on = {"mega_spp_persistent": "main_path", "chunk_boxes": "mesh_path",
                "mega_path": "fused_entry_points", "mega_spp": "fused_entry_points",

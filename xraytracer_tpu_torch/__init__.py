@@ -10,11 +10,12 @@ It imports ``torch`` and ``numpy``, never ``jax`` and nothing of the JAX
 package. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
-Ported so far — surface GI, forward volume rendering and surface gradients:
+Everything the JAX package does but its TPU-only mechanisms:
   math/         vector/matrix/optics math
   sampling/     counter-based RNG (bitwise equal to the JAX package's),
                 warps, discrete distributions
-  geometry/     ray/hit records, batched intersection, kernel wrappers
+  geometry/     ray/hit records, batched intersection, kernel wrappers,
+                bounce-ray coherence sorting (raysort.py)
   scene/        flat scene tables, builder, Cornell preset
   materials.py  BSDF tables (Lambert/Mirror/Glass)
   lights.py     area light tables
@@ -23,10 +24,14 @@ Ported so far — surface GI, forward volume rendering and surface gradients:
   integrators/  Normal, Indirect/GI path tracing (NEE, MIS, stats), the
                 whole-path surface kernels, volume path tracing (VPT,
                 VPT-NEE) and the whole-path homogeneous volume kernels
-  renderer.py   spp-chunked wavefront execution, checkpoints
-  diff.py       gradients w.r.t. albedo and emission: autograd through the
-                wavefront integrator, and the analytic forward-pass kernel
-  tools/        fit_scene.py, inverse rendering of the Cornell box
+  renderer.py   spp-chunked wavefront execution, checkpoints, the pixel
+                split over a process group (sharding=)
+  parallel/     torch.distributed process groups: pixel and spp splits
+  diff.py       gradients w.r.t. albedo, emission and density: autograd
+                through the wavefront integrators, and the analytic
+                forward-pass kernels, on one device or over a group
+  tools/        fit_scene.py / fit_volume.py (inverse rendering), vdb.py,
+                grid_convert.py, majorant_stats.py
   film.py, config.py, cli.py, convert.py
 """
 

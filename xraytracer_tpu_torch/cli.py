@@ -20,8 +20,11 @@ kernel; with ``--stats`` they run the wavefront loop with the two tracking
 kernels. The normal, furnace, direct and Whitted integrators (the
 ``example`` and ``whitted`` presets among them) run the wavefront route:
 the record sweep for every hit, the any-hit sweep for every shadow ray.
-Every preset, integrator and flag of the JAX package's CLI is here but
-``--shard`` (multi-device rendering is not ported; ROADMAP.md).
+Every preset, integrator and flag of the JAX package's CLI is here.
+``--shard`` splits the pixels over the ranks of ``renderer.default_mesh()``:
+a world of one in a plain process; under ``torchrun --nproc-per-node=N``
+each rank renders its block of the lanes on ``cuda:LOCAL_RANK``, and rank 0
+writes the image and the checkpoint.
 """
 
 import argparse
@@ -44,26 +47,28 @@ from .integrators import (
     make_volume_integrator,
     make_whitted_integrator,
 )
-from .renderer import Accumulator, render
+from .renderer import Accumulator, default_mesh, pixel_sharding, render
 from .scene import presets as scene_presets
 from .scene.builder import SceneBuilder, scene_statics
 
 
 def build_scene(cfg, device=None, density_grid=None):
     """Preset name (or ``cfg.obj`` path) -> (tables, camera_kwargs).
-    ``density_grid``: a ``.npy`` / ``.npz`` dense grid that replaces the
-    procedural cloud of the ``volume`` and ``nee`` presets."""
+    ``density_grid``: a ``.npy`` / ``.npz`` dense grid (a path, or the
+    array itself) that replaces the procedural cloud of the ``volume`` and
+    ``nee`` presets."""
     if cfg.obj:
         from .scene.objloader import load_obj_into
 
         b = SceneBuilder()
         load_obj_into(b, cfg.obj)
         return b.build(device), scene_presets.cornell_camera()
-    if density_grid and cfg.preset in ("volume", "nee"):
+    if density_grid is not None and cfg.preset in ("volume", "nee"):
         # replace the procedural stand-in cloud with a converted grid
         # (reference analogue: the NanoVDBConvert offline tool feeding
         # examples/volume.cpp)
-        loaded = np.load(density_grid)
+        loaded = (density_grid if isinstance(density_grid, np.ndarray)
+                  else np.load(density_grid))
         if isinstance(loaded, np.lib.npyio.NpzFile):
             key = "density" if "density" in loaded else loaded.files[0]
             loaded = loaded[key]
@@ -177,6 +182,9 @@ def main(argv=None):
     p.add_argument("--cosine", action="store_true", default=None,
                    dest="cosine_sampling",
                    help="cosine-weighted Lambert sampling (lower variance)")
+    p.add_argument("--shard", action="store_true", default=None,
+                   help="split the pixels over the ranks of the process group "
+                        "a launcher (torchrun) set up; a world of one otherwise")
     p.add_argument("--checkpoint", default=None,
                    help=".npz path for chunked accumulation checkpoints")
     p.add_argument("--resume", action="store_true",
@@ -202,10 +210,16 @@ def main(argv=None):
         integrator=args.integrator, width=args.width, height=args.height,
         spp=args.spp, max_depth=args.max_depth, gamma=args.gamma,
         seed=args.seed, spp_chunk=args.spp_chunk,
-        cosine_sampling=args.cosine_sampling,
+        cosine_sampling=args.cosine_sampling, shard=args.shard,
         checkpoint=args.checkpoint, obj=args.obj, output=args.output,
         nee_mode=args.nee_mode, max_steps=args.max_steps,
     )
+    sharding = None
+    if cfg.shard:
+        # rank r of a launcher's group renders on cuda:LOCAL_RANK
+        sharding = pixel_sharding(default_mesh(args.device))
+        device = sharding.device
+    lead = sharding is None or sharding.rank == 0
 
     tables, cam_kwargs = build_scene(cfg, device=device,
                                      density_grid=args.density_grid)
@@ -239,8 +253,9 @@ def main(argv=None):
             tables, camera, integrate, cfg.width, cfg.height, cfg.spp,
             seed=cfg.seed, spp_chunk=cfg.spp_chunk or None,
             accumulator=accumulator, checkpoint_path=cfg.checkpoint,
+            sharding=sharding,
         )
-    if args.profile:
+    if args.profile and lead:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "render.trace.json")
         prof.export_chrome_trace(trace)
@@ -252,8 +267,9 @@ def main(argv=None):
     )
     if result.stats is not None:
         print_stats(cfg, result)
-    write_image(cfg.output, result.image, gamma=cfg.gamma)
-    print(f"[render] wrote {cfg.output} (total {time.perf_counter()-t0:.2f}s)")
+    if lead:
+        write_image(cfg.output, result.image, gamma=cfg.gamma)
+        print(f"[render] wrote {cfg.output} (total {time.perf_counter()-t0:.2f}s)")
     return 0
 
 

@@ -25,12 +25,18 @@ Two routes to ``(loss, grads)``:
 For scenes with media, ``make_radiance_fn`` differentiates the volume
 integrator (``make_volume_integrator(differentiable=True)``) w.r.t.
 ``med_sigma_a`` / ``med_sigma_s`` / ``al_le`` / ``grid_density``.
+
+Both routes take ``group=`` (a ``parallel.PixelGroup``): each rank then
+renders its block of the frame's lanes, and the loss and the parameter
+gradients are summed over the ranks in rank order — the port's form of the
+``psum`` that XLA inserts under the JAX package's sharded jit.
 """
 
 import torch
 
 from .geometry.intersect import tables_present
 from .integrators import make_path_integrator, make_volume_integrator
+from .parallel import sharded_pixels, sum_over_ranks
 from .renderer import CAMERA_SITE
 from .sampling import path_keys, uniform2
 
@@ -128,9 +134,34 @@ def value_and_grad(fn):
     return vg
 
 
-def make_train_step(radiance_fn, lr=0.05):
-    """One SGD step on the differentiable scene params, on one device."""
+def split_over_ranks(step, group):
+    """``step(params, pixel_ids, pixel_xy, target, sample_idx, ...) ->
+    (loss, grads)`` (a mean over its lanes) run on ``group``: each rank
+    passes its block of the lanes (``parallel.sharded_pixels``) and weighs
+    its loss and gradients by its share of the frame's pixels, so its loss
+    is its part of the frame's mean; both are then summed over the ranks in
+    rank order, the same on every rank. Every rank passes the whole frame's
+    ``pixel_ids``, ``pixel_xy`` and ``target``. A dict passed as ``aux``
+    receives the rank's block of the image."""
+
+    def split(params, pixel_ids, pixel_xy, target, sample_idx, **kw):
+        n = pixel_ids.shape[0]
+        blk = sharded_pixels(group, n)
+        share = (blk.stop - blk.start) / n
+        val, g = step(params, pixel_ids[blk], pixel_xy[blk], target[blk],
+                      sample_idx, **kw)
+        return (sum_over_ranks(group, val * share),
+                {k: sum_over_ranks(group, v * share) for k, v in g.items()})
+
+    return split
+
+
+def make_train_step(radiance_fn, lr=0.05, group=None):
+    """One SGD step on the differentiable scene params; on one device, or
+    with ``group`` over a process group's ranks (``split_over_ranks``)."""
     grad_fn = value_and_grad(make_loss_fn(radiance_fn))
+    if group is not None:
+        grad_fn = split_over_ranks(grad_fn, group)
 
     def step(params, pixel_ids, pixel_xy, target, sample_idx):
         val, g = grad_fn(params, pixel_ids, pixel_xy, target, sample_idx)
@@ -143,7 +174,7 @@ def make_train_step(radiance_fn, lr=0.05):
 def try_make_fast_value_and_grad(
     tables, statics, camera, width, height, max_depth=3, nee=True,
     cosine_sampling=True, seed=0, force=False, le_grads=False,
-    nee_mode="all",
+    nee_mode="all", group=None,
 ):
     """Forward-pass ANALYTIC value and gradient of the L2 image loss: the
     kernel K5 (``megakernel.try_make_fused_grad_path``) accumulates per-lane
@@ -163,7 +194,11 @@ def try_make_fast_value_and_grad(
     analytic route (``het_megakernel.try_make_fused_het_value_and_grad``,
     grads for "grid_density" and "al_le", and ``step.step_pair``), which
     returns None for scenes it does not serve either (``vpt``, a
-    homogeneous box)."""
+    homogeneous box).
+
+    ``group``: the step over a process group's ranks
+    (``split_over_ranks``); the heterogeneous route's ``step_pair`` is not
+    split and is left out."""
     from .integrators.megakernel import try_make_fused_grad_path
     from .scene.tables import rejoin_appearance
 
@@ -176,10 +211,16 @@ def try_make_fast_value_and_grad(
             try_make_fused_het_value_and_grad,
         )
 
-        return try_make_fused_het_value_and_grad(
+        het = try_make_fused_het_value_and_grad(
             tables, statics, camera, width, height, max_depth, nee=nee,
             seed=seed, force=force,
         )
+        if het is None or group is None:
+            return het
+        split = split_over_ranks(het, group)
+        split.__dict__.update(
+            {k: v for k, v in het.__dict__.items() if k != "step_pair"})
+        return split
     dev = tables.tri_v0.device
     wh = torch.tensor([float(width), float(height)], device=dev)
 
@@ -209,4 +250,4 @@ def try_make_fast_value_and_grad(
             aux["img"] = img
         return loss, grads
 
-    return step
+    return step if group is None else split_over_ranks(step, group)

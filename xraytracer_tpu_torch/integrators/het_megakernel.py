@@ -433,11 +433,12 @@ def try_make_fused_het_path_integrator(
 def try_make_fused_het_spp_render(
     scene, statics, camera, width, height, seed, max_depth, nee=False,
     max_steps=None, n_iterations=None, force=False, pixel_order="raster",
-    persistent=True, grad_sampling=False,
+    persistent=True, grad_sampling=False, mesh=None,
 ):
     """``render_chunk(s0, n_spp) -> (radiance_sum (N, 3), n_rejected)``
     running a whole chunk of samples in one launch (see
-    ``megakernel.make_spp_render``), or None if the scene or the camera does
+    ``megakernel.make_spp_render``; ``mesh``: this rank's block of the
+    lanes), or None if the scene or the camera does
     not qualify. ``persistent=True`` (default) merges the sample loop into
     the path loop: the same image, and a lane whose path ends early (most
     of them: camera rays that miss the cloud, roulette) starts its next
@@ -453,7 +454,7 @@ def try_make_fused_het_spp_render(
     kernel = het_spp_persistent if persistent else het_spp
     return mk.make_spp_render(
         lambda view, s0, n_spp: kernel(hc, view, s0, n_spp),
-        camera, width, height, seed, pixel_order=pixel_order,
+        camera, width, height, seed, pixel_order=pixel_order, mesh=mesh,
     )
 
 

@@ -713,12 +713,13 @@ def try_make_fused_spp_render(
     scene, statics, camera, width, height, seed, max_depth, nee=True,
     le_depth0_only=None, cosine_sampling=False, force=False,
     pixel_order="raster", nee_mode="all", persistent=True, pick_weights=None,
+    mesh=None,
 ):
     """``render_chunk(s0, n_spp) -> (radiance_sum (N, 3), n_rejected)``
     running a whole chunk of samples in one launch, or None if the scene or
     the camera does not qualify. Draws the per-sample stream of the
     wavefront route (pixfold = pcg(pcg(seed) + pixel id), key =
-    pcg(pixfold + s))."""
+    pcg(pixfold + s)). ``mesh``: see ``make_spp_render``."""
     if not force and not scene.tri_v0.is_cuda:
         return None
     if not isinstance(camera, PinholeCamera):
@@ -732,11 +733,12 @@ def try_make_fused_spp_render(
     kernel = mega_spp_persistent if persistent else mega_spp
     return make_spp_render(
         lambda view, s0, n_spp: kernel(fs, view, s0, n_spp),
-        camera, width, height, seed, pixel_order=pixel_order,
+        camera, width, height, seed, pixel_order=pixel_order, mesh=mesh,
     )
 
 
-def make_spp_render(launch, camera, width, height, seed, pixel_order="raster"):
+def make_spp_render(launch, camera, width, height, seed, pixel_order="raster",
+                    mesh=None):
     """Assemble ``render_chunk(s0, n_spp)`` around any whole-path spp kernel
     ``launch(view, s0, n_spp) -> (sums (N, 3), rejects (N,))``: the camera
     constants, rounded as the kernels expect them, the per-pixel PCG fold
@@ -747,7 +749,15 @@ def make_spp_render(launch, camera, width, height, seed, pixel_order="raster"):
     ``render_chunk.pixel_ids`` is the lane -> pixel-id map for assembly.
     A pixel's stream depends only on its id, so images are bitwise
     identical across orders. No lane padding is needed on the card, so
-    ``render_chunk.n_pad`` is the pixel count.
+    ``render_chunk.n_pad`` is the lane count.
+
+    ``mesh``: a ``parallel.PixelGroup``, the multi-GPU fused path. The view
+    then holds only this rank's contiguous block of the lanes
+    (``parallel.sharded_pixels``: pixfold, px and py sliced), the kernel runs
+    on those lanes alone, and ``render_chunk.pixel_ids`` is the block's
+    lane -> pixel-id map (``render_chunk.sharded`` is set). Each lane owns
+    its pixel, so a block's sums are bitwise the single-device kernel's on
+    the same pixels.
     """
     from ..renderer import CAMERA_SITE, pixel_grid
 
@@ -762,8 +772,13 @@ def make_spp_render(launch, camera, width, height, seed, pixel_order="raster"):
         np.asarray([scale, scale / aspect, 1.0 / width, 1.0 / height]),
     ]).astype(np.float32)
     ids, pxy = pixel_grid(width, height, order=pixel_order, device=dev)
+    if mesh is not None:
+        from ..parallel import sharded_pixels
+
+        blk = sharded_pixels(mesh, ids.shape[0])
+        ids, pxy = ids[blk], pxy[blk]
     pixfold = rng._pcg((rng.base_key(seed) + rng._u32(ids)) & _MASK)
-    n = width * height
+    n = ids.shape[0]
     view = RenderView(
         n=n, cam=cam, cam_site=(CAMERA_SITE * _GOLDEN) & _MASK,
         pixfold=pixfold, pixfold_bits=_i32_bits(pixfold),
@@ -775,6 +790,7 @@ def make_spp_render(launch, camera, width, height, seed, pixel_order="raster"):
         return rad, rej.sum()
 
     render_chunk.n_pad = n
+    render_chunk.sharded = mesh is not None
     render_chunk.pixel_ids = ids.cpu().numpy()
     render_chunk.pixel_order = pixel_order
     render_chunk.view = view

@@ -88,7 +88,7 @@ def make_furnace_integrator(scene, tri_fn=None, cosine_sampling=False):
 def _nee_area_lights(
     scene, statics, hit, d_in, throughput, keys, site0, tri_fn,
     active, mis=False, cosine_sampling=False, nee_mode="all", pick_dist=None,
-    present=None,
+    present=None, park=None,
 ):
     """Per-vertex NEE over area lights: the radiance it adds, throughput x
     the light samples' terms on the lanes in ``active`` (those that reach
@@ -111,6 +111,14 @@ def _nee_area_lights(
     position + 0.01 * ng with range tmax - 0.01, exactly as the reference.
     With ``mis`` each light sample is power-heuristic weighted against the
     BSDF pdf for the same direction (capability beyond the reference).
+
+    ``park=(park_o, park_d)`` (the sorted wavefront's): a shadow ray whose
+    contribution is already zero (a lane not in ``active``, a zero-pdf light
+    sample, a light behind the surface) starts at ``park_o`` outside the
+    scene with t_max = 0, so the any-hit sweep drops it before its walk and
+    it keeps no chunk alive for the other lanes of its warp. The image does
+    not change: ``vis`` is used only through (vis & ok) * cos, which is zero
+    for every parked lane.
     """
     n_lights = statics["n_area_lights"]
     direct = torch.zeros_like(throughput)
@@ -140,8 +148,16 @@ def _nee_area_lights(
             ls = sample_area_light(scene, lidx, hit.position, u2)
         ok = ls.pdf > 0.0
         cos = torch.clamp(dot(hit.ng, ls.wi), min=0.0)
-        srays = Rays(o=hit.position + hit.ng * SHADOW_BIAS, d=ls.wi)
+        so = hit.position + hit.ng * SHADOW_BIAS
+        sd = ls.wi
         tmax = ls.t_max - SHADOW_BIAS
+        if park is not None:
+            live = active & ok & (cos > 0.0)
+            park_o, park_d = park
+            so = torch.where(live[:, None], so, park_o)
+            sd = torch.where(live[:, None], sd, park_d)
+            tmax = torch.where(live, tmax, torch.zeros_like(tmax))
+        srays = Rays(o=so, d=sd)
         vis = ~occluded(scene, srays, tmax, tri_fn=tri_fn, present=present)
         wo_l = world_to_local(-d_in, hit.dpdu, hit.ns, hit.dpdv)
         wi_l = world_to_local(ls.wi, hit.dpdu, hit.ns, hit.dpdv)
@@ -184,7 +200,8 @@ def make_direct_integrator(scene, statics, tri_fn=None):
 def make_path_integrator(
     scene, statics, max_depth, nee=True, le_depth0_only=None,
     cosine_sampling=False, tri_fn=None, mis=False, with_stats=False,
-    nee_mode="all", fused="auto", pick_weights=None, present=None,
+    nee_mode="all", fused="auto", sort_rays="auto", pick_weights=None,
+    present=None,
 ):
     """Indirect (``nee=False``) and GI (``nee=True``) path tracing
     (reference: Src/integrator.h:122-190 and 198-291).
@@ -215,9 +232,17 @@ def make_path_integrator(
     go one step further and run whole chunks of samples in one launch. Any
     other value (``"never"``, ``"off"``, ``False``) keeps the composable
     wavefront route below, as do ``tri_fn``, ``with_stats``, ``mis`` and
-    tables on the CPU. The JAX package's ``sort_rays`` re-sort (row
-    scheduling that leaves the image bitwise unchanged) is not part of this
-    port yet; ROADMAP.md lists it.
+    tables on the CPU.
+
+    ``sort_rays`` (scheduling, not an estimator change; see
+    ``geometry/raysort.py``): re-sort the wavefront before every bounce
+    after the first by (direction octant | origin Morton), park dead lanes
+    and dead shadow rays outside the scene, and scatter the radiance back to
+    lane order at the end, so that the sweeps' culled warp walk stays
+    effective on incoherent bounce and shadow rays. Images are bitwise
+    identical with it on or off. "auto" = on for a table of more than 4096
+    real triangles (where the fused route's row gate sends a scene to this
+    route) at ``max_depth > 1``.
 
     ``present``: ``tables_present(scene)`` when the caller has it (one that
     makes a factory per call on tables whose object ids stay the same, as
@@ -261,6 +286,20 @@ def make_path_integrator(
             w = light_power_weights(scene)[:n_lights]
         pick_dist = DiscreteDistribution1D(w, device=scene.al_type.device)
 
+    if sort_rays == "auto":
+        sort_on = max_depth > 1 and int((scene.tri_obj >= 0).sum()) > 4096
+    else:
+        sort_on = bool(sort_rays) and max_depth > 1
+    park = None
+    if sort_on:
+        from ..geometry.raysort import coherence_key, scene_bounds
+
+        lo, hi = scene_bounds(scene)
+        ext = torch.clamp(hi - lo, min=1e-30)
+        inv_ext = 1.0 / ext
+        park = (hi + 10.0 * ext,
+                torch.tensor([1.0, 0.0, 0.0], device=hi.device))
+
     def integrate(rays: Rays, keys):
         n = rays.o.shape[0]
         dev = rays.o.device
@@ -270,9 +309,19 @@ def make_path_integrator(
         active = torch.ones((n,), dtype=torch.bool, device=dev)
         prev_pdf = torch.ones((n,), device=dev)
         prev_delta = torch.zeros((n,), dtype=torch.bool, device=dev)
+        lane = torch.arange(n, device=dev) if sort_on else None
         stat_rows = []
 
         for depth in range(max_depth):
+            if sort_on and depth > 0:
+                # every per-lane quantity travels with its lane (stable, so
+                # equal keys keep their order)
+                perm = torch.argsort(
+                    coherence_key(o, d, active, lo, inv_ext), stable=True)
+                (radiance, throughput, o, d, active, prev_pdf, prev_delta,
+                 keys, lane) = (
+                    a[perm] for a in (radiance, throughput, o, d, active,
+                                      prev_pdf, prev_delta, keys, lane))
             n_in = active.sum() if with_stats else None
             site = depth * SITES_PER_BOUNCE
             hit = intersect_scene(
@@ -338,6 +387,7 @@ def make_path_integrator(
                     site + _SITE_LIGHT0, tri_fn, active,
                     mis=mis, cosine_sampling=cosine_sampling,
                     nee_mode=nee_mode, pick_dist=pick_dist, present=present,
+                    park=park,
                 )
 
             # BSDF bounce (Src/integrator.h:271-283)
@@ -361,6 +411,11 @@ def make_path_integrator(
                 o,
             )
             d = torch.where(active[:, None], wi, d)
+            if sort_on:
+                # dead lanes park outside the bounds pointing away: their
+                # warps (sorted last) reject every chunk at the group boxes
+                o = torch.where(active[:, None], o, park[0])
+                d = torch.where(active[:, None], d, park[1])
             prev_pdf = torch.where(active, bs.pdf, prev_pdf)
             prev_delta = torch.where(active, bs.is_delta, prev_delta)
             if with_stats:
@@ -375,6 +430,10 @@ def make_path_integrator(
                     active.sum(),
                 ]).to(torch.int32))
 
+        if sort_on:
+            # each lane's radiance back to its own slot: pixel order, bitwise
+            # the unsorted route's
+            radiance = torch.zeros_like(radiance).index_copy(0, lane, radiance)
         if with_stats:
             stats = torch.stack(stat_rows) if stat_rows else torch.zeros(
                 (0, len(STAT_KEYS)), dtype=torch.int32, device=dev
@@ -382,6 +441,7 @@ def make_path_integrator(
             return radiance, {k: stats[:, i] for i, k in enumerate(STAT_KEYS)}
         return radiance
 
+    integrate.sort_rays = sort_on
     return integrate
 
 

@@ -479,12 +479,13 @@ def try_make_fused_volume_integrator(
 def try_make_fused_volume_spp_render(
     scene, statics, camera, width, height, seed, max_depth, nee=False,
     max_steps=None, n_iterations=None, force=False, pixel_order="raster",
-    persistent=True,
+    persistent=True, mesh=None,
 ):
     """``render_chunk(s0, n_spp) -> (radiance_sum (N, 3), n_rejected)``
     running a whole chunk of samples in one launch (see
-    ``megakernel.make_spp_render``), or None if the scene or the camera does
-    not qualify. ``persistent=True`` (default) merges the sample loop into
+    ``megakernel.make_spp_render``; ``mesh``: this rank's block of the
+    lanes, whose work order is made over the block's own lanes), or None if
+    the scene or the camera does not qualify. ``persistent=True`` (default) merges the sample loop into
     the path loop: the same image, and what deep configurations need (depth
     100 = 202-iteration paths whose tail the per-sample loop pays per
     sample)."""
@@ -506,4 +507,5 @@ def try_make_fused_volume_spp_render(
 
     return mk.make_spp_render(
         launch, camera, width, height, seed, pixel_order=pixel_order,
+        mesh=mesh,
     )

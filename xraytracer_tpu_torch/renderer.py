@@ -1,4 +1,4 @@
-"""Execution layer: wavefront renderer, accumulation, checkpoints.
+"""Execution layer: wavefront renderer, accumulation, sharding, checkpoints.
 
 PyTorch counterpart of ``xraytracer_tpu/renderer.py`` and of the
 reference's ``NormalRenderer`` / ``ParallelRenderer`` (reference:
@@ -27,16 +27,32 @@ upgraded to its whole-render kernel: one launch per spp chunk
 (``make_fused_chunk_fn``). ``kind="volume"`` in the spec selects the
 homogeneous volume kernels, ``kind="het_volume"`` the heterogeneous ones.
 
-Not ported yet (ROADMAP.md): the ``sharding`` arguments (multi-GPU).
+``sharding=pixel_sharding(group)`` is the multi-GPU ``ParallelRenderer``:
+each rank of a ``torch.distributed`` group (``parallel/mesh.py``) renders
+one contiguous block of the lanes, by the wavefront route or, for a fused
+route, as the whole-render kernel's own lane set; the finished blocks are
+gathered and every rank returns the full image. No collective runs inside
+the sample loop, since every lane owns its pixel (the disjointness argument
+of the reference's ``std::for_each(par_unseq)``, Src/renderer.cpp:90-93).
 """
 
+import os
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .device import resolve_device
+from .parallel import (
+    block_sizes,
+    gather_rows,
+    make_mesh,
+    multihost_init,
+    sharded_pixels,
+    sum_over_ranks,
+)
 from .sampling import path_keys, uniform2
 
 # Dedicated RNG site for camera jitter, far above any per-bounce block
@@ -237,11 +253,18 @@ class WavefrontRenderer:
     """Reusable pipeline for one (scene, camera, integrator, resolution,
     seed) configuration: the pixel grid and the sample step are built once
     and every ``render`` call reuses them. Runs on the device the camera's
-    tensors live on."""
+    tensors live on.
+
+    ``sharding``: a ``PixelGroup`` (``pixel_sharding(group)``) whose rank
+    renders its block of the lanes (``parallel.sharded_pixels``); every
+    rank must call ``render`` with the same arguments, and each returns the
+    full image, the rejected samples and the stats summed over ranks. A
+    checkpoint holds the whole frame and is written by rank 0, so a run on
+    any number of ranks resumes it."""
 
     def __init__(
         self, scene, camera, integrate, width, height, seed=0,
-        pixel_order="auto",
+        pixel_order="auto", sharding=None,
     ):
         self.width = width
         self.height = height
@@ -257,10 +280,18 @@ class WavefrontRenderer:
             big = int((scene.tri_obj >= 0).sum()) > 128
             pixel_order = "morton" if big else "raster"
         self.pixel_order = pixel_order
-        self.pixel_ids, self.pixel_xy = pixel_grid(
-            width, height, order=pixel_order, device=self.device
-        )
-        self._ids_np = self.pixel_ids.cpu().numpy()
+        ids, xy = pixel_grid(width, height, order=pixel_order, device=self.device)
+        # the lane -> pixel-id map of the whole frame, for assembly
+        self._ids_np = ids.cpu().numpy()
+        self.group = sharding
+        self._block = None
+        if sharding is not None:
+            if sharding.device != self.device:
+                raise ValueError(
+                    f"rank's device {sharding.device}, camera on {self.device}")
+            self._block = sharded_pixels(sharding, self.n_pix)
+            ids, xy = ids[self._block], xy[self._block]
+        self.pixel_ids, self.pixel_xy = ids, xy
         self.sample_once = make_sample_fn(
             scene, camera, integrate, width, height, seed
         )
@@ -283,13 +314,12 @@ class WavefrontRenderer:
                 )
             fused = make_fused(
                 camera=camera, width=width, height=height, seed=seed,
-                pixel_order=self.pixel_order, **spec,
+                pixel_order=self.pixel_order, mesh=sharding, **spec,
             )
             if fused is not None:
+                # its lanes are pixel_grid's (this rank's block of them), so
+                # the frame's lane -> pixel map above assembles its sums too
                 self.run_chunk = make_fused_chunk_fn(fused)
-                # adopt the kernel's own lane -> pixel map for assembly
-                # (identical to pixel_grid's order)
-                self._ids_np = np.asarray(fused.pixel_ids, np.int32)
         if self.run_chunk is None:
             self.run_chunk = make_chunk_fn(self.sample_once)
 
@@ -331,6 +361,11 @@ class WavefrontRenderer:
         nrej = torch.as_tensor(
             acc_state.n_rejected, dtype=torch.int32, device=self.device
         ).clone()
+        if self.group is not None:
+            # this rank's block of the sums; its own rejects, counted from 0
+            # and added to the resumed total in _assemble
+            acc = acc[self._block].clone()
+            rej_resumed, nrej = nrej, torch.zeros_like(nrej)
         spp_resumed = acc_state.spp_done
         stats_acc = None
         self._sync()
@@ -343,17 +378,29 @@ class WavefrontRenderer:
                 stats_acc=stats_acc,
             )
             s += n
-            acc_state.acc = acc
-            acc_state.n_rejected = nrej
             acc_state.spp_done = s
+            if self.group is None:
+                acc_state.acc = acc
+                acc_state.n_rejected = nrej
+            elif checkpoint_path is not None:
+                acc_state.acc, acc_state.n_rejected = self._assemble(
+                    acc, nrej, rej_resumed)
             if checkpoint_path is not None:
                 self._sync()
-                acc_state.save(checkpoint_path)
+                if self.group is None or self.group.rank == 0:
+                    acc_state.save(checkpoint_path)
+        if self.group is not None:
+            acc_state.acc, acc_state.n_rejected = self._assemble(
+                acc, nrej, rej_resumed)
+            nrej = acc_state.n_rejected
+            if stats_acc is not None:
+                stats_acc = {k: sum_over_ranks(self.group, v)
+                             for k, v in stats_acc.items()}
         self._sync()
         dt = time.perf_counter() - t0
 
         img_flat = np.empty((self.n_pix, 3), np.float32)
-        img_flat[self._ids_np] = _to_numpy(acc)
+        img_flat[self._ids_np] = _to_numpy(acc_state.acc)
         img = img_flat.reshape(self.height, self.width, 3) / spp
         n_samples = self.n_pix * max(spp - spp_resumed, 0)
         return RenderResult(
@@ -368,17 +415,51 @@ class WavefrontRenderer:
             ),
         )
 
+    def _assemble(self, acc, nrej, rej_resumed):
+        """The whole frame's sums in lane order and the total rejects, from
+        every rank's block (a collective: every rank calls it)."""
+        full = gather_rows(self.group, acc, block_sizes(self.group, self.n_pix))
+        return full, rej_resumed + sum_over_ranks(self.group, nrej)
+
 
 def render(
     scene, camera, integrate, width, height, spp,
     seed=0, spp_chunk=None, accumulator=None, checkpoint_path=None,
+    sharding=None,
 ):
     """One-shot convenience wrapper around ``WavefrontRenderer``. The device
     is the one ``scene`` and ``camera`` were built on (``device=`` of
     ``SceneBuilder.build`` and ``PinholeCamera.make``; the card by
-    default)."""
-    r = WavefrontRenderer(scene, camera, integrate, width, height, seed=seed)
+    default). ``sharding``: ``pixel_sharding(group)``, the pixel split over
+    a process group (every rank calls ``render``)."""
+    r = WavefrontRenderer(scene, camera, integrate, width, height, seed=seed,
+                          sharding=sharding)
     return r.render(
         spp, spp_chunk=spp_chunk, accumulator=accumulator,
         checkpoint_path=checkpoint_path,
     )
+
+
+def pixel_sharding(group):
+    """The pixel split over ``group`` (a ``parallel.PixelGroup``) for
+    ``render`` / ``WavefrontRenderer``'s ``sharding``: each rank renders
+    one contiguous block of the lanes. The group itself carries everything
+    the split needs, so this returns it."""
+    return group
+
+
+def default_mesh(device=None):
+    """This process's ``PixelGroup``. A world of one, unless a launcher
+    (``torchrun``) set WORLD_SIZE / RANK / LOCAL_RANK: then the process
+    joins that group (``parallel.multihost_init``, if it has not yet) and
+    rank r runs on ``cuda:LOCAL_RANK`` (or the CPU, for ``device="cpu"``)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        backend = None
+        if device is not None and torch.device(device).type == "cpu":
+            backend = "gloo"
+        multihost_init(backend=backend)
+    group = make_mesh(device)
+    if group.device.type == "cuda":
+        # NCCL's collectives run on the current device: the rank's card
+        torch.cuda.set_device(group.device)
+    return group
