@@ -1951,8 +1951,7 @@ def phase_wavefront(device, cfg, cornell, cornell_cam, main_image_mean):
 
 def emit_profile(prof, top, **fields):
     """One ``profile`` line from a finished ``torch.profiler`` trace: device
-    kernels by self device time, the busy share of ``seconds_traced``, and
-    the host operators by self CPU time."""
+    kernels by self device time and the host operators by self CPU time."""
     rows, host = [], []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -1965,19 +1964,15 @@ def emit_profile(prof, top, **fields):
             host.append((e.key, float(e.self_cpu_time_total), int(e.count)))
     rows.sort(key=lambda r: -r[1])
     host.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 1e3
-    traced = fields["seconds_traced"]
     emit("profile", **fields, device_kernels=sum(r[2] for r in rows),
-         device_busy_ms=busy_ms if rows else "not measured",
-         device_busy_share=(busy_ms / (traced * 1e3)) if rows else "not measured",
          top=[dict(kernel=k[:90], ms=us / 1e3, launches=c) for k, us, c in rows[:top]],
          top_host=[dict(op=k[:90], ms=us / 1e3, calls=c) for k, us, c in host[:top]])
 
 
 def phase_profile(device, cfg, cornell, cornell_cam, top=12):
     """Trace the main path (the whole preset, one launch per chunk) and 2
-    samples of the wavefront route: device busy share and the kernels that
-    take most of the device time."""
+    samples of the wavefront route: the kernels that take most of the device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from xraytracer_tpu_torch.camera import PinholeCamera
@@ -4687,8 +4682,7 @@ def phase_vol_entry_points(device, main_image_mean):
 def phase_profile_nee(device, nee_scene, top=12):
     """Trace the nee preset by its default route (the whole preset, one
     launch of het_spp_persistent) and 1 sample of its wavefront route
-    (``with_stats=True``): device busy share and the kernels that take most
-    of the device time."""
+    (``with_stats=True``): the kernels that take most of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from xraytracer_tpu_torch.camera import PinholeCamera
@@ -5044,9 +5038,8 @@ def phase_grad_path(device, cornell, cornell_cam):
 
 def phase_profile_grad(device, cornell, cornell_cam, top=12):
     """Trace one step of each gradient route of ``grad_path`` (after a
-    warm-up and one untraced step): device busy share, the kernels that
-    take most of the device time, the host operators that take most of the
-    host's."""
+    warm-up and one untraced step): the kernels that take most of the
+    device time, the host operators that take most of the host's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5086,9 +5079,8 @@ def phase_profile_grad(device, cornell, cornell_cam, top=12):
 
 def phase_profile_vol_grad(device, nee_scene, top=12):
     """Trace one analytic step of ``vol_grad_path`` (nee, 780x585, after a
-    warm-up and one untraced step): device busy share, the kernels that
-    take most of the device time, the host operators that take most of the
-    host's."""
+    warm-up and one untraced step): the kernels that take most of the
+    device time, the host operators that take most of the host's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

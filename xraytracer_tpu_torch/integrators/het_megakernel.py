@@ -83,6 +83,7 @@ from ..geometry import Rays
 from ..geometry import kernels as sweeps
 from ..media import default_max_steps
 from ..scene.tables import AL_SPHERE, MED_HETEROGENEOUS
+from ..tracing import span
 from . import megakernel as mk
 from .vol_megakernel import _plain_paths, _spp_plain
 
@@ -617,37 +618,43 @@ def try_make_fused_het_value_and_grad(
 
     def live_grid(grid):
         """The live grid and its corner table (None outside the gates)."""
-        grid = grid.detach().contiguous()
-        packed = None if table is None else media_kernels.pack_corners(grid, out=table)
+        with span("grad.pack"):
+            grid = grid.detach().contiguous()
+            packed = None if table is None else media_kernels.pack_corners(grid, out=table)
         return grid, packed
 
     def passes(params, grid, packed, o, d, keys, rfac_of):
         """Pass A over the lanes (o, d, keys), the loss and the residual
         from ``rfac_of(img)``, then pass B: (img, loss, grads)."""
-        o, d = o.contiguous(), d.contiguous()
-        img = het_path(hc, o, d, keys, density=grid, packed=packed)
-        loss, rfac = rfac_of(img)
-        le = "al_le" in params
-        _, gle, g_grid = het_grad_path(hc, o, d, keys, img, rfac.contiguous(), grid,
-                                       le_planes=le, packed=packed)
-        out = {}
-        if "grid_density" in params:
-            out["grid_density"] = g_grid
-        if le:
-            out["al_le"] = torch.zeros_like(params["al_le"])
-            out["al_le"][:n_l] = torch.einsum("nc,ncl->lc", rfac, gle)
+        with span("grad.pass_a"):
+            o, d = o.contiguous(), d.contiguous()
+            img = het_path(hc, o, d, keys, density=grid, packed=packed)
+        with span("grad.loss"):
+            loss, rfac = rfac_of(img)
+        with span("grad.pass_b"):
+            le = "al_le" in params
+            _, gle, g_grid = het_grad_path(hc, o, d, keys, img, rfac.contiguous(), grid,
+                                           le_planes=le, packed=packed)
+            out = {}
+            if "grid_density" in params:
+                out["grid_density"] = g_grid
+            if le:
+                out["al_le"] = torch.zeros_like(params["al_le"])
+                out["al_le"][:n_l] = torch.einsum("nc,ncl->lc", rfac, gle)
         return img, loss, out
 
     @torch.no_grad()
     def step(params, pixel_ids, pixel_xy, target, sample_idx, aux=None):
-        grid, packed = live_grid(params.get("grid_density", tables.grid_density))
-        o, d, keys = camera_rays(seed, pixel_ids, pixel_xy, sample_idx)
-        n = keys.shape[0]
+        with span("grad.step", (sample_idx,)):
+            grid, packed = live_grid(params.get("grid_density", tables.grid_density))
+            with span("grad.camera_rays"):
+                o, d, keys = camera_rays(seed, pixel_ids, pixel_xy, sample_idx)
+            n = keys.shape[0]
 
-        def rfac_of(img):
-            return torch.mean((img - target) ** 2), 2.0 * (img - target) / (n * 3)
+            def rfac_of(img):
+                return torch.mean((img - target) ** 2), 2.0 * (img - target) / (n * 3)
 
-        img, loss, grads = passes(params, grid, packed, o, d, keys, rfac_of)
+            img, loss, grads = passes(params, grid, packed, o, d, keys, rfac_of)
         if aux is not None:
             aux["img"] = img
         return loss, grads
@@ -655,21 +662,22 @@ def try_make_fused_het_value_and_grad(
     @torch.no_grad()
     def step_pair(params, pixel_ids, pixel_xy, target, sample_a, sample_b,
                   aux=None):
-        grid, packed = live_grid(params.get("grid_density", tables.grid_density))
-        a = camera_rays(seed, pixel_ids, pixel_xy, sample_a)
-        b = camera_rays(seed + 7919, pixel_ids, pixel_xy, sample_b)
-        n = a[2].shape[0]
+        with span("grad.step_pair", (sample_a, sample_b)):
+            grid, packed = live_grid(params.get("grid_density", tables.grid_density))
+            with span("grad.camera_rays"):
+                a = camera_rays(seed, pixel_ids, pixel_xy, sample_a)
+                b = camera_rays(seed + 7919, pixel_ids, pixel_xy, sample_b)
+                o, d, keys = (torch.cat([x, y]) for x, y in zip(a, b))
+            n = a[2].shape[0]
 
-        def rfac_of(img):
-            # lanes [0, n) are stream a, [n, 2n) stream b: each replays with
-            # the other's residual
-            img_a, img_b = img[:n], img[n:]
-            loss = torch.mean((img_a - target) * (img_b - target))
-            return loss, torch.cat([img_b - target, img_a - target]) / (n * 3)
+            def rfac_of(img):
+                # lanes [0, n) are stream a, [n, 2n) stream b: each replays
+                # with the other's residual
+                img_a, img_b = img[:n], img[n:]
+                loss = torch.mean((img_a - target) * (img_b - target))
+                return loss, torch.cat([img_b - target, img_a - target]) / (n * 3)
 
-        img, loss, grads = passes(params, grid, packed,
-                                  *(torch.cat([x, y]) for x, y in zip(a, b)),
-                                  rfac_of)
+            img, loss, grads = passes(params, grid, packed, o, d, keys, rfac_of)
         if aux is not None:
             aux["img"], aux["img_b"] = img[:n], img[n:]
         return loss, grads
@@ -678,10 +686,13 @@ def try_make_fused_het_value_and_grad(
     def render_image(grid, pixel_ids, pixel_xy, sample_idx):
         """Pass A alone: the grad-sampling image of ``grid`` (stream
         ``seed``), as ``step`` renders it."""
-        grid, packed = live_grid(grid)
-        o, d, keys = camera_rays(seed, pixel_ids, pixel_xy, sample_idx)
-        return het_path(hc, o.contiguous(), d.contiguous(), keys, density=grid,
-                        packed=packed)
+        with span("grad.render", (sample_idx,)):
+            grid, packed = live_grid(grid)
+            with span("grad.camera_rays"):
+                o, d, keys = camera_rays(seed, pixel_ids, pixel_xy, sample_idx)
+            with span("grad.pass_a"):
+                return het_path(hc, o.contiguous(), d.contiguous(), keys, density=grid,
+                                packed=packed)
 
     step.n_lights = n_l
     step.het_consts = hc

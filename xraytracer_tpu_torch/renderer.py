@@ -54,6 +54,7 @@ from .parallel import (
     sum_over_ranks,
 )
 from .sampling import path_keys, uniform2
+from .tracing import span
 
 # Dedicated RNG site for camera jitter, far above any per-bounce block
 # (bounce i uses sites [i * SITES_PER_BOUNCE, (i+1) * SITES_PER_BOUNCE)).
@@ -171,8 +172,11 @@ class RenderResult:
     image: np.ndarray      # (H, W, 3) float32, averaged radiance
     spp: int
     n_rejected: int
+    # the sample loop, from before its first launch to the sync on the
+    # sums (a split render's gather included): the image is not yet on the
+    # host, so the readback and the assembly are not in it
     seconds: float
-    samples_per_sec: float  # primary camera samples (pixels*spp) per second
+    samples_per_sec: float  # primary camera samples (pixels*spp) per second, over ``seconds``
     # per-bounce counters summed over the whole render (SURVEY.md §5),
     # present when the integrator was built with ``with_stats=True``:
     # e.g. {"rays": (D,), "shadow_rays": (D,), "rr_killed": (D,), ...}
@@ -266,62 +270,65 @@ class WavefrontRenderer:
         self, scene, camera, integrate, width, height, seed=0,
         pixel_order="auto", sharding=None,
     ):
-        self.width = width
-        self.height = height
-        self.n_pix = width * height
-        self.device = camera.c2w.device
-        if scene.tri_v0.device != self.device:
-            raise ValueError(
-                f"scene tables on {scene.tri_v0.device}, camera on {self.device}"
-            )
-        if pixel_order == "auto":
-            # Z-order traversal wherever the table spans several sweep
-            # tiles (> 128 triangles), as in the JAX package
-            big = int((scene.tri_obj >= 0).sum()) > 128
-            pixel_order = "morton" if big else "raster"
-        self.pixel_order = pixel_order
-        ids, xy = pixel_grid(width, height, order=pixel_order, device=self.device)
-        # the lane -> pixel-id map of the whole frame, for assembly
-        self._ids_np = ids.cpu().numpy()
-        self.group = sharding
-        self._block = None
-        if sharding is not None:
-            if sharding.device != self.device:
+        with span("renderer.build"):
+            self.width = width
+            self.height = height
+            self.n_pix = width * height
+            self.device = camera.c2w.device
+            if scene.tri_v0.device != self.device:
                 raise ValueError(
-                    f"rank's device {sharding.device}, camera on {self.device}")
-            self._block = sharded_pixels(sharding, self.n_pix)
-            ids, xy = ids[self._block], xy[self._block]
-        self.pixel_ids, self.pixel_xy = ids, xy
-        self.sample_once = make_sample_fn(
-            scene, camera, integrate, width, height, seed
-        )
-        self.run_chunk = None
-        spec = getattr(integrate, "fused_spec", None)
-        if spec is not None:
-            spec = dict(spec)
-            kind = spec.pop("kind", "surface")
-            if kind == "volume":
-                from .integrators.vol_megakernel import (
-                    try_make_fused_volume_spp_render as make_fused,
+                    f"scene tables on {scene.tri_v0.device}, camera on {self.device}"
                 )
-            elif kind == "het_volume":
-                from .integrators.het_megakernel import (
-                    try_make_fused_het_spp_render as make_fused,
-                )
-            else:
-                from .integrators.megakernel import (
-                    try_make_fused_spp_render as make_fused,
-                )
-            fused = make_fused(
-                camera=camera, width=width, height=height, seed=seed,
-                pixel_order=self.pixel_order, mesh=sharding, **spec,
+            if pixel_order == "auto":
+                # Z-order traversal wherever the table spans several sweep
+                # tiles (> 128 triangles), as in the JAX package
+                big = int((scene.tri_obj >= 0).sum()) > 128
+                pixel_order = "morton" if big else "raster"
+            self.pixel_order = pixel_order
+            with span("renderer.pixel_grid"):
+                ids, xy = pixel_grid(width, height, order=pixel_order, device=self.device)
+                # the lane -> pixel-id map of the whole frame, for assembly
+                self._ids_np = ids.cpu().numpy()
+            self.group = sharding
+            self._block = None
+            if sharding is not None:
+                if sharding.device != self.device:
+                    raise ValueError(
+                        f"rank's device {sharding.device}, camera on {self.device}")
+                self._block = sharded_pixels(sharding, self.n_pix)
+                ids, xy = ids[self._block], xy[self._block]
+            self.pixel_ids, self.pixel_xy = ids, xy
+            self.sample_once = make_sample_fn(
+                scene, camera, integrate, width, height, seed
             )
-            if fused is not None:
-                # its lanes are pixel_grid's (this rank's block of them), so
-                # the frame's lane -> pixel map above assembles its sums too
-                self.run_chunk = make_fused_chunk_fn(fused)
-        if self.run_chunk is None:
-            self.run_chunk = make_chunk_fn(self.sample_once)
+            self.run_chunk = None
+            spec = getattr(integrate, "fused_spec", None)
+            if spec is not None:
+                spec = dict(spec)
+                kind = spec.pop("kind", "surface")
+                if kind == "volume":
+                    from .integrators.vol_megakernel import (
+                        try_make_fused_volume_spp_render as make_fused,
+                    )
+                elif kind == "het_volume":
+                    from .integrators.het_megakernel import (
+                        try_make_fused_het_spp_render as make_fused,
+                    )
+                else:
+                    from .integrators.megakernel import (
+                        try_make_fused_spp_render as make_fused,
+                    )
+                with span("renderer.route"):
+                    fused = make_fused(
+                        camera=camera, width=width, height=height, seed=seed,
+                        pixel_order=self.pixel_order, mesh=sharding, **spec,
+                    )
+                if fused is not None:
+                    # its lanes are pixel_grid's (this rank's block of them), so
+                    # the frame's lane -> pixel map above assembles its sums too
+                    self.run_chunk = make_fused_chunk_fn(fused)
+            if self.run_chunk is None:
+                self.run_chunk = make_chunk_fn(self.sample_once)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -330,65 +337,66 @@ class WavefrontRenderer:
     def render(
         self, spp, spp_chunk=None, accumulator=None, checkpoint_path=None
     ):
-        spp_chunk = spp_chunk or spp
-        acc_state = accumulator or Accumulator(
-            self.width, self.height, device=self.device
-        )
-        new_perm = self._ids_np if self.pixel_order == "morton" else None
-        old_perm = acc_state.pixel_perm
-
-        def _same(a, b):
-            if (a is None) != (b is None):
-                return False
-            return a is None or np.array_equal(np.asarray(a), np.asarray(b))
-
-        if acc_state.spp_done and not _same(old_perm, new_perm):
-            # resumed checkpoint written under a DIFFERENT lane traversal
-            # (e.g. raster-era checkpoint resumed by an auto-morton
-            # renderer): remap the stored sums into this renderer's lane
-            # order so accumulation stays per-pixel consistent
-            a = _to_numpy(acc_state.acc)
-            by_pixel = np.empty_like(a)
-            if old_perm is not None:
-                by_pixel[np.asarray(old_perm)] = a
-            else:
-                by_pixel = a
-            acc_state.acc = torch.as_tensor(
-                by_pixel[new_perm] if new_perm is not None else by_pixel
+        with span("renderer.launch"):
+            spp_chunk = spp_chunk or spp
+            acc_state = accumulator or Accumulator(
+                self.width, self.height, device=self.device
             )
-        acc_state.pixel_perm = new_perm
-        acc = acc_state.acc.to(self.device)
-        nrej = torch.as_tensor(
-            acc_state.n_rejected, dtype=torch.int32, device=self.device
-        ).clone()
-        if self.group is not None:
-            # this rank's block of the sums; its own rejects, counted from 0
-            # and added to the resumed total in _assemble
-            acc = acc[self._block].clone()
-            rej_resumed, nrej = nrej, torch.zeros_like(nrej)
-        spp_resumed = acc_state.spp_done
-        stats_acc = None
-        self._sync()
-        t0 = time.perf_counter()
-        s = acc_state.spp_done
-        while s < spp:
-            n = min(spp_chunk, spp - s)
-            acc, nrej, stats_acc = self.run_chunk(
-                acc, nrej, self.pixel_ids, self.pixel_xy, s, n,
-                stats_acc=stats_acc,
-            )
-            s += n
-            acc_state.spp_done = s
-            if self.group is None:
-                acc_state.acc = acc
-                acc_state.n_rejected = nrej
-            elif checkpoint_path is not None:
-                acc_state.acc, acc_state.n_rejected = self._assemble(
-                    acc, nrej, rej_resumed)
-            if checkpoint_path is not None:
-                self._sync()
-                if self.group is None or self.group.rank == 0:
-                    acc_state.save(checkpoint_path)
+            new_perm = self._ids_np if self.pixel_order == "morton" else None
+            old_perm = acc_state.pixel_perm
+
+            def _same(a, b):
+                if (a is None) != (b is None):
+                    return False
+                return a is None or np.array_equal(np.asarray(a), np.asarray(b))
+
+            if acc_state.spp_done and not _same(old_perm, new_perm):
+                # resumed checkpoint written under a DIFFERENT lane traversal
+                # (e.g. raster-era checkpoint resumed by an auto-morton
+                # renderer): remap the stored sums into this renderer's lane
+                # order so accumulation stays per-pixel consistent
+                a = _to_numpy(acc_state.acc)
+                by_pixel = np.empty_like(a)
+                if old_perm is not None:
+                    by_pixel[np.asarray(old_perm)] = a
+                else:
+                    by_pixel = a
+                acc_state.acc = torch.as_tensor(
+                    by_pixel[new_perm] if new_perm is not None else by_pixel
+                )
+            acc_state.pixel_perm = new_perm
+            acc = acc_state.acc.to(self.device)
+            nrej = torch.as_tensor(
+                acc_state.n_rejected, dtype=torch.int32, device=self.device
+            ).clone()
+            if self.group is not None:
+                # this rank's block of the sums; its own rejects, counted from 0
+                # and added to the resumed total in _assemble
+                acc = acc[self._block].clone()
+                rej_resumed, nrej = nrej, torch.zeros_like(nrej)
+            spp_resumed = acc_state.spp_done
+            stats_acc = None
+            self._sync()
+            t0 = time.perf_counter()
+            s = acc_state.spp_done
+            while s < spp:
+                n = min(spp_chunk, spp - s)
+                acc, nrej, stats_acc = self.run_chunk(
+                    acc, nrej, self.pixel_ids, self.pixel_xy, s, n,
+                    stats_acc=stats_acc,
+                )
+                s += n
+                acc_state.spp_done = s
+                if self.group is None:
+                    acc_state.acc = acc
+                    acc_state.n_rejected = nrej
+                elif checkpoint_path is not None:
+                    acc_state.acc, acc_state.n_rejected = self._assemble(
+                        acc, nrej, rej_resumed)
+                if checkpoint_path is not None:
+                    self._sync()
+                    if self.group is None or self.group.rank == 0:
+                        acc_state.save(checkpoint_path)
         if self.group is not None:
             acc_state.acc, acc_state.n_rejected = self._assemble(
                 acc, nrej, rej_resumed)
@@ -396,12 +404,20 @@ class WavefrontRenderer:
             if stats_acc is not None:
                 stats_acc = {k: sum_over_ranks(self.group, v)
                              for k, v in stats_acc.items()}
-        self._sync()
+        with span("renderer.wait"):
+            self._sync()
         dt = time.perf_counter() - t0
 
         img_flat = np.empty((self.n_pix, 3), np.float32)
-        img_flat[self._ids_np] = _to_numpy(acc_state.acc)
-        img = img_flat.reshape(self.height, self.width, 3) / spp
+        with span("renderer.readback"):
+            sums = _to_numpy(acc_state.acc)
+        with span("renderer.scatter"):
+            img_flat[self._ids_np] = sums
+            # freed before the image is allocated: with a third frame-sized
+            # array alive, the allocator hands the pages back and faults them
+            # in again every frame (~25 ms a Cornell frame, PERF.md)
+            del sums
+            img = img_flat.reshape(self.height, self.width, 3) / spp
         n_samples = self.n_pix * max(spp - spp_resumed, 0)
         return RenderResult(
             image=img,
@@ -418,8 +434,9 @@ class WavefrontRenderer:
     def _assemble(self, acc, nrej, rej_resumed):
         """The whole frame's sums in lane order and the total rejects, from
         every rank's block (a collective: every rank calls it)."""
-        full = gather_rows(self.group, acc, block_sizes(self.group, self.n_pix))
-        return full, rej_resumed + sum_over_ranks(self.group, nrej)
+        with span("parallel.assemble"):
+            full = gather_rows(self.group, acc, block_sizes(self.group, self.n_pix))
+            return full, rej_resumed + sum_over_ranks(self.group, nrej)
 
 
 def render(
@@ -432,12 +449,13 @@ def render(
     ``SceneBuilder.build`` and ``PinholeCamera.make``; the card by
     default). ``sharding``: ``pixel_sharding(group)``, the pixel split over
     a process group (every rank calls ``render``)."""
-    r = WavefrontRenderer(scene, camera, integrate, width, height, seed=seed,
-                          sharding=sharding)
-    return r.render(
-        spp, spp_chunk=spp_chunk, accumulator=accumulator,
-        checkpoint_path=checkpoint_path,
-    )
+    with span("renderer.render", (seed,)):
+        r = WavefrontRenderer(scene, camera, integrate, width, height, seed=seed,
+                              sharding=sharding)
+        return r.render(
+            spp, spp_chunk=spp_chunk, accumulator=accumulator,
+            checkpoint_path=checkpoint_path,
+        )
 
 
 def pixel_sharding(group):
