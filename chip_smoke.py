@@ -36,6 +36,7 @@
                                      # a staged table, with and without
                                      # -fmad=false, counts the pixels where
                                      # K1b parts from K1c, and stops
+    python3 chip_smoke.py --frame    # frame_path alone, and stops
 
 Builds the CUDA kernels of ``xraytracer_tpu_torch/csrc`` from source (five
 libraries: the sweeps, the whole-path surface kernels with the
@@ -53,6 +54,10 @@ entry points:
 * ``main_path``: the ``cornellbox_gi`` preset (780x585, depth 3) by its
   default route, the whole-render kernel ``mega_spp_persistent`` (one launch
   per spp chunk);
+* ``frame_path``: the renderer's assembly on the card (Cornell at spp 3 and
+  512, raster and morton, the nee cloud at spp 3): each image bitwise the
+  host assembly of the same sums (numpy scatter, then ``/ spp``), one
+  frame-sized copy between host and card a render;
 * ``fused_entry_points``: the same scene through ``mega_path`` (one launch
   per sample) and ``mega_spp`` (one launch per chunk);
 * ``wavefront_path``: the same preset with ``fused="never"`` (record sweep +
@@ -1796,6 +1801,140 @@ def phase_main(device, cfg, cornell, cornell_cam):
                 f"cut from {get_preset_spp()} to {cfg.spp}", ref_spp=REF_SPP)
     emit("main_path", **line)
     return counts, result
+
+
+def numpy_lanes(w, h, order):
+    """The lane -> pixel-id map as numpy built it before the renderer made
+    it on the card: row-major ids, or Z-order codes in uint32 and a stable
+    argsort."""
+    import numpy as np
+
+    ids = np.arange(w * h, dtype=np.int32)
+    if order == "morton":
+        i = np.arange(w * h, dtype=np.int64)
+        x, y = (i % w).astype(np.uint32), (i // w).astype(np.uint32)
+
+        def spread(v):
+            v = (v | (v << 8)) & np.uint32(0x00FF00FF)
+            v = (v | (v << 4)) & np.uint32(0x0F0F0F0F)
+            v = (v | (v << 2)) & np.uint32(0x33333333)
+            v = (v | (v << 1)) & np.uint32(0x55555555)
+            return v
+
+        ids = ids[np.argsort((spread(x) << np.uint32(1)) | spread(y),
+                             kind="stable").astype(np.int32)]
+    return ids
+
+
+FRAME_COPY_REPS = 30  # image copies timed per form
+
+
+def phase_frame_path(device):
+    """The renderer's assembly on the card: Cornell at 780x585 by its fused
+    route at spp 3 and MAIN_SPP (raster, the preset's order) and at spp 3 in
+    morton order, and the nee cloud at spp 3. Each image is bitwise the host
+    assembly the renderer made before of the same sums (a numpy scatter by
+    the numpy-built lane map, then ``/ spp``), the lane map on the card is
+    the numpy-built one, and each render, through ``WavefrontRenderer`` and
+    through the one-shot ``render``, copies one frame-sized array between
+    host and card. Also counts the values where a division by a Python
+    number (on the card PyTorch multiplies by its reciprocal) would part
+    from numpy, and times the image's copy into a new pageable numpy array
+    against one through a pinned buffer of PyTorch's caching host
+    allocator."""
+    import numpy as np
+    import torch
+
+    from xraytracer_tpu_torch import cli
+    from xraytracer_tpu_torch import renderer as rmod
+    from xraytracer_tpu_torch.camera import PinholeCamera
+    from xraytracer_tpu_torch.config import get_preset
+    from xraytracer_tpu_torch.scene.builder import scene_statics
+
+    cases = []
+    scenes = {}
+    for preset, spp, order in (("cornellbox_gi", 3, "auto"),
+                               ("cornellbox_gi", MAIN_SPP, "auto"),
+                               ("cornellbox_gi", 3, "morton"), ("nee", 3, "auto")):
+        label = f"{preset} spp {spp} {order}"
+        cfg = get_preset(preset, spp=spp)
+        if preset not in scenes:
+            tables, camk = cli.build_scene(cfg, device=device)
+            statics = scene_statics(tables)
+            cam = PinholeCamera.make(cfg.width / cfg.height, device=device, **camk)
+            scenes[preset] = (tables, cam, cli.make_integrator(cfg, tables, statics))
+        tables, cam, integ = scenes[preset]
+        check(getattr(integ, "fused_spec", None) is not None,
+              f"frame_path: {label} did not take a fused route")
+        w, h = cfg.width, cfg.height
+        r = rmod.WavefrontRenderer(tables, cam, integ, w, h, seed=cfg.seed,
+                                   pixel_order=order)
+        check(r.run_chunk is not None and r.pixel_order in ("raster", "morton"),
+              f"frame_path: {label}: no route")
+        r.render(1)  # warm-up
+        acc = rmod.Accumulator(w, h, device=device)
+        rmod.reset_counts()
+        res = r.render(spp, accumulator=acc)
+        copies = rmod.counts()["frame_copies"]
+        lanes = numpy_lanes(w, h, r.pixel_order)
+        on_card = r.pixel_ids.cpu().numpy()
+        check(np.array_equal(on_card, lanes),
+              f"frame_path: {label}: the lane map on the card is not numpy's")
+        check(np.array_equal(r.pixel_xy.cpu().numpy(), np.stack(
+            [(lanes % w).astype(np.float32), (lanes // w).astype(np.float32)], -1)),
+              f"frame_path: {label}: the pixel xy on the card are not numpy's")
+        host = np.empty((w * h, 3), np.float32)
+        host[lanes] = acc.acc.cpu().numpy()
+        want = host.reshape(h, w, 3) / spp
+        differ = int((res.image != want).sum())
+        by_pixel = torch.from_numpy(host).to(device)
+        recip = int(((by_pixel / float(spp)).cpu().numpy().reshape(h, w, 3) != want).sum())
+        check(differ == 0, f"frame_path: {label}: {differ} values differ from "
+              f"the host assembly")
+        check(copies == 1, f"frame_path: {label}: {copies} frame copies")
+        check(res.image.flags.owndata and res.n_rejected == 0,
+              f"frame_path: {label}: image not its own or samples rejected")
+        one_shot = None
+        if order == "auto":
+            rmod.reset_counts()
+            one = rmod.render(tables, cam, integ, w, h, spp, seed=cfg.seed)
+            one_shot = rmod.counts()["frame_copies"]
+            check(one_shot == 1, f"frame_path: {label}: one-shot render made "
+                  f"{one_shot} frame copies")
+            check(np.array_equal(one.image, res.image),
+                  f"frame_path: {label}: the one-shot render's image differs")
+        cases.append(dict(case=label, order=r.pixel_order, width=w, height=h,
+                          values_differing=differ, frame_copies=copies,
+                          one_shot_frame_copies=one_shot,
+                          reciprocal_divide_values_differing=recip,
+                          mean_radiance=float(res.image.mean())))
+
+    # the image's one copy, two forms, in turns, on the last 780x585 image
+    img = torch.from_numpy(want).to(device)
+
+    def pageable():
+        out = np.empty(want.shape, np.float32)
+        torch.from_numpy(out).copy_(img)
+        return out
+
+    def pinned():
+        buf = torch.empty(want.shape, dtype=torch.float32, pin_memory=True)
+        buf.copy_(img, non_blocking=True)
+        torch.cuda.synchronize(device)
+        return buf.numpy().copy()
+
+    times = {"pageable": [], "pinned": []}
+    for _ in range(FRAME_COPY_REPS):
+        for name, fn in (("pageable", pageable), ("pinned", pinned)):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(out, want), f"frame_path: {name} copy differs")
+    emit("frame_path", cases=cases, image_bytes=int(want.nbytes),
+         copy_ms_median={k: float(np.median(v)) for k, v in times.items()},
+         copy_ms_min={k: float(np.min(v)) for k, v in times.items()},
+         copy_reps=FRAME_COPY_REPS)
 
 
 def get_preset_spp():
@@ -6035,6 +6174,10 @@ def main():
                     help="run shard_path's split over every card of the box, one "
                          "rank per card under NCCL (two cards or more), against "
                          "the single render, and stop (no result line)")
+    ap.add_argument("--frame", action="store_true",
+                    help="run frame_path alone (the renderer's assembly on "
+                         "the card, bitwise the host assembly, one frame "
+                         "copy a render) and stop (no result line)")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed launches per kernel and case (median)")
     args = ap.parse_args()
@@ -6083,6 +6226,10 @@ def main():
         phase_shard_nccl()
         emit("total", seconds=time.perf_counter() - t_start)
         return 0
+    if args.frame:
+        phase_frame_path(device)
+        emit("total", seconds=time.perf_counter() - t_start)
+        return 0
     cfg = get_preset("cornellbox_gi", width=WIDTH, height=HEIGHT, spp=MAIN_SPP)
     check((cfg.width, cfg.height, cfg.max_depth, cfg.integrator) ==
           (WIDTH, HEIGHT, DEPTH, "gi"), "cornellbox_gi preset changed")
@@ -6113,6 +6260,7 @@ def main():
     by_path = {}
     by_path["main_path"], main_result = phase_main(device, cfg, cornell, cornell_cam)
     main_mean = float(main_result.image.mean())
+    phase_frame_path(device)
     by_path["fused_entry_points"] = phase_fused_entry_points(
         device, cfg, cornell, cornell_cam, main_mean)
     by_path.update(phase_wavefront(device, cfg, cornell, cornell_cam, main_mean))

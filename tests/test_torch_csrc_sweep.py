@@ -288,7 +288,7 @@ def _sphere_rays(tables, lib):
     their hits and the shadow rays from the hits to the light, both from
     1e-4 above the hit."""
     w, h = 64, 48
-    ids = _morton_argsort(w, h)
+    ids = _morton_argsort(w, h, torch.device("cpu")).numpy()
     x = (ids % w + 0.5) / w * 2 - 1
     y = 1 - (ids // w + 0.5) / h * 2
     tan = np.tan(np.radians(22.5))

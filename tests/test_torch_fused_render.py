@@ -28,6 +28,7 @@ from xraytracer_tpu_torch.camera import PinholeCamera
 from xraytracer_tpu_torch.config import get_preset
 from xraytracer_tpu_torch.integrators import make_path_integrator
 from xraytracer_tpu_torch.integrators import megakernel as mk
+from xraytracer_tpu_torch import renderer
 from xraytracer_tpu_torch.renderer import (
     CAMERA_SITE,
     Accumulator,
@@ -281,6 +282,35 @@ def test_renderer_fused_route_resumes_from_a_checkpoint(cornell, tmp_path):
     assert Accumulator.load(ck, device="cpu").spp_done == spp
     one_chunk = renderer().render(spp, spp_chunk=spp)
     np.testing.assert_allclose(one_chunk.image, straight.image, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("spp", [1, 3, 7])
+@pytest.mark.parametrize("order", ["raster", "morton"])
+@pytest.mark.parametrize("route", ["fused", "wavefront"])
+def test_image_is_the_host_assembly_of_its_sums(cornell, route, order, spp):
+    """The renderer assembles on the sums' device: the image is bitwise the
+    host assembly the renderer made before (a numpy scatter by the lane map,
+    then ``/ spp``) of the same sums, and a render without a checkpoint
+    copies one frame-sized array, the image, between host and device."""
+    w, h = 16, 12
+    tables, st = cornell
+    if route == "fused":
+        integ = _forced(make_path_integrator(tables, st, 2, nee=True), tables, st, 2)
+    else:
+        integ = make_path_integrator(tables, st, 2, nee=True, fused="never")
+    r = WavefrontRenderer(tables, _cam(w, h), integ, w, h, seed=6, pixel_order=order)
+    acc = Accumulator(w, h, device="cpu")
+    renderer.reset_counts()
+    out = r.render(spp, spp_chunk=2, accumulator=acc)
+    assert renderer.counts() == {"frame_copies": 1}
+    from test_torch_slice import _numpy_lanes
+
+    img = np.empty((w * h, 3), np.float32)
+    img[_numpy_lanes(w, h, order)] = acc.acc.numpy()
+    np.testing.assert_array_equal(out.image, img.reshape(h, w, 3) / spp)
+    assert out.image.dtype == np.float32 and out.image.flags.owndata
+    assert out.image.mean() > 1e-3
+    np.testing.assert_array_equal(acc.image(), out.image)
 
 
 def test_fused_chunk_runner_updates_in_place():

@@ -18,6 +18,7 @@ from xraytracer_tpu_torch.integrators import (
     make_normal_integrator,
     make_path_integrator,
 )
+from xraytracer_tpu_torch import renderer
 from xraytracer_tpu_torch.renderer import (
     Accumulator,
     WavefrontRenderer,
@@ -214,6 +215,75 @@ def test_raster_and_morton_orders_bitwise(cornell, tmp_path):
     np.testing.assert_array_equal(xy[:, 0].numpy(), ids.numpy() % w)
     np.testing.assert_array_equal(xy[:, 1].numpy(), ids.numpy() // w)
     assert ids[:4].tolist() == [0, w, 1, w + 1]  # Z-order: y is the low bit
+
+
+def _numpy_lanes(w, h, order):
+    """The lane -> pixel-id map as numpy built it: Z-order codes in uint32,
+    a stable argsort."""
+    ids = np.arange(w * h, dtype=np.int32)
+    if order == "morton":
+        i = np.arange(w * h, dtype=np.int64)
+        x, y = (i % w).astype(np.uint32), (i // w).astype(np.uint32)
+
+        def spread(v):
+            v = (v | (v << 8)) & np.uint32(0x00FF00FF)
+            v = (v | (v << 4)) & np.uint32(0x0F0F0F0F)
+            v = (v | (v << 2)) & np.uint32(0x33333333)
+            v = (v | (v << 1)) & np.uint32(0x55555555)
+            return v
+
+        code = (spread(x) << np.uint32(1)) | spread(y)
+        ids = ids[np.argsort(code, kind="stable").astype(np.int32)]
+    return ids
+
+
+@pytest.mark.parametrize("order", ["raster", "morton"])
+@pytest.mark.parametrize("w, h", [(16, 12), (7, 5), (1, 9), (300, 257)])
+def test_pixel_grid_is_the_numpy_built_map(order, w, h):
+    ids, xy = pixel_grid(w, h, order=order, device="cpu")
+    want = _numpy_lanes(w, h, order)
+    assert ids.dtype == torch.int32 and xy.dtype == torch.float32
+    np.testing.assert_array_equal(ids.numpy(), want)
+    np.testing.assert_array_equal(
+        xy.numpy(),
+        np.stack([(want % w).astype(np.float32), (want // w).astype(np.float32)], -1))
+
+
+@pytest.mark.parametrize("written, resumed", [
+    ("raster", "morton"), ("morton", "raster"), ("morton", "morton")])
+def test_checkpoint_resumed_across_orders(cornell, tmp_path, written, resumed):
+    """A checkpoint resumes under either lane order, bitwise the straight
+    render; a checkpoint's save and load copy the sums (and a morton lane
+    map) between host and device, the resumed render only its image."""
+    w, h, spp = 16, 12, 3
+    tables, st = cornell
+    integ = make_path_integrator(tables, st, 2, nee=True)
+
+    def renderer_in(order):
+        return WavefrontRenderer(tables, _cam(w, h), integ, w, h, seed=2,
+                                 pixel_order=order)
+
+    straight = renderer_in(resumed).render(spp)
+    ck = str(tmp_path / "acc.npz")
+    per_map = int(written == "morton")
+    renderer.reset_counts()
+    part = renderer_in(written).render(2, checkpoint_path=ck)
+    assert renderer.counts() == {"frame_copies": 2 + per_map}
+    acc = Accumulator.load(ck, device="cpu")
+    assert renderer.counts() == {"frame_copies": 3 + 2 * per_map}
+    if written == "morton":
+        np.testing.assert_array_equal(acc.pixel_perm.numpy(), _numpy_lanes(w, h, "morton"))
+    else:
+        assert acc.pixel_perm is None
+    np.testing.assert_array_equal(acc.image(), part.image)
+    renderer.reset_counts()
+    out = renderer_in(resumed).render(spp, accumulator=acc)
+    assert renderer.counts() == {"frame_copies": 1}
+    np.testing.assert_array_equal(out.image, straight.image)
+    # the accumulator now holds the resumed renderer's lane order
+    img = np.empty((w * h, 3), np.float32)
+    img[_numpy_lanes(w, h, resumed)] = acc.acc.numpy()
+    np.testing.assert_array_equal(acc.image(), img.reshape(h, w, 3) / spp)
 
 
 def test_normal_integrator_and_rejection(cornell):

@@ -434,13 +434,13 @@ def try_make_fused_het_path_integrator(
 def try_make_fused_het_spp_render(
     scene, statics, camera, width, height, seed, max_depth, nee=False,
     max_steps=None, n_iterations=None, force=False, pixel_order="raster",
-    persistent=True, grad_sampling=False, mesh=None,
+    persistent=True, grad_sampling=False, mesh=None, lanes=None,
 ):
     """``render_chunk(s0, n_spp) -> (radiance_sum (N, 3), n_rejected)``
     running a whole chunk of samples in one launch (see
     ``megakernel.make_spp_render``; ``mesh``: this rank's block of the
-    lanes), or None if the scene or the camera does
-    not qualify. ``persistent=True`` (default) merges the sample loop into
+    lanes; ``lanes``: the renderer's own), or None if the scene or the
+    camera does not qualify. ``persistent=True`` (default) merges the sample loop into
     the path loop: the same image, and a lane whose path ends early (most
     of them: camera rays that miss the cloud, roulette) starts its next
     sample instead of waiting for the longest path of its warp."""
@@ -456,6 +456,7 @@ def try_make_fused_het_spp_render(
     return mk.make_spp_render(
         lambda view, s0, n_spp: kernel(hc, view, s0, n_spp),
         camera, width, height, seed, pixel_order=pixel_order, mesh=mesh,
+        lanes=lanes,
     )
 
 

@@ -713,13 +713,13 @@ def try_make_fused_spp_render(
     scene, statics, camera, width, height, seed, max_depth, nee=True,
     le_depth0_only=None, cosine_sampling=False, force=False,
     pixel_order="raster", nee_mode="all", persistent=True, pick_weights=None,
-    mesh=None,
+    mesh=None, lanes=None,
 ):
     """``render_chunk(s0, n_spp) -> (radiance_sum (N, 3), n_rejected)``
     running a whole chunk of samples in one launch, or None if the scene or
     the camera does not qualify. Draws the per-sample stream of the
     wavefront route (pixfold = pcg(pcg(seed) + pixel id), key =
-    pcg(pixfold + s)). ``mesh``: see ``make_spp_render``."""
+    pcg(pixfold + s)). ``mesh``, ``lanes``: see ``make_spp_render``."""
     if not force and not scene.tri_v0.is_cuda:
         return None
     if not isinstance(camera, PinholeCamera):
@@ -734,11 +734,12 @@ def try_make_fused_spp_render(
     return make_spp_render(
         lambda view, s0, n_spp: kernel(fs, view, s0, n_spp),
         camera, width, height, seed, pixel_order=pixel_order, mesh=mesh,
+        lanes=lanes,
     )
 
 
 def make_spp_render(launch, camera, width, height, seed, pixel_order="raster",
-                    mesh=None):
+                    mesh=None, lanes=None):
     """Assemble ``render_chunk(s0, n_spp)`` around any whole-path spp kernel
     ``launch(view, s0, n_spp) -> (sums (N, 3), rejects (N,))``: the camera
     constants, rounded as the kernels expect them, the per-pixel PCG fold
@@ -746,10 +747,11 @@ def make_spp_render(launch, camera, width, height, seed, pixel_order="raster",
 
     ``pixel_order``: "raster" or "morton", the lane traversal of
     ``renderer.pixel_grid``. Radiance comes back in LANE order;
-    ``render_chunk.pixel_ids`` is the lane -> pixel-id map for assembly.
-    A pixel's stream depends only on its id, so images are bitwise
-    identical across orders. No lane padding is needed on the card, so
-    ``render_chunk.n_pad`` is the lane count.
+    ``render_chunk.pixel_ids`` is the lane -> pixel-id map for assembly, a
+    host array copied from the card when read. A pixel's stream depends only
+    on its id, so images are bitwise identical across orders. No lane
+    padding is needed on the card, so ``render_chunk.n_pad`` is the lane
+    count.
 
     ``mesh``: a ``parallel.PixelGroup``, the multi-GPU fused path. The view
     then holds only this rank's contiguous block of the lanes
@@ -758,6 +760,11 @@ def make_spp_render(launch, camera, width, height, seed, pixel_order="raster",
     lane -> pixel-id map (``render_chunk.sharded`` is set). Each lane owns
     its pixel, so a block's sums are bitwise the single-device kernel's on
     the same pixels.
+
+    ``lanes``: the ``(pixel ids, pixel xy)`` that ``pixel_grid`` made on
+    the camera's device for ``pixel_order``, already cut to this rank's
+    block under ``mesh`` (a ``WavefrontRenderer`` hands over its own);
+    None makes them here.
     """
     from ..renderer import CAMERA_SITE, pixel_grid
 
@@ -771,12 +778,15 @@ def make_spp_render(launch, camera, width, height, seed, pixel_order="raster",
         # other three constants
         np.asarray([scale, scale / aspect, 1.0 / width, 1.0 / height]),
     ]).astype(np.float32)
-    ids, pxy = pixel_grid(width, height, order=pixel_order, device=dev)
-    if mesh is not None:
-        from ..parallel import sharded_pixels
+    if lanes is not None:
+        ids, pxy = lanes
+    else:
+        ids, pxy = pixel_grid(width, height, order=pixel_order, device=dev)
+        if mesh is not None:
+            from ..parallel import sharded_pixels
 
-        blk = sharded_pixels(mesh, ids.shape[0])
-        ids, pxy = ids[blk], pxy[blk]
+            blk = sharded_pixels(mesh, ids.shape[0])
+            ids, pxy = ids[blk], pxy[blk]
     pixfold = rng._pcg((rng.base_key(seed) + rng._u32(ids)) & _MASK)
     n = ids.shape[0]
     view = RenderView(
@@ -785,13 +795,30 @@ def make_spp_render(launch, camera, width, height, seed, pixel_order="raster",
         px=pxy[:, 0].contiguous(), py=pxy[:, 1].contiguous(),
     )
 
-    def render_chunk(s0, n_spp):
-        rad, rej = launch(view, s0, n_spp)
+    return SppRender(launch, view, ids, pixel_order, mesh is not None)
+
+
+class SppRender:
+    """``render_chunk(s0, n_spp) -> (sums (N, 3), n_rejected)`` over one
+    view (``make_spp_render``), with the view's attributes."""
+
+    def __init__(self, launch, view, ids, pixel_order, sharded):
+        self._launch = launch
+        self._ids = ids
+        self.view = view
+        self.n_pad = view.n
+        self.pixel_order = pixel_order
+        self.sharded = sharded
+
+    def __call__(self, s0, n_spp):
+        rad, rej = self._launch(self.view, s0, n_spp)
         return rad, rej.sum()
 
-    render_chunk.n_pad = n
-    render_chunk.sharded = mesh is not None
-    render_chunk.pixel_ids = ids.cpu().numpy()
-    render_chunk.pixel_order = pixel_order
-    render_chunk.view = view
-    return render_chunk
+    @property
+    def pixel_ids(self):
+        """The lane -> pixel-id map as a host array, copied from the view's
+        device when read: a render assembles from the map on the card."""
+        from ..renderer import count_frame_copy
+
+        count_frame_copy()
+        return self._ids.cpu().numpy()

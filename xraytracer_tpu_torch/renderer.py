@@ -21,6 +21,11 @@ Checkpoint/resume (absent in the reference, SURVEY.md §5): spp is
 accumulated in chunks; the accumulator (sum buffer + rejected count +
 samples done) round-trips through an .npz file between chunks.
 
+A frame stays on the render's device until it is an image: the lane map
+is made there, the sums are un-permuted (lanes out of raster order only)
+and divided by spp there, and one copy brings the image to the host
+(``counts()["frame_copies"]`` counts the frame-sized copies).
+
 An integrator that carries ``fused_spec`` (``make_path_integrator`` or
 ``make_volume_integrator`` with ``fused="auto"`` on an eligible scene) is
 upgraded to its whole-render kernel: one launch per spp chunk
@@ -61,27 +66,29 @@ from .tracing import span
 CAMERA_SITE = 0x7FFF0000
 
 
-def _morton_argsort(width, height):
+def _morton_argsort(width, height, device):
     """Lane order that visits pixels along a Z-order curve: consecutive
     lanes then cover compact 2-D pixel BLOCKS instead of scanlines, which
-    keeps the rays of one thread block close together on large meshes."""
-    ids = np.arange(width * height, dtype=np.int64)
-    x = (ids % width).astype(np.uint32)
-    y = (ids // width).astype(np.uint32)
+    keeps the rays of one thread block close together on large meshes.
+    Made on ``device``; the codes are uint32 values held in int64, the same
+    whatever the frame's size, and the sort is stable."""
+    ids = torch.arange(width * height, dtype=torch.int64, device=device)
 
     def spread(v):
-        v = (v | (v << 8)) & np.uint32(0x00FF00FF)
-        v = (v | (v << 4)) & np.uint32(0x0F0F0F0F)
-        v = (v | (v << 2)) & np.uint32(0x33333333)
-        v = (v | (v << 1)) & np.uint32(0x55555555)
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        v = (v | (v << 1)) & 0x55555555
         return v
 
-    code = (spread(x) << np.uint32(1)) | spread(y)
-    return np.argsort(code, kind="stable").astype(np.int32)
+    code = (spread(ids % width) << 1) | spread(ids // width)
+    return torch.sort(code, stable=True).indices.to(torch.int32)
 
 
 def pixel_grid(width, height, order="raster", device=None):
-    """Global pixel ids and pixel (x, y), in lane-traversal order.
+    """Global pixel ids (int32) and pixel (x, y) (float32), in
+    lane-traversal order, made on ``device`` (ids below 2^24 are exact in
+    float32).
 
     Pixel IDs stay row-major (matching the reference's ``j + width * i``
     seeding, Src/renderer.cpp:36) — per-pixel RNG streams and therefore
@@ -89,15 +96,12 @@ def pixel_grid(width, height, order="raster", device=None):
     changes ("morton" visits pixels Z-order, and image assembly
     un-permutes)."""
     device = resolve_device(device)
-    ids = np.arange(width * height, dtype=np.int32)
     if order == "morton":
-        ids = ids[_morton_argsort(width, height)]
-    x = (ids % width).astype(np.float32)
-    y = (ids // width).astype(np.float32)
-    return (
-        torch.as_tensor(ids).to(device),
-        torch.as_tensor(np.stack([x, y], axis=-1)).to(device),
-    )
+        ids = _morton_argsort(width, height, device)
+    else:
+        ids = torch.arange(width * height, dtype=torch.int32, device=device)
+    xy = torch.stack([ids % width, ids // width], dim=-1).to(torch.float32)
+    return ids, xy
 
 
 def make_sample_fn(scene, camera, integrate, width, height, seed):
@@ -194,8 +198,72 @@ class RenderResult:
         return t
 
 
+# frame-sized copies between host memory and a render's device (the sums,
+# the image, a lane map) since the last ``reset_counts()``: a plain int,
+# bumped exactly where the renderer's code makes one (and on the CPU at the
+# same places, so a CPU render counts what it would on the card)
+COPIES = {"frame_copies": 0}
+
+
+def reset_counts():
+    """Set the frame-copy count to 0."""
+    COPIES["frame_copies"] = 0
+
+
+def counts():
+    """``{"frame_copies": n}`` since the last reset."""
+    return dict(COPIES)
+
+
+def count_frame_copy():
+    """Count one frame-sized copy between host memory and a device."""
+    COPIES["frame_copies"] += 1
+
+
 def _to_numpy(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _to_host(t):
+    """A frame-sized tensor as a numpy array (one counted copy)."""
+    count_frame_copy()
+    return _to_numpy(t)
+
+
+def _to_device(t, device):
+    """A frame-sized tensor or numpy array on ``device`` (one counted copy,
+    unless it is a tensor there already)."""
+    if torch.is_tensor(t) and t.device == device:
+        return t
+    count_frame_copy()
+    return torch.as_tensor(t).to(device)
+
+
+def _same_lanes(a, b):
+    """Whether two lane -> pixel-id maps (None: raster) are the same."""
+    if a is None or b is None:
+        return a is b
+    return a is b or torch.equal(_to_device(a, b.device), b)
+
+
+def _image(sums, lanes, width, height, spp):
+    """The (H, W, 3) float32 image of lane-order ``sums``, made on their
+    device: un-permuted by the lane -> pixel-id map ``lanes`` (None: the
+    lanes are in raster order and nothing moves), divided by ``spp``, then
+    copied once into a host array of its own. The divisor is a tensor on the
+    device, so the division is IEEE's, bitwise numpy's ``float32 / spp``:
+    by a Python number, PyTorch's CUDA division multiplies by the
+    reciprocal instead."""
+    with span("renderer.scatter"):
+        if lanes is not None:
+            sums = torch.empty_like(sums).index_copy_(
+                0, _to_device(lanes, sums.device).long(), sums)
+        img = sums / torch.full((), spp, dtype=sums.dtype, device=sums.device)
+    with span("renderer.readback"):
+        out = np.empty((height, width, 3), np.float32)
+        count_frame_copy()
+        torch.from_numpy(out).copy_(img.view(height, width, 3))
+    return out
 
 
 class Accumulator:
@@ -213,17 +281,18 @@ class Accumulator:
         self.acc = acc
         self.n_rejected = n_rejected
         self.spp_done = spp_done
-        # lane -> pixel-id map when the renderer traverses pixels out of
-        # raster order (pixel_grid(order="morton")); None = raster
+        # lane -> pixel-id map (an int tensor) when the renderer traverses
+        # pixels out of raster order (pixel_grid(order="morton")); None =
+        # raster
         self.pixel_perm = pixel_perm
 
     def save(self, path):
         extra = {}
         if self.pixel_perm is not None:
-            extra["pixel_perm"] = np.asarray(self.pixel_perm)
+            extra["pixel_perm"] = _to_host(self.pixel_perm)
         np.savez(
             path,
-            acc=_to_numpy(self.acc),
+            acc=_to_host(self.acc),
             n_rejected=_to_numpy(self.n_rejected),
             spp_done=self.spp_done,
             width=self.width,
@@ -237,20 +306,16 @@ class Accumulator:
         with np.load(path) as z:
             return Accumulator(
                 int(z["width"]), int(z["height"]),
-                acc=torch.as_tensor(z["acc"]).to(device),
+                acc=_to_device(z["acc"], device),
                 n_rejected=int(z["n_rejected"]),
                 spp_done=int(z["spp_done"]),
-                pixel_perm=z["pixel_perm"] if "pixel_perm" in z else None,
+                pixel_perm=(_to_device(z["pixel_perm"], device)
+                            if "pixel_perm" in z else None),
             )
 
     def image(self):
-        spp = max(self.spp_done, 1)
-        a = _to_numpy(self.acc)
-        if self.pixel_perm is not None:
-            out = np.empty_like(a)
-            out[self.pixel_perm] = a
-            a = out
-        return a.reshape(self.height, self.width, 3) / spp
+        return _image(self.acc, self.pixel_perm, self.width, self.height,
+                      max(self.spp_done, 1))
 
 
 class WavefrontRenderer:
@@ -287,8 +352,9 @@ class WavefrontRenderer:
             self.pixel_order = pixel_order
             with span("renderer.pixel_grid"):
                 ids, xy = pixel_grid(width, height, order=pixel_order, device=self.device)
-                # the lane -> pixel-id map of the whole frame, for assembly
-                self._ids_np = ids.cpu().numpy()
+            # the whole frame's lane -> pixel-id map, for assembly and
+            # checkpoints; None where the lanes are in raster order
+            self._lanes = ids if pixel_order == "morton" else None
             self.group = sharding
             self._block = None
             if sharding is not None:
@@ -319,13 +385,14 @@ class WavefrontRenderer:
                         try_make_fused_spp_render as make_fused,
                     )
                 with span("renderer.route"):
+                    # its lanes are this renderer's (this rank's block of
+                    # them), so the frame's lane map above assembles its sums
                     fused = make_fused(
                         camera=camera, width=width, height=height, seed=seed,
-                        pixel_order=self.pixel_order, mesh=sharding, **spec,
+                        pixel_order=self.pixel_order, mesh=sharding,
+                        lanes=(ids, xy), **spec,
                     )
                 if fused is not None:
-                    # its lanes are pixel_grid's (this rank's block of them), so
-                    # the frame's lane -> pixel map above assembles its sums too
                     self.run_chunk = make_fused_chunk_fn(fused)
             if self.run_chunk is None:
                 self.run_chunk = make_chunk_fn(self.sample_once)
@@ -342,30 +409,20 @@ class WavefrontRenderer:
             acc_state = accumulator or Accumulator(
                 self.width, self.height, device=self.device
             )
-            new_perm = self._ids_np if self.pixel_order == "morton" else None
-            old_perm = acc_state.pixel_perm
-
-            def _same(a, b):
-                if (a is None) != (b is None):
-                    return False
-                return a is None or np.array_equal(np.asarray(a), np.asarray(b))
-
-            if acc_state.spp_done and not _same(old_perm, new_perm):
+            old_perm, new_perm = acc_state.pixel_perm, self._lanes
+            if acc_state.spp_done and not _same_lanes(old_perm, new_perm):
                 # resumed checkpoint written under a DIFFERENT lane traversal
                 # (e.g. raster-era checkpoint resumed by an auto-morton
                 # renderer): remap the stored sums into this renderer's lane
-                # order so accumulation stays per-pixel consistent
-                a = _to_numpy(acc_state.acc)
-                by_pixel = np.empty_like(a)
+                # order, on the device, so accumulation stays per-pixel
+                # consistent
+                a = _to_device(acc_state.acc, self.device)
                 if old_perm is not None:
-                    by_pixel[np.asarray(old_perm)] = a
-                else:
-                    by_pixel = a
-                acc_state.acc = torch.as_tensor(
-                    by_pixel[new_perm] if new_perm is not None else by_pixel
-                )
+                    a = torch.empty_like(a).index_copy_(
+                        0, _to_device(old_perm, self.device).long(), a)
+                acc_state.acc = a if new_perm is None else a[new_perm.long()]
             acc_state.pixel_perm = new_perm
-            acc = acc_state.acc.to(self.device)
+            acc = _to_device(acc_state.acc, self.device)
             nrej = torch.as_tensor(
                 acc_state.n_rejected, dtype=torch.int32, device=self.device
             ).clone()
@@ -408,16 +465,7 @@ class WavefrontRenderer:
             self._sync()
         dt = time.perf_counter() - t0
 
-        img_flat = np.empty((self.n_pix, 3), np.float32)
-        with span("renderer.readback"):
-            sums = _to_numpy(acc_state.acc)
-        with span("renderer.scatter"):
-            img_flat[self._ids_np] = sums
-            # freed before the image is allocated: with a third frame-sized
-            # array alive, the allocator hands the pages back and faults them
-            # in again every frame (~25 ms a Cornell frame, PERF.md)
-            del sums
-            img = img_flat.reshape(self.height, self.width, 3) / spp
+        img = _image(acc_state.acc, self._lanes, self.width, self.height, spp)
         n_samples = self.n_pix * max(spp - spp_resumed, 0)
         return RenderResult(
             image=img,
