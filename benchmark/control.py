@@ -50,12 +50,11 @@ def control_numbers(cell, seed, n_frames, device, dt=None, fault=None):
         return _grad_control(cell, seed, device, dt, fault)
     cfg = cell["config"]
     r = cfg["render"]
-    n_pix = int(r["width"]) * int(r["height"])
-    k = int(cfg["check"]["pixels_per_frame"])
+    strata = inputs.pixel_strata(cfg) if "strata" in cfg["check"] else None
     grid = inputs.density_grid(cfg)
     low = manifest.reference(cfg["reference"]).make(cfg, grid, device, dt)
     records = [{"seed": inputs.frame_seed(seed, i),
-                "pixels": inputs.checked_pixels(seed, i, n_pix, k)}
+                "pixels": inputs.frame_pixels(cfg, strata, seed, i)}
                for i in range(n_frames)]
     seeds = [rec["seed"] for rec in records for _ in rec["pixels"]]
     pixels = np.concatenate([rec["pixels"] for rec in records])
@@ -63,8 +62,10 @@ def control_numbers(cell, seed, n_frames, device, dt=None, fault=None):
     with torch.no_grad():
         vals, _ = low.render_pixels(seeds, pixels, spp)
     vals = vals.float().cpu().numpy() * (1.01 if fault == "answer_altered" else 1.0)
-    for i, rec in enumerate(records):
-        rec["values"] = vals[i * k:(i + 1) * k]
+    start = 0
+    for rec in records:
+        rec["values"] = vals[start:start + len(rec["pixels"])]
+        start += len(rec["pixels"])
     numbers, _ = check.compare_render(cfg, grid, records, device)
     return {name: v for name, (v, _) in numbers.items()}
 

@@ -2,20 +2,24 @@
 reference, computed once the window has closed and the program's state is
 freed.
 
-A render loop: the sampled pixels of every frame of the window; the number
-compared is ``img_rel_l1``, the sum over the checked pixels and channels of
-|program - reference| over the sum of |reference|, both the mean of the
-frame's full spp at the frame's seed (limit: the configuration's
-``check.limit``). A fit loop: its first steps from the seed's start, and the
-window's last step from the state it started from (``compare_grad``; limits:
-``check.grad_limits``). ``PERF.md`` gives the readings the limits were set
-from.
+A render loop: the sampled pixels of every frame of the window, program
+and reference both the mean of the frame's full spp at the frame's seed;
+the number compared is ``img_rel_l1``, the sum over the checked pixels and
+channels of |program - reference| over the sum of |reference| (limit:
+``check.limit``). A configuration with ``check.strata`` draws its pixels by
+what they see (``inputs.pixel_strata``): ``img_rel_l1`` then pools the
+pixels that see no light, and the pixels that see a light are held to
+``light_gap_samples`` (limit: ``check.light_limit``), since a light seen
+directly holds nearly all of a pooled sum and hides the rest. A fit loop:
+its first steps from the seed's start, and the window's last step from the
+state it started from (``compare_grad``; limits: ``check.grad_limits``).
+``PERF.md`` gives the readings the limits were set from.
 """
 
 import numpy as np
 import torch
 
-from . import manifest
+from . import inputs, manifest
 
 
 def pixel_batch(records):
@@ -34,30 +38,74 @@ def rel_l1(values, expect):
     return float(np.abs(values.astype(np.float64) - expect).sum()) / max(den, 1e-30)
 
 
+def light_gap(values, expect, config):
+    """The widest gap over the checked pixels that see a light, in samples:
+    the L1 over the channels of |program - reference| over one sample's
+    share (1 / spp) of the brightest light's Le; 0 with no such pixel."""
+    if len(values) == 0:
+        return 0.0
+    le = max(float(np.sum(x["le"])) for x in config["scene"]["sphere_lights"])
+    gap = np.abs(values.astype(np.float64) - expect).sum(-1)
+    return float(gap.max()) * int(config["render"]["spp"]) / le
+
+
+def render_limits(config):
+    """{number: limit} of a render loop's check."""
+    chk = config["check"]
+    out = {"img_rel_l1": float(chk["limit"])}
+    if "strata" in chk:
+        out["light_gap_samples"] = float(chk["light_limit"])
+    return out
+
+
 def compare(cell, loop, records, device):
     """(numbers, tally): numbers = {name: (value, limit)} of the loop's
     check, tally the reference's counts per unit of the window's work (a
     frame, a step) for the rooflines."""
     if cell["traffic"]["loop"] == "grad":
         return compare_grad(cell, loop, device)
-    numbers, ref = compare_render(cell["config"], loop.grid, records, device)
-    r = cell["config"]["render"]
+    cfg = cell["config"]
+    numbers, ref = compare_render(cfg, loop.grid, records, device)
+    r = cfg["render"]
+    n_pix = int(r["width"]) * int(r["height"])
+    if "count" in cfg:
+        return numbers, frame_count(cfg, ref)
     n_checked = sum(len(rec.get("pixels", ())) for rec in records)
-    scale = int(r["width"]) * int(r["height"]) / max(n_checked, 1)
+    scale = n_pix / max(n_checked, 1)
     return numbers, {k: v * scale for k, v in ref.tally.items()}
+
+
+def frame_count(config, ref):
+    """The reference's counts for one frame, from a pass that only counts:
+    the fixed pixels of ``inputs.count_pixels`` at ``count.spp`` samples and
+    seed 0, scaled to the frame's pixels and spp. The same in every run,
+    whatever ``--seed`` draws."""
+    r, spp = config["render"], int(config["count"]["spp"])
+    px = inputs.count_pixels(config)
+    for k in ref.tally:
+        ref.tally[k] = 0
+    with torch.no_grad():
+        ref.render_pixels([0] * len(px), px, spp)
+    scale = int(r["width"]) * int(r["height"]) * int(r["spp"]) / (len(px) * spp)
+    return {k: v * scale for k, v in ref.tally.items()}
 
 
 def compare_render(config, grid, records, device, dt=torch.float32):
     """(numbers, reference) of a render loop's frames."""
     ref = manifest.reference(config["reference"]).make(config, grid, device, dt)
     seeds, pixels, values = pixel_batch(records)
-    limit = float(config["check"]["limit"])
+    limits = render_limits(config)
     if len(pixels) == 0:
-        return {"img_rel_l1": (float("inf"), limit)}, ref
+        return {name: (float("inf"), lim) for name, lim in limits.items()}, ref
     with torch.no_grad():
         expect, _ = ref.render_pixels(seeds, pixels, int(config["render"]["spp"]))
     expect = expect.cpu().numpy()
-    return {"img_rel_l1": (rel_l1(values, expect), limit)}, ref
+    if "strata" not in config["check"]:
+        return {"img_rel_l1": (rel_l1(values, expect), limits["img_rel_l1"])}, ref
+    light = np.isin(pixels, inputs.pixel_strata(config)["lights"])
+    return {"img_rel_l1": (rel_l1(values[~light], expect[~light]), limits["img_rel_l1"]),
+            "light_gap_samples": (light_gap(values[light], expect[light], config),
+                                  limits["light_gap_samples"])}, ref
 
 
 def compare_grad(cell, loop, device):

@@ -56,6 +56,72 @@ def checked_pixels(seed, frame, n_pix, k):
     return np.sort(rng.choice(n_pix, size=k, replace=False)).astype(np.int64)
 
 
+def pixel_strata(config):
+    """The frame's pixel ids (sorted) by what the ray through each pixel's
+    centre meets first: ``lights`` (a sphere light), ``media`` (a medium's
+    box), ``rest`` (neither). Worked out in float64 from the configuration's
+    camera and scene, as ``reference/common.py`` builds the camera, not
+    from an image; for scenes of media and sphere lights alone."""
+    sc = config["scene"]
+    if set(sc) - {"density_grid", "media", "sphere_lights"}:
+        raise ValueError("pixel strata are worked out for media and sphere lights alone")
+    r, cam = config["render"], config["camera"]
+    w, h = int(r["width"]), int(r["height"])
+    ids = np.arange(w * h, dtype=np.int64)
+    scale = np.tan(0.5 * np.radians(float(cam["fov_deg"])))
+    su, sv = (ids % w + 0.5) / w, (ids // w + 0.5) / h
+    local = np.stack([(2.0 * su - 1.0) * scale, (1.0 - 2.0 * sv) * scale * h / w,
+                      -np.ones(w * h)], axis=-1)
+    c2w = np.asarray(cam["c2w"], np.float64).reshape(4, 4)
+    d = local @ c2w[:3, :3]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = c2w[3, :3]
+    t_light = np.full(w * h, np.inf)
+    for light in sc.get("sphere_lights", []):
+        oc = o - np.asarray(light["center"], np.float64)
+        b = d @ oc
+        disc = b * b - (oc @ oc - float(light["radius"]) ** 2)
+        t = -b - np.sqrt(np.maximum(disc, 0.0))
+        t_light = np.where((disc > 0) & (t > 0), np.minimum(t_light, t), t_light)
+    t_box = np.full(w * h, np.inf)
+    inv = 1.0 / np.where(d == 0, 1e-300, d)
+    for med in sc.get("media", []):
+        box = sc["density_grid"] if med["kind"] == "heterogeneous" else med
+        t0 = (np.asarray(box["bmin"], np.float64) - o) * inv
+        t1 = (np.asarray(box["bmax"], np.float64) - o) * inv
+        near = np.maximum(np.minimum(t0, t1).max(-1), 0.0)
+        far = np.maximum(t0, t1).min(-1)
+        t_box = np.where(far >= near, np.minimum(t_box, near), t_box)
+    lights = t_light < t_box
+    media = np.isfinite(t_box) & ~lights
+    return {"lights": ids[lights], "media": ids[media], "rest": ids[~lights & ~media]}
+
+
+def frame_pixels(config, strata, seed, frame):
+    """The pixels of frame ``frame`` that the check compares, drawn from
+    (seed, frame): ``check.pixels_per_frame`` over the whole frame, or, where
+    the configuration has ``check.strata``, that many from each stratum of
+    ``strata`` (``pixel_strata``; all of a stratum that holds fewer)."""
+    chk = config["check"]
+    if "strata" not in chk:
+        r = config["render"]
+        return checked_pixels(seed, frame, int(r["width"]) * int(r["height"]),
+                              int(chk["pixels_per_frame"]))
+    rng = np.random.default_rng([int(seed) & 0xFFFFFFFFFFFF, int(frame)])
+    out = [rng.choice(strata[name], size=min(int(k), len(strata[name])), replace=False)
+           for name, k in sorted(chk["strata"].items())]
+    return np.sort(np.concatenate(out)).astype(np.int64)
+
+
+def count_pixels(config):
+    """The fixed pixels a configuration's ``count`` tallies the work of a
+    frame over: every ``stride``-th pixel of every ``stride``-th row."""
+    r, s = config["render"], int(config["count"]["stride"])
+    w, h = int(r["width"]), int(r["height"])
+    rows, cols = np.meshgrid(np.arange(0, h, s), np.arange(0, w, s), indexing="ij")
+    return (rows * w + cols).reshape(-1).astype(np.int64)
+
+
 def start_logits(shape, seed, traffic, device):
     """A fit's start: density logits drawn on ``device`` from the seed,
     N(start_logit_mean, start_logit_std) per cell."""

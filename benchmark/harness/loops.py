@@ -40,7 +40,7 @@ class RenderLoop:
         self.width, self.height, self.spp = int(r["width"]), int(r["height"]), int(r["spp"])
         self.n_pix = self.width * self.height
         self.sharding = sharding
-        self.k = int(cfg["check"]["pixels_per_frame"])
+        self.strata = inputs.pixel_strata(cfg) if "strata" in cfg["check"] else None
 
     def warm_up(self):
         self.step(self.WARM_UP)
@@ -60,7 +60,7 @@ class RenderLoop:
             rec["ok"] = False
             return rec
         image, n_rej = out
-        px = inputs.checked_pixels(self.seed, i, self.n_pix, self.k)
+        px = inputs.frame_pixels(self.config, self.strata, self.seed, i)
         vals = image.reshape(-1, 3)[px].astype(np.float32)
         rec.update(seed=inputs.frame_seed(self.seed, i), pixels=px, values=vals,
                    rejected=int(n_rej), ok=bool(np.isfinite(vals).all()) and n_rej == 0)

@@ -12,7 +12,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("workload", ["cornell_gi.render", "cloud_nee.render", "cloud_nee.grad"])
+@pytest.mark.parametrize("workload", ["cornell_gi.render", "cloud_nee.render", "cloud_nee.grad",
+                                      "cloud_volume.render"])
 def test_short_run_on_the_card(card, workload):
     out = subprocess.run([sys.executable, "benchmark/run.py", "--workload", workload,
                           "--seed", str(2**31 + 101), "--seconds", "2", "--trace", "0"],

@@ -32,14 +32,15 @@ def _run(workload, fault, monkeypatch):
 
 
 @pytest.mark.parametrize("workload", ["cornell_gi.render", "cloud_nee.render",
-                                      "cloud_nee.grad"])
+                                      "cloud_volume.render", "cloud_nee.grad"])
 def test_unbroken_run_is_correct(workload, monkeypatch):
     res = _run(workload, None, monkeypatch)
     assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1
 
 
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch", "answer_altered"])
-@pytest.mark.parametrize("workload", ["cornell_gi.render", "cloud_nee.render"])
+@pytest.mark.parametrize("workload", ["cornell_gi.render", "cloud_nee.render",
+                                      "cloud_volume.render"])
 def test_broken_run_is_not_correct(workload, fault, monkeypatch):
     res = _run(workload, fault, monkeypatch)
     assert not res["correct"]

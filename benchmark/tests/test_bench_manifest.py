@@ -3,10 +3,14 @@ and a cell added as files and manifest entries alone are picked up, with no
 file of the harness edited. And the manifest keeps to its own rules."""
 
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
+
+import pytest
+import torch
 
 from benchmark.harness import manifest
 
@@ -19,48 +23,126 @@ import torch
 torch.set_num_threads(1)
 from benchmark.harness import manifest, run_cell
 assert manifest.ROOT == {root!r}
-cell = manifest.cell(manifest.load(), "dummy_box.render_short")
+cell = manifest.cell(manifest.load(), "{name}.render_short")
 res = run_cell.execute(cell, 11, 0.2, 0, time.time(), "cpu", require_route=False)
 print(json.dumps(res))
 """
 
+TESTS = os.path.dirname(os.path.abspath(__file__))
 
-def test_a_cell_added_by_files_alone_runs(tmp_path):
+
+def _cornell_copy():
+    with open(os.path.join(ROOT, "benchmark", "configs", "cornell_gi.json")) as f:
+        cfg = json.load(f)
+    cfg["scene"]["quad_lights"][0]["le"] = [5.0, 5.0, 5.0]
+    cfg["render"].update(width=8, height=6, spp=2, max_depth=2)
+    return cfg, None
+
+
+def _cloud_without_nee():
+    """The published cloud without NEE, lit as ``tiny.py`` lights it."""
+    from tiny import tiny_config
+
+    return tiny_config("cloud_volume"), None
+
+
+def _box_without_nee():
+    """The vpt preset's homogeneous box under its quad light
+    (``scene/presets.py`` ``build_vpt_scene``, ``preset_vpt``'s camera),
+    with a reference of its own (``box_reference.py``)."""
+    cfg = {
+        "scene": {
+            "media": [{"kind": "homogeneous", "g": 0.0, "absorption": [0.5] * 3,
+                       "scattering": [0.5] * 3, "bmin": [-1.0] * 3, "bmax": [1.0] * 3}],
+            "quad_lights": [{"v0": [0.5, 1.4, 0.5], "v1": [-0.5, 1.4, 0.5],
+                             "v2": [0.5, 1.4, -0.5], "le": [10.0] * 3}]},
+        "camera": {"c2w": [1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 5.0, 1],
+                   "fov_deg": 2.0 * 180.0 * math.atan(1.0 / 3.0) / math.pi},
+        "render": {"width": 12, "height": 12, "spp": 4, "max_depth": 4, "integrator": "vpt"},
+        "route": {"render": {"vol_spp_persistent": 1}},
+        "check": {"pixels_per_frame": 144, "limit": 0.005},
+    }
+    return cfg, os.path.join(TESTS, "box_reference.py")
+
+
+@pytest.mark.parametrize("make", [_cornell_copy, _cloud_without_nee, _box_without_nee],
+                         ids=["cornell_copy", "cloud_without_nee", "box_without_nee"])
+def test_a_cell_added_by_files_alone_runs(tmp_path, make):
+    """A configuration (with its plain reference, where it needs a new one),
+    a traffic mix, a metric and a cell, added as files and manifest entries
+    alone, run correct."""
     root = str(tmp_path)
     os.symlink(os.path.join(ROOT, "xraytracer_tpu_torch"), os.path.join(root, "xraytracer_tpu_torch"))
     shutil.copytree(os.path.join(ROOT, "benchmark"), os.path.join(root, "benchmark"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = os.path.join(root, "benchmark")
-    with open(os.path.join(ROOT, "benchmark", "configs", "cornell_gi.json")) as f:
-        cfg = json.load(f)
-    cfg["name"] = "dummy_box"
-    cfg["scene"]["quad_lights"][0]["le"] = [5.0, 5.0, 5.0]
-    cfg["render"].update(width=8, height=6, spp=2, max_depth=2)
-    with open(os.path.join(bench, "configs", "dummy_box.json"), "w") as f:
+    cfg, reference = make()
+    name = "dummy_" + make.__name__.strip("_")
+    cfg["name"] = name
+    if reference is not None:
+        cfg["reference"] = name
+        shutil.copy(reference, os.path.join(bench, "reference", name + ".py"))
+    with open(os.path.join(bench, "configs", name + ".json"), "w") as f:
         json.dump(cfg, f)
     with open(os.path.join(bench, "traffic", "render_short.json"), "w") as f:
         json.dump({"loop": "render", "why": "a test mix"}, f)
     with open(os.path.join(bench, "metrics", "frames_done.py"), "w") as f:
         f.write('UNIT = "frames"\n\n\ndef read(run):\n    return len(run.records)\n')
     m = manifest.load()
-    m["configs"].append({"name": "dummy_box", "source": "a test", "file": "benchmark/configs/dummy_box.json",
+    m["configs"].append({"name": name, "source": "a test", "file": f"benchmark/configs/{name}.json",
                          "reduced": [], "why": "a test"})
-    m["workloads"].append({"name": "dummy_box.render_short", "config": "dummy_box",
+    m["workloads"].append({"name": name + ".render_short", "config": name,
                            "traffic": "render_short", "chips": 1, "why": "a test"})
     m["end_to_end"].append({"name": "frames_done", "unit": "frames", "better": "higher",
                             "bound": 0.25, "source": "host_clock",
-                            "workloads": ["dummy_box.render_short"]})
+                            "workloads": [name + ".render_short"]})
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(m, f)
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    out = subprocess.run([sys.executable, "-c", RUN.format(root=root)], cwd=root, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", RUN.format(root=root, name=name)], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["correct"]
+    assert res["correct"], res["checks"]
     assert res["metrics"]["frames_done"]["value"] == res["attempted"] >= 1
     assert set(res["metrics"]) == {"frames_done", "setup_s"}   # the others list their cells
+
+
+@pytest.mark.parametrize("name, preset", [
+    ("cornell_gi", "preset_cornellbox"), ("cloud_nee", "preset_nee"),
+    ("cloud_volume", "preset_volume"), ("vpt_box", "preset_vpt")])
+def test_configurations_build_their_presets_tables(name, preset):
+    """Each configuration's scene, as ``build_scene`` builds it, is the
+    port's preset's, bit for bit; the box is a file of the test's own."""
+    from xraytracer_tpu_torch.scene import presets
+
+    from benchmark.harness import inputs, port
+
+    if name == "vpt_box":
+        cfg = _box_without_nee()[0]
+    else:
+        with open(os.path.join(ROOT, "benchmark", "configs", name + ".json")) as f:
+            cfg = json.load(f)
+    tables = port.build_scene(cfg, inputs.density_grid(cfg), "cpu")[0]
+    expect = getattr(presets, preset)("cpu")[0]
+    for field, x, y in zip(expect._fields, tables, expect):
+        assert x.dtype == y.dtype and torch.equal(x, y), field
+
+
+@pytest.mark.parametrize("where, key, value", [
+    ("render", "integrator", "vpt_mis"), ("media", "kind", "homogenous"),
+    ("media", "variant", "achromatic"), ("scene", "spheres", [])])
+def test_build_scene_refuses_what_it_does_not_know(where, key, value):
+    from benchmark.harness import port
+
+    cfg = _box_without_nee()[0]
+    if where == "media":
+        cfg["scene"]["media"][0][key] = value
+    else:
+        cfg[where][key] = value
+    with pytest.raises(ValueError):
+        port.build_scene(cfg, None, "cpu")
 
 
 def test_manifest_rules():
